@@ -1,0 +1,223 @@
+"""Dataset base: the on-disk sequence contract.
+
+Same directory layout and accessor surface as
+``mav_detection_tpu.data.dataset``:
+
+    <base>/<sequence>/
+        images/image_%05d.png        segmentations/image_%05d.png
+        depths/image_%05d.pfm        optical-flow/image_%05d.flo   (GT flow)
+        annotation/image_%05d.txt    results/image_%05d.json
+
+Not ported yet (each raises rather than degrading silently): recovering
+frames from ``recording.mp4`` (``data/preprocessing.py``) and SkyUNet
+inference for sequences without precomputed sky masks
+(``models/sky_segmentation.py``). Image IO needs ``imageio``; there is no
+OpenCV fallback.
+"""
+from __future__ import annotations
+
+import glob
+import logging
+import os
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from mav_detection_tpu_torch.core.flo import read_flow
+from mav_detection_tpu_torch.core.rectangle import Rectangle, parse_yolo_annotation
+
+
+def imread(path: str) -> np.ndarray:
+    """Read an image as BGR uint8 (the upstream code is BGR-ordered)."""
+    import imageio.v3 as iio
+
+    img = iio.imread(path)
+    if img.ndim == 3 and img.shape[2] >= 3:
+        img = img[..., :3][..., ::-1]  # RGB -> BGR
+    return np.ascontiguousarray(img)
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    import imageio.v3 as iio
+
+    out = img
+    if img.ndim == 3 and img.shape[2] >= 3:
+        out = img[..., :3][..., ::-1]  # BGR -> RGB
+    iio.imwrite(path, out.astype(np.uint8))
+
+
+def read_pfm(path: str) -> np.ndarray:
+    """Portable float map reader (AirSim depth format)."""
+    with open(path, "rb") as f:
+        header = f.readline().decode("ascii").strip()
+        if header not in ("Pf", "PF"):
+            raise ValueError(f"not a PFM file: {path}")
+        channels = 3 if header == "PF" else 1
+        dims = f.readline().decode("ascii").strip()
+        while dims.startswith("#"):
+            dims = f.readline().decode("ascii").strip()
+        w, h = (int(v) for v in dims.split())
+        scale = float(f.readline().decode("ascii").strip())
+        little_endian = scale < 0
+        data = np.fromfile(f, "<f4" if little_endian else ">f4", count=w * h * channels)
+    img = data.reshape(h, w) if channels == 1 else data.reshape(h, w, 3)
+    # PFM stores rows bottom-to-top
+    return np.ascontiguousarray(img[::-1])
+
+
+def write_pfm(path: str, img: np.ndarray) -> None:
+    img = np.asarray(img, np.float32)
+    with open(path, "wb") as f:
+        f.write(b"Pf\n")
+        f.write(f"{img.shape[1]} {img.shape[0]}\n".encode())
+        f.write(b"-1.0\n")
+        img[::-1].astype("<f4").tofile(f)
+
+
+def create_if_not_exists(d: str) -> None:
+    os.makedirs(d, exist_ok=True)
+
+
+def sorted_glob(pattern: str) -> List[str]:
+    out = glob.glob(pattern)
+    out.sort()
+    return out
+
+
+def _resize_nearest(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Nearest-neighbour resize with OpenCV's INTER_NEAREST sampling
+    (source index ``floor(dst * src / dst_size)``)."""
+    sh, sw = img.shape[:2]
+    if (sh, sw) == (h, w):
+        return img
+    rows = np.minimum((np.arange(h) * (sh / h)).astype(np.int64), sh - 1)
+    cols = np.minimum((np.arange(w) * (sw / w)).astype(np.int64), sw - 1)
+    return img[rows][:, cols]
+
+
+class Dataset:
+    """Filesystem-backed sequence with the upstream accessor surface."""
+
+    def __init__(self, base_path: str, logger: Optional[logging.Logger],
+                 sequence: str, img_dir: str = "/images", seq_dir: str = "") -> None:
+        self.logger = logger or logging.getLogger("mav_detection_tpu_torch.data")
+        self.sequence = sequence or self.get_default_sequence()
+        self.base_path = base_path
+        self.seq_path = f"{base_path}{seq_dir}/{self.sequence}"
+        self.img_path = f"{self.seq_path}{img_dir}"
+        self.seg_path = f"{self.seq_path}/segmentations"
+        self.depth_path = f"{self.seq_path}/depths"
+        self.depth_vis_path = f"{self.seq_path}/depth-vis"
+        self.gt_of_path = f"{self.seq_path}/optical-flow"
+        self.gt_of_vis_path = f"{self.seq_path}/optical-flow-vis"
+        self.ann_path = f"{self.seq_path}/annotation"
+        self.results_path = f"{self.seq_path}/results"
+        self.result_imgs_path = f"{self.seq_path}/result-images"
+        self.state_path = f"{self.seq_path}/states"
+        self.half_res_img_path = f"{self.seq_path}/half-res-images"
+        self.hrnet_out = f"{self.half_res_img_path}/hrnet"
+        self.flow_path = f"{self.img_path}/output/inference/run.epoch-0-flow-field"
+
+        self._frames = sorted_glob(f"{self.img_path}/image_*.png")
+        self.N = len(self._frames)
+        if self.N == 0:
+            if os.path.exists(f"{self.seq_path}/recording.mp4"):
+                raise NotImplementedError(
+                    f"{self.seq_path} holds only recording.mp4: frame recovery "
+                    "(data/preprocessing.py) is not ported yet")
+            raise FileNotFoundError(
+                f"no frames found under {self.img_path} (expected image_%05d.png)")
+
+        first = imread(self._frames[0])
+        self.capture_shape: Tuple[int, int, int] = first.shape  # (h, w, c)
+        self.capture_size: Tuple[int, int] = (first.shape[1], first.shape[0])  # (w, h)
+        self.resolution = np.array([first.shape[1], first.shape[0]])
+        self.start_frame = 0
+        self.ground_truth: List[Rectangle] = []
+
+        create_if_not_exists(self.results_path)
+        create_if_not_exists(self.ann_path)
+
+    # ---------------------------------------------------------- accessors
+    def get_default_sequence(self) -> str:
+        raise NotImplementedError
+
+    def get_frame(self, i: int) -> np.ndarray:
+        return imread(self._frames[i])
+
+    def get_flow_uv(self, i: int) -> np.ndarray:
+        """Precomputed dense flow for frame pair (i, i+1) (FlowNet2-layout
+        ``.flo``); the pipeline falls back to on-device flow when missing."""
+        return read_flow(f"{self.flow_path}/{i:06d}.flo")
+
+    def has_precomputed_flow(self) -> bool:
+        return os.path.exists(f"{self.flow_path}/000000.flo")
+
+    def get_flow_path(self, i: int) -> Optional[str]:
+        path = f"{self.flow_path}/{i:06d}.flo"
+        return path if os.path.exists(path) else None
+
+    def get_gt_of_path(self, i: int) -> Optional[str]:
+        path = f"{self.gt_of_path}/image_{i:05d}.flo"
+        return path if os.path.exists(path) else None
+
+    def get_annotation(self, i: int, ann_path: Optional[str] = None) -> List[Rectangle]:
+        if ann_path is None:
+            ann_path = f"{self.ann_path}/image_{i:05d}.txt"
+        if not os.path.exists(ann_path):
+            self.ground_truth = []
+            return []
+        self.ground_truth = parse_yolo_annotation(ann_path, self.resolution)
+        return self.ground_truth
+
+    def get_segmentation(self, i: int) -> np.ndarray:
+        path = f"{self.seg_path}/image_{i:05d}.png"
+        if not os.path.exists(path):
+            return np.zeros(self.capture_shape, np.uint8)
+        return imread(path)
+
+    def get_sky_segmentation(self, i: int) -> np.ndarray:
+        """HRNet-layout sky mask: prediction PNG where sky = (180, 130, *)
+        RGB. Sequences without one need SkyUNet inference, not ported yet."""
+        path = f"{self.hrnet_out}/image_{i:05d}_prediction.png"
+        if not os.path.exists(path):
+            raise NotImplementedError(
+                f"no precomputed sky mask at {path}: SkyUNet inference "
+                "(models/sky_segmentation.py) is not ported yet")
+        w, h = self.capture_size
+        img = _resize_nearest(imread(path), w, h)
+        # imread returns BGR; HRNet sky color is RGB (180, 130, ...)
+        return (img[..., 2] == 180) & (img[..., 1] == 130)
+
+    def get_depth(self, i: int) -> Optional[np.ndarray]:
+        path = f"{self.depth_path}/image_{i:05d}.pfm"
+        if not os.path.exists(path):
+            return None
+        return read_pfm(path)
+
+    def get_gt_foe(self, i: int) -> Optional[Tuple[float, float]]:
+        return None
+
+    def get_gt_of(self, i: int) -> Optional[np.ndarray]:
+        path = f"{self.gt_of_path}/image_{i:05d}.flo"
+        if not os.path.exists(path):
+            return None
+        return read_flow(path)
+
+    def get_orientation(self, i: int) -> Optional[np.ndarray]:
+        return None
+
+    def get_angular_difference(self, first: int, second: int) -> np.ndarray:
+        return np.zeros(3)
+
+    def get_time(self, i: int) -> float:
+        return float(i) / 30.0
+
+    def get_delta_time(self, i: int) -> float:
+        return self.get_time(max(i, 1)) - self.get_time(max(i, 1) - 1)
+
+    def get_state_filenames(self) -> List[str]:
+        return []
+
+    def release(self) -> None:
+        pass

@@ -1,0 +1,19 @@
+from mav_detection_tpu_torch.ops.flow.farneback import (
+    FarnebackParams,
+    farneback_flow,
+    farneback_flow_batch,
+    tuned_flow_params,
+)
+from mav_detection_tpu_torch.ops.flow.farneback_iter import (
+    farneback_iterate,
+    farneback_iterate_ref,
+)
+
+__all__ = [
+    "FarnebackParams",
+    "farneback_flow",
+    "farneback_flow_batch",
+    "tuned_flow_params",
+    "farneback_iterate",
+    "farneback_iterate_ref",
+]

@@ -1,0 +1,339 @@
+"""Farneback dense optical flow (channel-first batched path).
+
+Port of ``mav_detection_tpu/ops/flow/farneback.py``'s product path,
+``farneback_flow_batch`` -> ``_farneback_cf``: per pyramid level, the fused
+smooth+resize+polynomial-expansion matrices (two fp32 matmuls per frame set)
+and then the solver iterations (``farneback_iterate``: CUDA kernels on the
+card, the plain PyTorch version on the CPU). Flow fields match
+``cv2.calcOpticalFlowFarneback`` conventions (Farneback 2003, OpenCV's
+numerics) exactly as the reference's do.
+
+The numpy matrix builders are copies of the reference's, so both packages
+build bit-identical matrices. Matmuls run in full fp32 (the reference's
+``precision="highest"``); ``resolve_device`` turns TF32 off on the card.
+
+Only the reference's fused-iteration algorithm is ported (its ``warp="pallas"``
+configuration: refit every iteration, separable warp clipped to
+``max_shift``). The XLA-path solvers (``gather``/``separable``/``auto`` warps
+and the ``fast`` refit schedule) and the TPU-only knobs (``band_rows``,
+``pallas_halo``, ``interpret``, ``precision``) have no counterpart here.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from mav_detection_tpu_torch.ops.flow.farneback_iter import farneback_iterate
+from mav_detection_tpu_torch.utils.device import resolve_device
+
+
+@dataclass(frozen=True)
+class FarnebackParams:
+    """Algorithmic knobs of ``mav_detection_tpu``'s ``FarnebackParams``
+    (same names, defaults and meaning)."""
+    pyr_scale: float = 0.4
+    levels: int = 1
+    winsize: int = 12
+    iterations: int = 10
+    poly_n: int = 8
+    poly_sigma: float = 1.2
+    # the refit warp's integer displacement is clipped to +-max_shift
+    max_shift: int = 16
+    # per-level iteration schedule, finest level first (levels beyond the
+    # tuple reuse its last entry); overrides ``iterations`` when set
+    level_iters: Optional[Tuple[int, ...]] = None
+
+
+def tuned_flow_params(h: int, w: int) -> FarnebackParams:
+    """The reference's product configuration keyed by frame size
+    (``mav_detection_tpu.ops.flow.tuned_flow_params``): up to 752x480 the
+    refit window is +-8 px; larger frames (1920x1024) move ~12 px at the
+    finest level and take +-16. Both use three layers (levels=2,
+    pyr_scale=0.5) and the (2, 3, 8) finest-first iteration schedule."""
+    sched = (2, 3, 8)
+    if h * w <= 480 * 752:
+        return FarnebackParams(levels=2, pyr_scale=0.5, iterations=6,
+                               max_shift=8, level_iters=sched)
+    return FarnebackParams(levels=2, pyr_scale=0.5, iterations=6,
+                           max_shift=16, level_iters=sched)
+
+
+# ----------------------------------------------------------------- helpers
+def _poly_exp_moments(n: int, sigma: float) -> Tuple[np.ndarray, np.ndarray, np.ndarray, float, float, float, float]:
+    """Gaussian applicability weights and the inverse-moment constants.
+
+    Solves the weighted least-squares normal equations for the 2-D basis
+    {1, x, y, x^2, y^2, xy}; by symmetry only four inverse entries survive.
+    """
+    k = np.arange(-n, n + 1, dtype=np.float64)
+    g = np.exp(-(k ** 2) / (2.0 * sigma ** 2))
+    g /= g.sum()
+    xg = k * g
+    xxg = k ** 2 * g
+
+    m2 = float((g * k ** 2).sum())
+    m4 = float((g * k ** 4).sum())
+
+    # G over (1, x^2, y^2) block and the diagonal x / y / xy entries.
+    G3 = np.array(
+        [
+            [1.0, m2, m2],
+            [m2, m4, m2 * m2],
+            [m2, m2 * m2, m4],
+        ]
+    )
+    invG3 = np.linalg.inv(G3)
+    ig11 = 1.0 / m2
+    ig03 = float(invG3[0, 1])
+    ig33 = float(invG3[1, 1])
+    ig55 = 1.0 / (m2 * m2)
+    return g.astype(np.float32), xg.astype(np.float32), xxg.astype(np.float32), ig11, ig03, ig33, ig55
+
+
+_BAND_CACHE: dict = {}
+
+
+def _band_matrix_np(size: int, kernel: Tuple[float, ...], mode: str) -> np.ndarray:
+    """Host-side (size, size) matrix B with B @ x == correlate1d(x, kernel)."""
+    key = (size, kernel, mode)
+    cached = _BAND_CACHE.get(key)
+    if cached is not None:
+        return cached
+    n = len(kernel) // 2
+    B = np.zeros((size, size), np.float32)
+    for i in range(size):
+        for t, kv in enumerate(kernel):
+            j = i + t - n
+            if mode == "edge":
+                j = min(max(j, 0), size - 1)
+            elif mode == "reflect":  # reflect-101: -1 -> 1, size -> size-2
+                if j < 0:
+                    j = -j
+                if j > size - 1:
+                    j = 2 * (size - 1) - j
+            B[i, j] += kv
+    _BAND_CACHE[key] = B
+    return B
+
+
+def _gaussian_kernel(ksize: int, sigma: float) -> Tuple[float, ...]:
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    k = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2
+    g = np.exp(-(k ** 2) / (2 * sigma ** 2))
+    g /= g.sum()
+    return tuple(float(v) for v in g)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix_np(src: int, dst: int) -> np.ndarray:
+    """(dst, src) dense matrix M with M @ x == jax.image.resize(x, dst,
+    "linear") along one axis: triangle kernel on half-pixel sample points
+    with antialiasing on downscale, edge weights renormalized."""
+    if src == dst:
+        return np.eye(src, dtype=np.float64)
+    inv_scale = src / dst
+    kernel_scale = max(inv_scale, 1.0)  # antialias widens on downscale
+    sample_f = (np.arange(dst, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample_f[np.newaxis, :]
+               - np.arange(src, dtype=np.float64)[:, np.newaxis]) / kernel_scale
+    weights = np.maximum(0.0, 1.0 - x)  # triangle
+    total = weights.sum(axis=0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                       weights / np.where(total != 0, total, 1), 0.0)
+    valid = (sample_f >= -0.5) & (sample_f <= src - 0.5)
+    return np.where(valid[np.newaxis, :], weights, 0.0).T
+
+
+@functools.lru_cache(maxsize=None)
+def _poly_pyr_mats_np(h: int, w: int, lh: int, lw: int,
+                      smooth: Tuple[float, ...], n: int,
+                      sigma: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Fused per-layer preproc matrices: Gaussian smooth -> linear resize ->
+    polynomial-expansion moment correlations, composed in f64.
+
+    Returns (V, Hm): V (3*lh, h) applies blur+resize+all three vertical
+    moment kernels in one matmul; Hm (w, 3*lw) = [Wg | Wxg | Wxxg] applies
+    blur+resize+one horizontal moment kernel per lw-column block."""
+    g_np, xg_np, xxg_np, *_ = _poly_exp_moments(n, sigma)
+    g = tuple(float(v) for v in g_np)
+    xg = tuple(float(v) for v in xg_np)
+    xxg = tuple(float(v) for v in xxg_np)
+
+    pre_v = _resize_matrix_np(h, lh) @ _band_matrix_np(h, smooth, "reflect")
+    V = np.concatenate(
+        [_band_matrix_np(lh, g, "edge"), _band_matrix_np(lh, xg, "edge"),
+         _band_matrix_np(lh, xxg, "edge")], axis=0) @ pre_v
+
+    pre_h = _band_matrix_np(w, smooth, "reflect").T @ _resize_matrix_np(w, lw).T
+    Hm = np.concatenate(
+        [pre_h @ _band_matrix_np(lw, k, "edge").T for k in (g, xg, xxg)],
+        axis=1)
+    return V.astype(np.float32), Hm.astype(np.float32)
+
+
+_BORDER_SCALES = (0.14, 0.14, 0.4472, 0.4472, 0.4472)
+
+
+def _border_scale_map_np(h: int, w: int) -> np.ndarray:
+    """Downweighting of constraints near image borders (5-px ramp)."""
+    ramp = np.array(_BORDER_SCALES, np.float32)
+    b = len(ramp)
+
+    def axis_scale(nn: int) -> np.ndarray:
+        a = np.ones(nn, np.float32)
+        a[:b] *= ramp
+        a[nn - b:] *= ramp[::-1][-min(b, nn):]
+        return a
+
+    return axis_scale(h)[:, None] * axis_scale(w)[None, :]
+
+
+def _pyramid_scales(h: int, w: int, params: FarnebackParams) -> List[float]:
+    # cv2 semantics: ``levels`` is the number of EXTRA coarse layers on top
+    # of the original image (N+1 layers in all), capped so coarse layers keep
+    # enough pixels for the poly window.
+    scales = [1.0]
+    for k_level in range(1, params.levels + 1):
+        scale = params.pyr_scale ** k_level
+        if min(h, w) * scale < 2 * params.poly_n + 1:
+            break
+        scales.append(scale)
+    return scales
+
+
+def _level_iter_count(params: FarnebackParams, k_level: int) -> int:
+    """Iteration count for pyramid level ``k_level`` (0 = finest)."""
+    if not params.level_iters:
+        return params.iterations
+    li = params.level_iters
+    return li[min(k_level, len(li) - 1)]
+
+
+# --------------------------------------------------------- device helpers
+@functools.lru_cache(maxsize=64)
+def _device_const(kind: str, args: tuple, device: torch.device):
+    """Per-device float32 copies of the host matrices (built once)."""
+    if kind == "pyr":
+        V, Hm = _poly_pyr_mats_np(*args)
+        return (torch.from_numpy(V).to(device), torch.from_numpy(Hm).to(device))
+    if kind == "resize":
+        return torch.from_numpy(
+            _resize_matrix_np(*args).astype(np.float32)).to(device)
+    if kind == "border":
+        return torch.from_numpy(_border_scale_map_np(*args)).to(device)
+    raise ValueError(kind)
+
+
+def border_scale_map(h: int, w: int, device: torch.device) -> torch.Tensor:
+    return _device_const("border", (h, w), torch.device(device))
+
+
+def poly_exp_pyr_cf(img: torch.Tensor, smooth: Tuple[float, ...], lh: int,
+                    lw: int, n: int, sigma: float) -> torch.Tensor:
+    """Fused smooth+resize+poly_exp for one pyramid layer, channel-first:
+    (b, h, w) full-resolution frames -> (b, 5, lh, lw) coefficients.
+
+    Channel layout: 0: b_y, 1: b_x, 2: a_yy, 3: a_xx, 4: a_xy. The smooth,
+    the resize and the moment correlations are linear per axis and compose
+    into one (3*lh, h) left and one (w, 3*lw) right matrix."""
+    _, _, _, ig11, ig03, ig33, ig55 = _poly_exp_moments(n, sigma)
+    _, h, w = img.shape
+    V, Hm = _device_const("pyr", (h, w, lh, lw, smooth, n, sigma), img.device)
+
+    t = torch.matmul(V, img)                 # (b, 3*lh, w)
+    t0, t1, t2 = t[:, :lh], t[:, lh:2 * lh], t[:, 2 * lh:]
+    y0 = torch.matmul(t0, Hm)                # (b, lh, 3*lw)
+    y1 = torch.matmul(t1, Hm[:, :2 * lw])
+    b5 = torch.matmul(t2, Hm[:, :lw])
+    b1, b2, b4 = y0[..., :lw], y0[..., lw:2 * lw], y0[..., 2 * lw:]
+    b3, b6 = y1[..., :lw], y1[..., lw:]
+
+    return torch.stack([b3 * ig11, b2 * ig11, b1 * ig03 + b5 * ig33,
+                        b1 * ig03 + b4 * ig33, b6 * ig55], dim=1)
+
+
+def resize_linear_cf(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """Linear resize of the trailing two (spatial) dims, ``(..., h, w)``:
+    ``jax.image.resize(..., "linear")`` as two matmuls against
+    ``_resize_matrix_np``."""
+    h, w = img.shape[-2:]
+    lh, lw = shape
+    Rv = _device_const("resize", (h, lh), img.device)
+    Rh = _device_const("resize", (w, lw), img.device)
+    return torch.matmul(torch.matmul(Rv, img), Rh.T)
+
+
+# --------------------------------------------------------------- top level
+def _farneback_cf(prev: torch.Tensor, curr: torch.Tensor,
+                  params: FarnebackParams) -> torch.Tensor:
+    """Channel-first batched solver: (b, h, w) x2 -> (b, h, w, 2)."""
+    prev = prev.to(torch.float32)
+    curr = curr.to(torch.float32)
+    b, h, w = prev.shape
+
+    flow = None
+    scales = _pyramid_scales(h, w, params)
+    for k_level in reversed(range(len(scales))):
+        scale = scales[k_level]
+        sigma = (1.0 / scale - 1.0) * 0.5
+        smooth_sz = max(int(round(sigma * 5)) | 1, 3)
+        lh, lw = int(round(h * scale)), int(round(w * scale))
+
+        if flow is None:
+            flow = torch.zeros((b, 2, lh, lw), dtype=torch.float32,
+                               device=prev.device)
+        else:
+            flow = resize_linear_cf(flow, (lh, lw)) * (1.0 / params.pyr_scale)
+
+        smooth = _gaussian_kernel(smooth_sz, sigma)
+        R0 = poly_exp_pyr_cf(prev, smooth, lh, lw, params.poly_n,
+                             params.poly_sigma)
+        R1 = poly_exp_pyr_cf(curr, smooth, lh, lw, params.poly_n,
+                             params.poly_sigma)
+        border = border_scale_map(lh, lw, prev.device)
+
+        flow = farneback_iterate(R0, R1, flow.contiguous(), border,
+                                 iterations=_level_iter_count(params, k_level),
+                                 winsize=params.winsize,
+                                 max_shift=params.max_shift)
+
+    return flow.permute(0, 2, 3, 1)
+
+
+ArrayLike = Union[torch.Tensor, np.ndarray]
+
+
+def farneback_flow_batch(prev: ArrayLike, curr: ArrayLike,
+                         params: Optional[FarnebackParams] = None,
+                         device: Union[str, torch.device] = "cuda"
+                         ) -> torch.Tensor:
+    """Dense flow for frame pairs: (n, h, w) x2 (uint8 or float gray) ->
+    (n, h, w, 2) float32 on ``device``. ``params`` defaults to
+    ``tuned_flow_params`` for the frame size. Raises without a card unless
+    ``device="cpu"``."""
+    dev = resolve_device(device)
+    prev = torch.as_tensor(prev, device=dev)
+    curr = torch.as_tensor(curr, device=dev)
+    if prev.ndim != 3 or prev.shape != curr.shape:
+        raise ValueError(f"expected two (n, h, w) batches, got "
+                         f"{tuple(prev.shape)} and {tuple(curr.shape)}")
+    if params is None:
+        params = tuned_flow_params(prev.shape[1], prev.shape[2])
+    return _farneback_cf(prev, curr, params)
+
+
+def farneback_flow(prev: ArrayLike, curr: ArrayLike,
+                   params: Optional[FarnebackParams] = None,
+                   device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """Dense flow from ``prev`` to ``curr`` (gray (h, w)) -> (h, w, 2).
+    Batch 1 of the channel-first path (the reference's batch-1 path differs
+    from it only by fp rounding in its unfused preprocessing)."""
+    dev = resolve_device(device)
+    prev = torch.as_tensor(prev, device=dev)[None]
+    curr = torch.as_tensor(curr, device=dev)[None]
+    return farneback_flow_batch(prev, curr, params, dev)[0]

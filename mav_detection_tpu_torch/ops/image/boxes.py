@@ -1,0 +1,31 @@
+"""Threshold-based bounding box (``mav_detection_tpu.ops.image.boxes.
+get_simple_bounding_box_device``), batched over a leading frame axis."""
+from __future__ import annotations
+
+import torch
+
+
+def get_simple_bounding_box_device(img: torch.Tensor) -> torch.Tensor:
+    """(n, h, w[, c]) -> (n, 4) int64 [start_x, start_y, end_x, end_y] of the
+    pixels brighter than 0.1 * the frame's max; -1s for an empty mask."""
+    n = img.shape[0]
+    flat = img.reshape(n, -1)
+    threshold = 0.1 * flat.max(dim=1).values.to(torch.float32)
+    mask = img > threshold.view((n,) + (1,) * (img.ndim - 1))
+    if mask.ndim > 3:
+        mask = mask.any(dim=tuple(range(3, mask.ndim)))
+    _, h, w = mask.shape
+    row_any = mask.any(dim=2)
+    col_any = mask.any(dim=1)
+    dev = img.device
+    row_idx = torch.arange(h, device=dev)
+    col_idx = torch.arange(w, device=dev)
+    big = torch.tensor(max(h, w), device=dev)
+    neg = torch.tensor(-1, device=dev)
+    start_y = torch.where(row_any, row_idx, big).min(dim=1).values
+    end_y = torch.where(row_any, row_idx, neg).max(dim=1).values
+    start_x = torch.where(col_any, col_idx, big).min(dim=1).values
+    end_x = torch.where(col_any, col_idx, neg).max(dim=1).values
+    box = torch.stack([start_x, start_y, end_x, end_y], dim=1)
+    empty = ~mask.reshape(n, -1).any(dim=1)
+    return torch.where(empty[:, None], torch.full_like(box, -1), box)

@@ -1,0 +1,4 @@
+from mav_detection_tpu_torch.utils.device import resolve_device
+from mav_detection_tpu_torch.utils.tracing import Tracer, stage
+
+__all__ = ["resolve_device", "Tracer", "stage"]

@@ -1,0 +1,111 @@
+"""The PyTorch port stands alone: it imports neither JAX, the JAX package nor
+OpenCV, and its entry points run on the card or raise (no CPU fallback)."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "mav_detection_tpu_torch"
+
+# an import statement of jax, cv2 or the JAX package (not the port itself)
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|cv2|mav_detection_tpu)(?:[.\s,]|$)",
+    re.MULTILINE)
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_import_every_module_without_jax_or_cv2():
+    """A fresh interpreter imports every module of the port (and
+    chip_smoke.py); jax, the JAX package and cv2 stay out of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mav_detection_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'mav_detection_tpu', 'cv2'))\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_mods = int(proc.stdout.split()[0])
+    assert n_mods >= 20, proc.stdout
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_has_no_forbidden_import(path):
+    text = path.read_text()
+    assert not _FORBIDDEN.findall(text), f"{path}: {_FORBIDDEN.findall(text)}"
+
+
+def test_forbidden_pattern_catches_and_spares():
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("    from mav_detection_tpu.ops import flow")
+    assert _FORBIDDEN.search("import cv2")
+    assert not _FORBIDDEN.search("from mav_detection_tpu_torch.ops import flow")
+    assert not _FORBIDDEN.search("import jaxtyping_like_name_in_text = 1")
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card path cannot be shown")
+
+
+def test_processor_defaults_to_card_and_raises_without_one():
+    _no_card()
+    from mav_detection_tpu_torch.core.config import RunConfig
+    from mav_detection_tpu_torch.pipeline.processor import Processor
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        Processor(RunConfig(dataset="synthetic", flow_source="FARNEBACK"))
+
+
+def test_flow_entry_points_raise_without_card():
+    _no_card()
+    from mav_detection_tpu_torch.ops.flow import farneback_flow, farneback_flow_batch
+
+    frames = np.zeros((2, 32, 32), np.uint8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        farneback_flow_batch(frames, frames)
+    with pytest.raises(RuntimeError, match="cuda"):
+        farneback_flow(frames[0], frames[0])
+
+
+def test_cli_defaults_to_card_and_raises_without_one():
+    _no_card()
+    from mav_detection_tpu_torch.cli.main import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--dataset", "synthetic", "--flow-source", "FARNEBACK",
+              "--headless"])
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch):
+    """No toolkit: the build raises rather than falling back."""
+    from mav_detection_tpu_torch import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
+
+
+def test_iterate_wrapper_rejects_other_devices():
+    from mav_detection_tpu_torch.ops.flow import farneback_iterate
+
+    t = torch.zeros((1, 5, 8, 8), device="meta")
+    f = torch.zeros((1, 2, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        farneback_iterate(t, t, f, torch.zeros((8, 8), device="meta"), 1)
