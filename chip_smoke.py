@@ -8,12 +8,16 @@ Phases, each printing one line (plus its seconds):
   1. device  — the card's name and power limit (nvidia-smi); fails without a
                card.
   2. build   — compiles csrc/farneback_iter.cu with nvcc for sm_90a.
-  3. kernels — each CUDA kernel against its plain PyTorch version on the
-               card, on coefficients of a seeded scene at the main path's
-               shapes (480x752 b=8 S=8 and 1024x1920 b=2 S=16): one
+  3. kernels — the fused iterate kernel against its plain PyTorch version
+               on the card, on coefficients of a seeded scene at the main
+               path's shapes (480x752 b=8 S=8 and 1024x1920 b=2 S=16): one
                iteration (must be bit-exact) and the whole (2, 3, 8) level
-               schedule; then each kernel's time per launch (CUDA events,
-               after warm-up), its plain version's time and its bound.
+               schedule; then its time per launch (CUDA events around a
+               replayed CUDA graph of 50 launches) at every pyramid layer
+               (b=8 at 752x480, b=2 and b=4 at 1920x1024), kernel ms per
+               batch, its plain version's time, its bound, every tile
+               shape's time at each layer, and its shared memory,
+               registers and blocks per SM.
   4. accuracy — flow EPE vs the analytic GT of the scipy-rendered scene on
                the 16-px interior: < 0.40 px at 752x480, < 0.55 px at
                1920x1024.
@@ -43,17 +47,19 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 non-tensor rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# fp32 operations per pixel and iteration, counted from csrc/farneback_iter.cu
-OPS_UPDATE = 133   # 3 coordinate blocks (16 each), 2 y-stage taps x 5 planes,
-#                    x stage, normal-equation combination
-OPS_BOX_SOLVE_PER_TAP = 10   # 5 planes x (vertical + horizontal) adds per tap
-OPS_BOX_SOLVE_FIXED = 17     # window mean (5) + 2x2 solve (12)
+# fp32 operations of farneback_iterate_fused, counted from
+# csrc/farneback_iter.cu, per cell of each stage (integer index work not
+# counted): the y stage per A-window cell (coordinate block 20, 5 planes x 3,
+# 1 - fy), the x stage and normal equations per M-region cell (coordinate
+# block 20, 1 - fx, 5 x 3, combination 37), and the mean and 2x2 solve per
+# output pixel; the box sums add 5 planes x taps per vertical and per
+# horizontal sum
+OPS_Y_STAGE = 36
+OPS_UPDATE = 73
+OPS_SOLVE = 18
 
 KERNEL_ROWS = {
-    "farneback_update_matrices": dict(
-        route="cuda", source="mav_detection_tpu_torch/csrc/farneback_iter.cu",
-        replaces="mav_detection_tpu/ops/flow/farneback_pallas.py:328"),
-    "farneback_box_solve": dict(
+    "farneback_iterate_fused": dict(
         route="cuda", source="mav_detection_tpu_torch/csrc/farneback_iter.cu",
         replaces="mav_detection_tpu/ops/flow/farneback_pallas.py:328"),
 }
@@ -82,6 +88,22 @@ def time_ms(fn, reps: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn`` (kernel launches on the current
+    stream), from a CUDA graph of ``reps`` calls replayed after warm-up, so
+    that the host's time per launch does not show between short kernels."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, 5, 2) / reps
+
+
 def scene_batch(b: int, h: int, w: int, hires: bool):
     from mav_detection_tpu_torch.data.scene import hires_scene_kwargs, make_scene
 
@@ -91,8 +113,54 @@ def scene_batch(b: int, h: int, w: int, hires: bool):
             np.stack([s[2] for s in scenes]))
 
 
-def phase_kernels(dev, b: int, h: int, w: int, hires: bool) -> dict:
-    """Kernel vs plain version at one shape; returns per-kernel numbers."""
+def fused_bound(b: int, h: int, w: int, win: int, S: int, tile) -> tuple:
+    """Least time of one iteration on the card: the larger of the bytes the
+    function must move (R0, R1, flow in and out once each, the border once)
+    over the HBM rate and the fp32 operations the kernel does on these
+    shapes, halo recompute included, over the fp32 rate."""
+    th, tw = tile
+    m = win // 2
+    taps = 2 * m + 1
+    mrh, mrw = th + 2 * m, tw + 2 * m
+    aw = mrw + 2 * S + 1
+    per_tile = (OPS_Y_STAGE * mrh * aw + OPS_UPDATE * mrh * mrw
+                + 5 * taps * (th * mrw + th * tw) + OPS_SOLVE * th * tw)
+    ops = per_tile * b * -(-h // th) * -(-w // tw)
+    nbytes = 4 * (14 * b * h * w + h * w)
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def level_inputs(dev, prev, curr, gt, params):
+    """(R0, R1, flow, border, iterations) at every pyramid layer, finest
+    first, as _farneback_cf builds them; flow is the GT scaled to the layer."""
+    import torch
+
+    from mav_detection_tpu_torch.ops.flow import farneback as fb
+
+    p = torch.as_tensor(prev, device=dev).float()
+    c = torch.as_tensor(curr, device=dev).float()
+    g = torch.as_tensor(gt, device=dev).permute(0, 3, 1, 2).contiguous()
+    _, h, w = p.shape
+    out = []
+    for k, scale in enumerate(fb._pyramid_scales(h, w, params)):
+        sigma = (1.0 / scale - 1.0) * 0.5
+        smooth = fb._gaussian_kernel(max(int(round(sigma * 5)) | 1, 3), sigma)
+        lh, lw = int(round(h * scale)), int(round(w * scale))
+        R0 = fb.poly_exp_pyr_cf(p, smooth, lh, lw, params.poly_n, params.poly_sigma)
+        R1 = fb.poly_exp_pyr_cf(c, smooth, lh, lw, params.poly_n, params.poly_sigma)
+        flow = (g if k == 0 else fb.resize_linear_cf(g, (lh, lw)) * scale).contiguous()
+        out.append((R0, R1, flow, fb.border_scale_map(lh, lw, dev),
+                    fb._level_iter_count(params, k)))
+    return p, c, out
+
+
+def phase_kernels(dev, b: int, h: int, w: int, hires: bool,
+                  time_batches=None) -> dict:
+    """The fused kernel vs its plain version at one main-path size (one
+    iteration bit-exact, the whole level schedule within SCHEDULE_TOL_PX),
+    then its time at every layer of the pyramid for each batch size in
+    ``time_batches``, and every tile shape's time at the finest layer."""
     import torch
 
     from mav_detection_tpu_torch.ops.flow import farneback as fb
@@ -100,28 +168,20 @@ def phase_kernels(dev, b: int, h: int, w: int, hires: bool) -> dict:
 
     params = fb.tuned_flow_params(h, w)
     S, win = params.max_shift, params.winsize
-    prev, curr, gt = scene_batch(b, h, w, hires)
-    p = torch.as_tensor(prev, device=dev).float()
-    c = torch.as_tensor(curr, device=dev).float()
-    smooth = fb._gaussian_kernel(3, 0.0)          # the finest layer's smooth
-    R0 = fb.poly_exp_pyr_cf(p, smooth, h, w, params.poly_n, params.poly_sigma)
-    R1 = fb.poly_exp_pyr_cf(c, smooth, h, w, params.poly_n, params.poly_sigma)
-    border = fb.border_scale_map(h, w, dev)
-    flow0 = torch.as_tensor(gt, device=dev).permute(0, 3, 1, 2).contiguous()
+    nb = max([b, *(time_batches or ())])
+    prev, curr, gt = scene_batch(nb, h, w, hires)
+    p, c, levels = level_inputs(dev, prev[:b], curr[:b], gt[:b], params)
 
-    # one iteration, each kernel on the same inputs as its plain version
-    M = torch.empty_like(R0)
-    fi.update_matrices_cuda(R0, R1, flow0, border, M, S)
-    M_ref = fi.update_matrices_ref(R0, R1, flow0, border, S)
+    # one iteration at the finest layer, kernel and plain version on the
+    # same inputs
+    R0, R1, flow0, border, _ = levels[0]
     out = torch.empty_like(flow0)
-    fi.box_solve_cuda(M_ref, out, win)
-    out_ref = fi.box_solve_ref(M_ref, win)
+    fi.iterate_fused_cuda(R0, R1, flow0, border, out, win, S)
+    out_ref = fi.box_solve_ref(fi.update_matrices_ref(R0, R1, flow0, border, S), win)
     torch.cuda.synchronize()
-    err_m = float((M - M_ref).abs().max())
-    err_f = float((out - out_ref).abs().max())
-    if not (torch.equal(M, M_ref) and torch.equal(out, out_ref)):
-        raise AssertionError(
-            f"{h}x{w}: one iteration not bit-exact (M {err_m}, flow {err_f})")
+    err = float((out - out_ref).abs().max())
+    if not torch.equal(out, out_ref):
+        raise AssertionError(f"{h}x{w}: one iteration not bit-exact ({err})")
 
     # the whole level schedule through the pyramid, kernel vs plain: the
     # second run swaps the solver's iterate for its plain version
@@ -135,36 +195,41 @@ def phase_kernels(dev, b: int, h: int, w: int, hires: bool) -> dict:
     if not err_sched <= SCHEDULE_TOL_PX:
         raise AssertionError(f"{h}x{w}: level schedule differs by {err_sched} px")
 
-    # timing at this shape (finest level, the main path's largest launch)
-    reps = 50
-    ms_upd = time_ms(lambda: fi.update_matrices_cuda(R0, R1, flow0, border, M, S), reps)
-    ms_box = time_ms(lambda: fi.box_solve_cuda(M, out, win), reps)
-    plain_upd = time_ms(lambda: fi.update_matrices_ref(R0, R1, flow0, border, S), 5, 1)
-    plain_box = time_ms(lambda: fi.box_solve_ref(M, win), 5, 1)
+    def time_layer(lv, tile=None):
+        R0, R1, flow, border, _ = lv
+        o = torch.empty_like(flow)
+        return graph_ms(lambda: fi.iterate_fused_cuda(
+            R0, R1, flow, border, o, win, S, tile=tile), 50)
 
-    px = b * h * w
-    taps = 2 * (win // 2) + 1
-    bytes_upd = 4 * (17 * px + h * w)       # R0, R1, flow read; M written; border
-    bytes_box = 4 * 7 * px                  # M read; flow written
-    ops_upd = OPS_UPDATE * px
-    ops_box = (OPS_BOX_SOLVE_PER_TAP * taps + OPS_BOX_SOLVE_FIXED) * px
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
-        return max(tb, to), ("bytes" if tb >= to else "operations")
-
-    b_upd, by_upd = bound(bytes_upd, ops_upd)
-    b_box, by_box = bound(bytes_box, ops_box)
-    return {
-        "shape": f"b={b} {h}x{w} S={S}",
-        "schedule_err_px": err_sched,
-        "farneback_update_matrices": dict(
-            max_abs_err=err_m, ms=ms_upd, plain_ms=plain_upd, bound_ms=b_upd,
-            bound_by=by_upd),
-        "farneback_box_solve": dict(
-            max_abs_err=err_f, ms=ms_box, plain_ms=plain_box, bound_ms=b_box,
-            bound_by=by_box),
-    }
+    timings = {}
+    for tb in (time_batches or (b,)):
+        lvs = levels if tb == b else level_inputs(
+            dev, prev[:tb], curr[:tb], gt[:tb], params)[2]
+        rows = []
+        for lv in lvs:
+            R0, R1, flow, border, iters = lv
+            lh, lw = flow.shape[-2:]
+            tile = fi.tile_for(tb, lh, lw, sms)
+            bound, by = fused_bound(tb, lh, lw, win, S, tile)
+            plain = time_ms(lambda: fi.box_solve_ref(fi.update_matrices_ref(
+                R0, R1, flow, border, S), win), 5, 1)
+            rows.append({"shape": f"b={tb} {lh}x{lw} S={S}", "iterations": iters,
+                         "tile": "x".join(map(str, tile)), "ms": time_layer(lv),
+                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                         "tiles_ms": {f"{th}x{tw}": time_layer(lv, (th, tw))
+                                      for th, tw in sorted(fi.TILES)}})
+        timings[tb] = {
+            "layers": rows,
+            "ms_per_batch": sum(r["iterations"] * r["ms"] for r in rows),
+            "bound_ms_per_batch": sum(r["iterations"] * r["bound_ms"] for r in rows),
+            "plain_ms_per_batch": sum(r["iterations"] * r["plain_ms"] for r in rows),
+        }
+    return {"shape": f"b={b} {h}x{w} S={S}", "max_abs_err": err,
+            "schedule_err_px": err_sched, "timings": timings,
+            "resources": {f"{th}x{tw}": fi.fused_kernel_info(win, S, (th, tw))
+                          for th, tw in sorted(fi.TILES)}}
 
 
 def phase_accuracy(dev) -> dict:
@@ -310,18 +375,26 @@ def main() -> int:
 
     t0 = time.perf_counter()
     main_shape = phase_kernels(dev, 8, 480, 752, hires=False)
-    hires_shape = phase_kernels(dev, 2, 1024, 1920, hires=True)
+    hires_shape = phase_kernels(dev, 2, 1024, 1920, hires=True,
+                                time_batches=(2, 4))
     times["kernels"] = time.perf_counter() - t0
-    for k in fi.KERNELS:
-        for label, r in (("main", main_shape), ("hires", hires_shape)):
-            say(f"[kernels] {k} {r['shape']}: max_abs_err {r[k]['max_abs_err']} "
-                f"(tol 0, bit-exact), {r[k]['ms']:.4f} ms/launch, plain "
-                f"{r[k]['plain_ms']:.4f} ms, bound {r[k]['bound_ms']:.4f} ms "
-                f"({r[k]['bound_by']})")
-    say(f"[kernels] level schedule (2,3,8) kernel vs plain: "
-        f"{main_shape['schedule_err_px']} px at {main_shape['shape']}, "
-        f"{hires_shape['schedule_err_px']} px at {hires_shape['shape']} "
-        f"(tol {SCHEDULE_TOL_PX}); ({times['kernels']:.1f} s)")
+    for r in (main_shape, hires_shape):
+        say(f"[kernels] farneback_iterate_fused {r['shape']}: one iteration "
+            f"max_abs_err {r['max_abs_err']} (tol 0, bit-exact), whole "
+            f"schedule {r['schedule_err_px']} px (tol {SCHEDULE_TOL_PX}); "
+            f"resources per tile {json.dumps(r['resources'])}")
+        for tb, t in r["timings"].items():
+            for lv in t["layers"]:
+                say(f"[kernels]   {lv['shape']} x{lv['iterations']}: tile "
+                    f"{lv['tile']} {lv['ms']:.5f} ms/launch, plain "
+                    f"{lv['plain_ms']:.4f} ms, bound {lv['bound_ms']:.5f} ms "
+                    f"({lv['bound_by']}), share of bound "
+                    f"{lv['bound_ms'] / lv['ms']:.3f}; every tile "
+                    f"{json.dumps(lv['tiles_ms'])}")
+            say(f"[kernels]   b={tb}: kernel {t['ms_per_batch']:.5f} ms per "
+                f"batch (bound {t['bound_ms_per_batch']:.5f}, plain "
+                f"{t['plain_ms_per_batch']:.4f})")
+    say(f"[kernels] ({times['kernels']:.1f} s)")
 
     t0 = time.perf_counter()
     acc = phase_accuracy(dev)
@@ -342,22 +415,30 @@ def main() -> int:
             f"ms wall (device idle share {r['device_idle_share']:.3f})")
     say(f"[phases] seconds {json.dumps(times)}")
 
-    rows = []
-    for k in fi.KERNELS:
-        m, hr = main_shape[k], hires_shape[k]
-        rows.append({
-            "name": k, **KERNEL_ROWS[k],
-            "launches": runs[0]["launches"][k],
-            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None,
-            "shape": main_shape["shape"], "tolerance": 0.0, "check": "pass",
-            "schedule_err_px": main_shape["schedule_err_px"],
-            "launches_1920x1024": runs[1]["launches"][k],
-            "hires": {"shape": hires_shape["shape"], "ms": hr["ms"],
-                      "plain_ms": hr["plain_ms"], "bound_ms": hr["bound_ms"],
-                      "max_abs_err": hr["max_abs_err"]},
-        })
+    k = "farneback_iterate_fused"
+    main_t = main_shape["timings"][8]
+    fine = main_t["layers"][0]
+    rows = [{
+        "name": k, **KERNEL_ROWS[k],
+        "launches": runs[0]["launches"][k],
+        "max_abs_err": main_shape["max_abs_err"], "ms": fine["ms"],
+        "plain_ms": fine["plain_ms"], "bound_ms": fine["bound_ms"],
+        "bound_by": fine["bound_by"], "library_ms": None,
+        "shape": fine["shape"], "tolerance": 0.0, "check": "pass",
+        "schedule_err_px": main_shape["schedule_err_px"],
+        "launches_1920x1024": runs[1]["launches"][k],
+        "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
+        "per_batch": {f"{size} b={tb}": {
+            key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
+                                    "plain_ms_per_batch")}
+            for size, r in (("480x752", main_shape), ("1024x1920", hires_shape))
+            for tb, t in r["timings"].items()},
+        "hires": {"shape": hires_shape["timings"][2]["layers"][0]["shape"],
+                  **{key: hires_shape["timings"][2]["layers"][0][key] for key in
+                     ("ms", "plain_ms", "bound_ms")},
+                  "max_abs_err": hires_shape["max_abs_err"],
+                  "schedule_err_px": hires_shape["schedule_err_px"]},
+    }]
     say(json.dumps({"kernels": rows,
                     "main_path": [{k: r[k] for k in (
                         "size", "frames_per_s", "median_foe_err_px",

@@ -26,7 +26,7 @@ SOURCE = PKG_DIR / "csrc" / "farneback_iter.cu"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 
 # -fmad=false keeps multiply and add as separate IEEE ops, as the reference
-# evaluates them; the Farneback kernels rely on it for bit-exactness.
+# evaluates them; the Farneback kernel relies on it for bit-exactness.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -76,11 +76,11 @@ def load() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(_build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.farneback_update_matrices.argtypes = [p, p, p, p, p,
-                                                      i, i, i, i, p]
-            lib.farneback_update_matrices.restype = i
-            lib.farneback_box_solve.argtypes = [p, p, i, i, i, i, f, p]
-            lib.farneback_box_solve.restype = i
+            lib.farneback_iterate_fused.argtypes = [p, p, p, p, p, i, i, i,
+                                                    i, i, f, i, p]
+            lib.farneback_iterate_fused.restype = i
+            lib.farneback_iterate_fused_info.argtypes = [i, i, i, p]
+            lib.farneback_iterate_fused_info.restype = i
             _LIB = lib
         return _LIB
 

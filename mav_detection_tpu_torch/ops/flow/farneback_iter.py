@@ -1,35 +1,34 @@
-"""The Farneback solver iteration: CUDA kernels, their plain PyTorch version,
-and launch counters.
+"""The Farneback solver iteration: its CUDA kernel, the plain PyTorch
+version, and the launch counter.
 
 Replaces ``mav_detection_tpu/ops/flow/farneback_pallas.py::
 farneback_iterate_pallas`` (the reference's only TPU kernel). One iteration
-is two kernels in ``csrc/farneback_iter.cu``:
+is one launch of ``farneback_iterate_fused`` (``csrc/farneback_iter.cu``):
+warp R1 by the current flow, form the five normal-equation planes M, take
+their (2m+1)^2 box mean with replicate edges and solve the 2x2 system, M
+kept in shared memory throughout, the new flow written to the other of two
+ping-pong buffers (Jacobi: every pixel reads the previous iterate).
 
-* ``farneback_update_matrices`` — warp R1 by the current flow and form the
-  five normal-equation planes M (one thread per pixel, M to a scratch
-  buffer allocated once per call);
-* ``farneback_box_solve`` — (2m+1)^2 box mean of M with replicate edges and
-  the 2x2 solve, into the other of two ping-pong flow buffers (Jacobi: every
-  pixel reads the previous iterate).
-
-The TPU kernel's warp is a shift/select chain over 2S+2 shifted planes,
-because Mosaic has no vector gather; only two taps per stage carry weight,
-so both versions here read those two taps directly. The semantics that must
-hold (separable warp with the x-neighbour's y weights, clamped coordinates,
-edge-padded planes, replicate-edge M, operation order) are listed in the
-CUDA source. Bound and design notes are there too.
+Its plain version is ``box_solve_ref(update_matrices_ref(...))``: the same
+function in two steps. The TPU kernel's warp is a shift/select chain over
+2S+2 shifted planes, because Mosaic has no vector gather; only two taps per
+stage carry weight, so both versions here read those two taps directly. The
+semantics that must hold (separable warp with the x-neighbour's y weights,
+clamped coordinates, edge-padded planes, replicate-edge M, operation order)
+are listed in the CUDA source. Bound and design notes are there too.
 
 Wrappers dispatch on the tensors' device: CPU tensors take the plain
 version, CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-KERNELS = ("farneback_update_matrices", "farneback_box_solve")
+KERNELS = ("farneback_iterate_fused",)
 
 # launches per kernel since the last reset (plain ints; counted where the
 # kernel is launched, nowhere else)
@@ -67,7 +66,8 @@ def _warp_coords(flow: torch.Tensor, S: int):
 
 def update_matrices_ref(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
                         border: torch.Tensor, max_shift: int) -> torch.Tensor:
-    """Plain version of ``farneback_update_matrices``: (b, 5, H, W) M."""
+    """Warp and normal equations, the first half of the plain version of
+    ``farneback_iterate_fused``: (b, 5, H, W) M."""
     b, _, H, W = R0.shape
     dev = R0.device
     fx, fy, sx, sy = _warp_coords(flow, max_shift)
@@ -110,7 +110,8 @@ def update_matrices_ref(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
 
 
 def box_solve_ref(M: torch.Tensor, winsize: int) -> torch.Tensor:
-    """Plain version of ``farneback_box_solve``: (b, 5, H, W) M ->
+    """Box mean and solve, the second half of the plain version of
+    ``farneback_iterate_fused``: (b, 5, H, W) M ->
     (b, 2, H, W) flow. Replicate-edge M, (2m+1)^2 shifted sums in the
     reference's order (vertical then horizontal, tap 0 first), divided by
     winsize^2 (an even winsize sums one extra row/column, as upstream)."""
@@ -144,6 +145,63 @@ def farneback_iterate_ref(R0: torch.Tensor, R1: torch.Tensor,
 
 
 # ------------------------------------------------------------ CUDA wrappers
+# output tile (rows, columns) -> the kernel's tile index in the CUDA source
+TILES = {(32, 64): 0, (32, 32): 1}
+# 32x64 recomputes the least halo per output pixel; where it would leave
+# SMs without a block (the coarsest pyramid layers), 32x32 gives twice the
+# blocks
+TILE = (32, 64)
+SMALL_TILE = (32, 32)
+# rows of the M region per chunk of the y and x stages (kCH in the source)
+# and threads per block (kThreads)
+CHUNK_ROWS = 8
+THREADS = 512
+# dynamic shared memory one block may opt in to on the H100 (227 KB)
+MAX_SMEM_BYTES = 232448
+
+
+def fused_smem_bytes(tile, m: int, S: int) -> int:
+    """Shared-memory bytes of one ``farneback_iterate_fused`` block: two A
+    chunks (5 planes of CHUNK_ROWS rows of the +-S A window) and M (5 planes
+    over the M region, its rows padded to a multiple of 4 floats where the
+    horizontal sums read float4, else to an odd length). The same sum as
+    ``smem_bytes`` in the CUDA source."""
+    th, tw = tile
+    mrh, mrw = th + 2 * m, tw + 2 * m
+    aw = mrw + 2 * S + 1
+    ms = (mrw + 3) & ~3 if (th * tw // THREADS) % 4 == 0 else mrw | 1
+    return 4 * 5 * (2 * CHUNK_ROWS * aw + mrh * ms)
+
+
+def fused_launch_smem(tile, winsize: int, max_shift: int) -> int:
+    """The block's shared-memory bytes for this tile, winsize and max_shift,
+    or ValueError where the kernel cannot take them."""
+    if tuple(tile) not in TILES:
+        raise ValueError(f"tile {tile}: the kernel has tiles {sorted(TILES)}")
+    if winsize < 1 or max_shift < 0:
+        raise ValueError(f"winsize={winsize}, max_shift={max_shift}")
+    nbytes = fused_smem_bytes(tile, winsize // 2, max_shift)
+    if nbytes > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"winsize={winsize}, max_shift={max_shift}: a {tile[0]}x{tile[1]} "
+            f"block needs {nbytes} B of shared memory, over the "
+            f"{MAX_SMEM_BYTES} B a block may have")
+    return nbytes
+
+
+def tile_for(b: int, H: int, W: int, sm_count: int):
+    """The output tile for a (b, H, W) launch on a card with ``sm_count``
+    SMs: TILE where it gives every SM a block, else SMALL_TILE."""
+    th, tw = TILE
+    blocks = b * -(-H // th) * -(-W // tw)
+    return TILE if blocks >= sm_count else SMALL_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _check(name: str, t: torch.Tensor, shape) -> None:
     if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous float32 CUDA tensor, "
@@ -158,43 +216,49 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
 
 
-def update_matrices_cuda(R0: torch.Tensor, R1: torch.Tensor,
-                         flow: torch.Tensor, border: torch.Tensor,
-                         M: torch.Tensor, max_shift: int) -> None:
-    """Launch ``farneback_update_matrices``: writes M (b, 5, H, W)."""
+def iterate_fused_cuda(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
+                       border: torch.Tensor, flow_out: torch.Tensor,
+                       winsize: int, max_shift: int, tile=None) -> None:
+    """Launch ``farneback_iterate_fused``: one iteration from ``flow`` into
+    ``flow_out`` (b, 2, H, W), a different buffer. ``tile`` defaults to
+    ``tile_for`` the launch."""
     from mav_detection_tpu_torch import _build
 
     b, _, H, W = R0.shape
     for name, t, shape in (("R0", R0, (b, 5, H, W)), ("R1", R1, (b, 5, H, W)),
                            ("flow", flow, (b, 2, H, W)),
-                           ("border", border, (H, W)), ("M", M, (b, 5, H, W))):
+                           ("border", border, (H, W)),
+                           ("flow_out", flow_out, (b, 2, H, W))):
         _check(name, t, shape)
+    if flow_out.data_ptr() == flow.data_ptr():
+        raise ValueError("flow_out must not be flow (Jacobi reads the "
+                         "previous iterate everywhere)")
+    if tile is None:
+        tile = tile_for(b, H, W, _sm_count(R0.device.index))
+    fused_launch_smem(tile, winsize, max_shift)
     lib = _build.load()
     stream = torch.cuda.current_stream(R0.device).cuda_stream
-    err = lib.farneback_update_matrices(
+    err = lib.farneback_iterate_fused(
         R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), border.data_ptr(),
-        M.data_ptr(), b, H, W, int(max_shift), stream)
-    _raise_on(err, "farneback_update_matrices")
-    LAUNCHES["farneback_update_matrices"] += 1
+        flow_out.data_ptr(), b, H, W, int(max_shift), winsize // 2,
+        1.0 / (winsize * winsize), TILES[tuple(tile)], stream)
+    _raise_on(err, "farneback_iterate_fused")
+    LAUNCHES["farneback_iterate_fused"] += 1
 
 
-def box_solve_cuda(M: torch.Tensor, flow_out: torch.Tensor,
-                   winsize: int) -> None:
-    """Launch ``farneback_box_solve``: writes flow_out (b, 2, H, W)."""
+def fused_kernel_info(winsize: int, max_shift: int, tile=TILE) -> Dict[str, int]:
+    """Launch resources of ``farneback_iterate_fused`` on the current card:
+    shared-memory bytes per block, registers per thread, blocks per SM."""
+    import ctypes
+
     from mav_detection_tpu_torch import _build
 
-    b, _, H, W = M.shape
-    _check("M", M, (b, 5, H, W))
-    _check("flow_out", flow_out, (b, 2, H, W))
-    if winsize // 2 > 8:
-        raise ValueError(f"winsize={winsize}: the box kernel takes m <= 8")
-    lib = _build.load()
-    stream = torch.cuda.current_stream(M.device).cuda_stream
-    err = lib.farneback_box_solve(M.data_ptr(), flow_out.data_ptr(), b, H, W,
-                                  winsize // 2, 1.0 / (winsize * winsize),
-                                  stream)
-    _raise_on(err, "farneback_box_solve")
-    LAUNCHES["farneback_box_solve"] += 1
+    fused_launch_smem(tile, winsize, max_shift)
+    out = (ctypes.c_int * 3)()
+    _raise_on(_build.load().farneback_iterate_fused_info(
+        TILES[tuple(tile)], winsize // 2, int(max_shift), out),
+        "farneback_iterate_fused_info")
+    return {"smem_bytes": out[0], "registers": out[1], "blocks_per_sm": out[2]}
 
 
 def farneback_iterate(R0: torch.Tensor, R1: torch.Tensor, flow0: torch.Tensor,
@@ -204,8 +268,8 @@ def farneback_iterate(R0: torch.Tensor, R1: torch.Tensor, flow0: torch.Tensor,
 
     R0, R1: (b, 5, H, W) channel-first coefficients; flow0: (b, 2, H, W);
     border: (H, W). CPU tensors run the plain version; CUDA tensors launch
-    the two kernels per iteration (M scratch and the second flow buffer are
-    allocated once per call)."""
+    the fused kernel once per iteration (two flow buffers allocated once per
+    call, nothing else)."""
     if R0.device.type == "cpu":
         return farneback_iterate_ref(R0, R1, flow0, border, iterations,
                                      winsize, max_shift)
@@ -214,11 +278,9 @@ def farneback_iterate(R0: torch.Tensor, R1: torch.Tensor, flow0: torch.Tensor,
     flow = flow0.contiguous()
     if iterations <= 0:
         return flow
-    M = torch.empty_like(R0)
     bufs = (torch.empty_like(flow), torch.empty_like(flow))
     for it in range(iterations):
         out = bufs[it % 2]
-        update_matrices_cuda(R0, R1, flow, border, M, max_shift)
-        box_solve_cuda(M, out, winsize)
+        iterate_fused_cuda(R0, R1, flow, border, out, winsize, max_shift)
         flow = out
     return flow

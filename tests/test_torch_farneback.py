@@ -183,6 +183,55 @@ class TestIterate:
         assert ti.farneback_iterate(R0, R1, flow0, border, 0, 12, 8) is flow0
 
 
+class TestFusedKernelBudget:
+    """Shared memory of the fused CUDA kernel's block, reckoned in Python
+    (the wrapper refuses a launch from this before any CUDA call)."""
+
+    @pytest.mark.parametrize("h,w", [(480, 752), (1024, 1920)])
+    def test_tuned_shapes_fit_two_blocks_per_sm(self, h, w):
+        p = tf.tuned_flow_params(h, w)
+        nbytes = ti.fused_launch_smem(ti.TILE, p.winsize, p.max_shift)
+        assert nbytes <= 113 * 1024
+
+    def test_bytes_count_every_buffer(self):
+        # 32x64 tile, m=6: M region 44x76 (row stride 76, float4 reads),
+        # A window 109 columns at S=16 and 93 at S=8; 5 planes of two 8-row
+        # A chunks and of M
+        assert ti.fused_smem_bytes((32, 64), 6, 16) == 4 * 5 * (2 * 8 * 109 + 44 * 76)
+        assert ti.fused_smem_bytes((32, 64), 6, 8) == 4 * 5 * (2 * 8 * 93 + 44 * 76)
+        # 32x32 (2 outputs per thread): odd row stride 45 for M 44x44
+        assert ti.fused_smem_bytes((32, 32), 6, 8) == 4 * 5 * (2 * 8 * 61 + 44 * 45)
+
+    @pytest.mark.parametrize("win,S", [(12, 300), (12, 500), (60, 64)])
+    def test_overrun_refused(self, win, S):
+        assert ti.fused_smem_bytes(ti.TILE, win // 2, S) > ti.MAX_SMEM_BYTES
+        with pytest.raises(ValueError, match="shared memory"):
+            ti.fused_launch_smem(ti.TILE, win, S)
+
+    @pytest.mark.parametrize("tile", sorted(ti.TILES))
+    def test_free_max_shift_up_to_the_limit(self, tile):
+        """max_shift is a free parameter: S=32 fits every tile, and the
+        largest S that fits is taken, the next one refused."""
+        assert ti.fused_launch_smem(tile, 12, 32) <= ti.MAX_SMEM_BYTES
+        S = max(s for s in range(512)
+                if ti.fused_smem_bytes(tile, 6, s) <= ti.MAX_SMEM_BYTES)
+        assert ti.fused_launch_smem(tile, 12, S) <= ti.MAX_SMEM_BYTES
+        with pytest.raises(ValueError, match="shared memory"):
+            ti.fused_launch_smem(tile, 12, S + 1)
+
+    @pytest.mark.parametrize("b,h,w,tile", [
+        (8, 480, 752, (32, 64)), (8, 240, 376, (32, 64)), (8, 120, 188, (32, 32)),
+        (2, 1024, 1920, (32, 64)), (2, 256, 480, (32, 32)), (4, 256, 480, (32, 64))])
+    def test_tile_for_layer(self, b, h, w, tile):
+        """132 SMs (an H100 SXM): the wide tile where every SM gets a block,
+        the small one on the coarsest layers at b=8 and b=2."""
+        assert ti.tile_for(b, h, w, 132) == tile
+
+    def test_unknown_tile_refused(self):
+        with pytest.raises(ValueError, match="tiles"):
+            ti.fused_launch_smem((8, 8), 12, 8)
+
+
 def _chain_update_matrices(R0, R1, flow, border, S):
     """The TPU kernel's update (farneback_pallas._iter_math) in its own
     form: sums over every shift s in [-S, S+1] of where-selected weights
