@@ -22,12 +22,31 @@ Phases, each printing one line (plus its seconds):
                the 16-px interior: < 0.40 px at 752x480, < 0.55 px at
                1920x1024.
   5. main path — Processor.run_detection_foe with FARNEBACK flow at 480x752
-               (20 frames, batch 8: the tail batch is padded) and 1024x1920
+               (12 frames, batch 8: the tail batch is padded) and 1024x1920
                (6 frames, batch 4), launch counters zeroed just before and
                read just after each run; every FrameResult field must be
                finite, FrameResult JSON is written and read back. Then the
                device time of one full batch's flow and detection steps
                (CUDA events) against the run's wall time per batch.
+  6. modules  — every tensor function of the homography / Lucas-Kanade /
+               debug-image surface (image ops, warps, motion fields, RANSAC
+               fits, k-means, window search, flow history, corners, LK
+               tracks, dense LK, sparse FoE and its trace ring) at 752x480 on
+               the card against the same function of the port on the CPU
+               with the same explicit draws; then the time per frame of
+               corner selection, LK tracking, dense LK, k-means and the
+               window search (host clock around a synchronised call).
+  7. artifacts — the FoE loop (FARNEBACK, batch 8, 12 frames) with
+               save_images on, into a temporary sequence directory: the
+               four PNG sets, video.npz and the JSON counted and their
+               shapes checked; seconds per frame of the artifacts stage.
+  8. homography — --algorithm HOMOGRAPHY --flow-source FARNEBACK, 8 frames,
+               plain and with use_sparse_of, on the card and on the CPU:
+               per-frame IoU, the kernel's launches, stage times.
+  9. lucas_kanade — sparse tracks and lk_dense_flow on the 752x480 bench
+               scene against its analytic GT (track EPE < 0.12 px, dense
+               interior EPE < 1.6 px, survivors >= 75 % of max_corners), then
+               the FoE loop with --flow-source LUCAS_KANADE, 4 frames.
 Then the kernels JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line and
 exits non-zero; so does a machine without a card, or a directory without
@@ -274,6 +293,7 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
     cfg.get_dataset = lambda: SyntheticDataset(params=sp)
     t0 = time.perf_counter()
     proc = Processor(cfg, device=dev)
+    proc.save_images = False       # a throughput run: JSON only
     gen_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         ds = proc.dataset
@@ -320,12 +340,13 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
         # device time of one full batch's two steps (CUDA events), against
         # the wall time per batch of the run above
         staged = proc._stage_batch(list(range(batch)), FlowSource.FARNEBACK)
-        flow = proc._flow_from_staged(staged)
+        flow = proc._flow_from_staged(staged, FlowSource.FARNEBACK)
         aux = [proc._to_dev(staged[k]) for k in
                ("gt_flow", "omegas", "dts", "segs", "skys", "depths", "gt_foes")]
         gen = torch.Generator(device=dev).manual_seed(0)
         step = proc._detection_step()
-        flow_ms = time_ms(lambda: proc._flow_from_staged(staged), 10)
+        flow_ms = time_ms(lambda: proc._flow_from_staged(
+            staged, FlowSource.FARNEBACK), 10)
         detect_ms = time_ms(lambda: detect_frame_batch_scalars(
             flow, *aux, generator=gen, config=step), 10)
     batch_wall_ms = wall * 1e3 / -(-n_pairs // batch)
@@ -339,6 +360,544 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
         "wall_ms_per_batch": batch_wall_ms,
         "device_idle_share": 1.0 - (flow_ms + detect_ms) / batch_wall_ms,
     }
+
+
+def wall_ms(fn, reps: int = 3, warm: int = 1) -> float:
+    """Mean ms per call on the host's clock, the card synchronised before
+    and after: for functions that are sequences of small launches with a
+    look from the host in between, where the user waits for both."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+class Checks:
+    """Card-vs-CPU comparisons of one phase: every row is printed, and the
+    phase fails after the last one if any missed its tolerance."""
+
+    def __init__(self, phase: str) -> None:
+        self.phase = phase
+        self.rows = []
+
+    def add(self, name: str, value: float, tol: float, what: str,
+            at_least: bool = False) -> None:
+        ok = bool(value >= tol if at_least else value <= tol)
+        self.rows.append((name, ok))
+        say(f"[{self.phase}]   {name}: {what} {value:.6g} "
+            f"({'>=' if at_least else '<='} {tol:g}) {'ok' if ok else 'MISS'}")
+
+    def finish(self) -> int:
+        missed = [n for n, ok in self.rows if not ok]
+        if missed:
+            raise AssertionError(f"{self.phase}: out of tolerance: {missed}")
+        return len(self.rows)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _both(fn, dev, *arrays):
+    """``fn`` on the card and on the CPU over the same numpy inputs."""
+    import torch
+
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        outs.append(fn(*(torch.as_tensor(a).to(d) if isinstance(a, np.ndarray)
+                         else a for a in arrays)))
+    return outs
+
+
+def _distinct_sets(rng, n: int, k: int, size: int) -> np.ndarray:
+    """(k, size) index sets, distinct within a set: a repeated point makes a
+    minimal system rank-deficient, and then any vector of its null space is
+    a right answer (LAPACK and cuSOLVER return different ones)."""
+    return np.argsort(rng.random((k, n)), axis=1)[:, :size]
+
+
+def phase_modules(dev) -> dict:
+    import torch
+
+    from mav_detection_tpu_torch.ops.flow import lucas_kanade as lk
+    from mav_detection_tpu_torch.ops.geometry import boxsearch as bs
+    from mav_detection_tpu_torch.ops.geometry import foe as foe_mod
+    from mav_detection_tpu_torch.ops.geometry import global_motion as gm
+    from mav_detection_tpu_torch.ops.geometry.kmeans import cluster_image, kmeans
+    from mav_detection_tpu_torch.ops.geometry import ransac_fits as rf
+    from mav_detection_tpu_torch.ops.geometry import warp
+    from mav_detection_tpu_torch.ops.image import color, visualize
+    from mav_detection_tpu_torch.ops.image.resize import resize
+
+    h, w = 480, 752
+    rng = np.random.default_rng(0)
+    prev8, curr8, gt = (a[0] for a in scene_batch(1, h, w, hires=False))
+    prev, curr = prev8.astype(np.float32), curr8.astype(np.float32)
+    unit = prev / 255.0
+    ck = Checks("modules")
+
+    def levels(a, b):
+        d = np.abs(_np(a).astype(np.float64) - _np(b).astype(np.float64))
+        return float(d.max()), float((d == 0).mean())
+
+    # ---- image ops
+    for name, fn in (("flow_to_color_device", visualize.flow_to_color_device),
+                     ("flow_radial_device", visualize.flow_radial_device)):
+        worst, same = levels(*_both(fn, dev, gt))
+        ck.add(name, worst, 1.0, "max grey-level difference")
+        ck.add(name + " equal share", same, 0.99, "share of equal values", True)
+    a, b = _both(lambda x: resize(x, (320, 501)), dev, unit)
+    ck.add("resize linear", float(np.abs(_np(a) - _np(b)).max()), 1e-5, "max abs")
+    a, b = _both(lambda x: resize(x, (320, 501), "nearest"), dev, unit)
+    ck.add("resize nearest", float((_np(a) != _np(b)).sum()), 0, "differing values")
+    bgr8 = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    for name, fn in (("bgr_to_gray", color.bgr_to_gray), ("rgb_to_gray", color.rgb_to_gray)):
+        worst, same = levels(*_both(fn, dev, bgr8))
+        ck.add(name + " uint8", worst, 1.0, "max grey-level difference")
+        ck.add(name + " uint8 equal share", same, 0.999, "share equal", True)
+        a, b = _both(fn, dev, bgr8.astype(np.float32))
+        ck.add(name + " float", float(np.abs(_np(a) - _np(b)).max()), 1e-4, "max abs")
+
+    # ---- warps and motion fields (an fp32 coordinate near 752 has an ulp of
+    # 6e-5, and the card contracts a*x + b into one fused multiply-add)
+    mx = rng.uniform(-2.5, w + 1.5, (h, w)).astype(np.float32)
+    my = rng.uniform(-2.5, h + 1.5, (h, w)).astype(np.float32)
+    flow2 = gt + rng.normal(scale=0.05, size=gt.shape).astype(np.float32)
+    for name, fn in (("remap_bilinear", warp.remap_bilinear),
+                     ("sample_bilinear_replicate", warp.sample_bilinear_replicate)):
+        for tag, img in (("hw", unit), ("hwc", flow2)):
+            a, b = _both(fn, dev, img, mx, my)
+            ck.add(f"{name} {tag}", float(np.abs(_np(a) - _np(b)).max()), 1e-5, "max abs")
+    A = np.array([[1.02, 0.03, -1.5], [-0.02, 0.98, 2.25]], np.float32)
+    Hm = np.array([[1.01, 0.02, -2.0], [-0.015, 0.99, 1.5], [1e-5, -2e-5, 1.0]], np.float32)
+    a, b = _both(warp.warp_affine, dev, unit, A)
+    ck.add("warp_affine", float(np.abs(_np(a) - _np(b)).max()), 1e-3, "max abs")
+    a, b = _both(warp.warp_perspective, dev, unit, Hm)
+    ck.add("warp_perspective", float(np.abs(_np(a) - _np(b)).max()), 1e-3, "max abs")
+    a, b = _both(lambda m: gm.affine_motion_field(m, h, w), dev, A)
+    ck.add("affine_motion_field", float(np.abs(_np(a) - _np(b)).max()), 2e-4, "max abs px")
+    for proj in (False, True):
+        a, b = _both(lambda m: gm.homography_motion_field(m, h, w, proj), dev, Hm)
+        ck.add(f"homography_motion_field projective={proj}",
+               float(np.abs(_np(a) - _np(b)).max()), 2e-4, "max abs px")
+    for homog, M in ((False, A), (True, Hm)):
+        a, b = _both(lambda f, m: gm.warp_diff_method(f, m, homog)[1], dev, flow2, M)
+        ck.add(f"warp_diff_method homography={homog}",
+               float(np.abs(_np(a) - _np(b)).max()), 1e-3, "max abs px")
+
+    # ---- RANSAC fits on correspondences of the scene's flow
+    n = 2000
+    sy = rng.integers(20, h - 20, n)
+    sx = rng.integers(20, w - 20, n)
+    p0 = np.stack([sx, sy], 1).astype(np.float32)
+    p1 = p0 + gt[sy, sx] + rng.normal(scale=0.1, size=(n, 2)).astype(np.float32)
+    bad = rng.random(n) < 0.15
+    p1[bad] += rng.uniform(-20, 20, (int(bad.sum()), 2)).astype(np.float32)
+    a, b = _both(lambda x, y: gm.homography_motion_field(
+        rf.fit_homography_lstsq(x, y), h, w), dev, p0, p1)
+    ck.add("fit_homography_lstsq field", float(np.abs(_np(a) - _np(b)).max()), 0.02,
+           "max abs px")
+    for name, fit, size, field in (
+            ("fit_affine_ransac", rf.fit_affine_ransac, 3,
+             lambda m: gm.affine_motion_field(m, h, w)),
+            ("fit_homography_ransac", rf.fit_homography_ransac, 4,
+             lambda m: gm.homography_motion_field(m, h, w))):
+        idx = _distinct_sets(rng, n, 256, size)
+        (Ma, ia), (Mb, ib) = _both(lambda x, y, i: fit(x, y, idx=i), dev, p0, p1, idx)
+        ck.add(name + " inliers", float((_np(ia) == _np(ib)).mean()), 0.995,
+               "share of equal mask entries", True)
+        # points that sit on the threshold may fall either way (a few of
+        # 2000), and the refit over the other set moves the far corners
+        ck.add(name + " field", float(np.abs(_np(field(Ma)) - _np(field(Mb))).max()),
+               0.1, "max abs px")
+    # a rigid camera motion for the epipolar fits
+    z = rng.uniform(4.0, 12.0, n)
+    f = 400.0
+    X = np.stack([(p0[:, 0] - w / 2) * z / f, (p0[:, 1] - h / 2) * z / f, z], 1)
+    ang = 0.02
+    R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
+    X1 = X @ R.T + np.array([0.3, -0.1, 0.2])
+    q1 = np.stack([X1[:, 0] / X1[:, 2] * f + w / 2, X1[:, 1] / X1[:, 2] * f + h / 2], 1)
+    q1 = (q1 + rng.normal(scale=0.1, size=q1.shape)).astype(np.float32)
+    q1[bad] += rng.uniform(-20, 20, (int(bad.sum()), 2)).astype(np.float32)
+    idx8 = _distinct_sets(rng, n, 256, 8)
+    E_card = None
+    for name, fit, scale in (
+            ("fit_fundamental_ransac", lambda x, y, i: rf.fit_fundamental_ransac(x, y, idx=i), 1.0),
+            ("fit_essential_ransac", lambda x, y, i: rf.fit_essential_ransac(
+                x, y, idx=i, focal=f), f)):
+        (Fa, ia), (Fb, ib) = _both(fit, dev, p0, q1, idx8)
+        da = _np(rf._sampson_dist(Fa.cpu(), torch.as_tensor(p0 / scale), torch.as_tensor(q1 / scale)))
+        db = _np(rf._sampson_dist(Fb, torch.as_tensor(p0 / scale), torch.as_tensor(q1 / scale)))
+        both_in = _np(ia) & _np(ib)
+        ck.add(name + " inliers", float((_np(ia) == _np(ib)).mean()), 0.99,
+               "share of equal mask entries", True)
+        ck.add(name + " Sampson", float(np.abs(da - db)[both_in].max() * scale), 1e-2,
+               "max abs px over common inliers")
+        sign = np.sign((_np(Fa) * _np(Fb)).sum())
+        ck.add(name + " matrix up to sign", float(np.abs(sign * _np(Fa) - _np(Fb)).max()),
+               5e-3, "max abs")
+        E_card = Fa
+    (R1a, R2a, ta), (R1b, R2b, tb) = _both(rf.decompose_essential, dev, _np(E_card))
+    rot = max(min(float(np.abs(_np(g) - _np(r)).max()) for r in (R1b, R2b))
+              for g in (R1a, R2a))
+    ck.add("decompose_essential rotations (as a set)", rot, 1e-4, "max abs")
+    ck.add("decompose_essential t up to sign",
+           min(float(np.abs(_np(ta) - _np(tb)).max()), float(np.abs(_np(ta) + _np(tb)).max())),
+           1e-4, "max abs")
+    a, b = _both(rf.rotation_matrix_to_euler, dev, _np(R1b))
+    ck.add("rotation_matrix_to_euler", float(np.abs(_np(a) - _np(b)).max()), 1e-4, "max abs deg")
+
+    # ---- k-means on the residual magnitude of the homography path
+    Hfit = rf.fit_homography_lstsq(torch.as_tensor(p0), torch.as_tensor(p1))
+    mag = _np(gm.subtract_global_motion(torch.as_tensor(flow2),
+                                        gm.homography_motion_field(Hfit, h, w))[1])
+    init = np.stack([rng.permutation(h * w)[:8] for _ in range(10)])
+    (ca, la, cea), (cb, lb, ceb) = _both(lambda x, i: kmeans(x.reshape(-1, 1), i),
+                                         dev, mag, init)
+    ck.add("kmeans centers", float((np.abs(_np(cea) - _np(ceb)) / np.abs(_np(ceb)).max()).max()),
+           1e-3, "max relative")
+    ck.add("kmeans labels", float((_np(la) == _np(lb)).mean()), 0.999, "share equal", True)
+    (qa, ma), (qb, mb) = _both(cluster_image, dev, mag, init)
+    ck.add("cluster_image mask", float((_np(ma) == _np(mb)).mean()), 0.999, "share equal", True)
+
+    # ---- window search. Scores come from fp32 prefix sums, which the card
+    # takes in another order: a textured signed image has no two windows or
+    # moves that tie to rounding (the clustered images of the homography run
+    # do, see that phase)
+    tex = (rng.gamma(1.5, 1.0, (h, w)) - 1.2).astype(np.float32)
+    tex[150:260, 300:470] += 2.5
+    ra, rb_ = _both(bs.analyze_pyramid, dev, tex)
+    ck.add("analyze_pyramid box", float(np.abs(_np(ra.box_xywh) - _np(rb_.box_xywh)).max()),
+           0, "max abs px")
+    ck.add("analyze_pyramid level", abs(int(ra.level) - int(rb_.level)), 0, "difference")
+    ck.add("analyze_pyramid score", abs(float(ra.score) / float(rb_.score) - 1), 1e-4, "relative")
+    (sa, ba), (sb, bb) = _both(bs.optimize_window, dev, tex, _np(rb_.box_xywh))
+    ck.add("optimize_window box", float(np.abs(_np(ba) - _np(bb)).max()), 0, "max abs px")
+    ck.add("optimize_window score", abs(float(sa) / float(sb) - 1), 1e-4, "relative")
+
+    def history(d):
+        hist = bs.make_flow_history(3, h, w, d)
+        for k in range(4):
+            hist = bs.push_flow(hist, torch.as_tensor(flow2 * (0.5 + 0.25 * k)).to(d))
+        return bs.accumulated_flow(hist)
+    ck.add("accumulated_flow", float(np.abs(_np(history(dev)) - _np(history(torch.device("cpu")))).max()),
+           1e-3, "max abs px")
+
+    # ---- corners, tracks, dense LK
+    ca_, cb_ = _both(lambda x: lk.shi_tomasi_corners(x, quality_level=0.05), dev, prev)
+
+    def corner_set(c):
+        return {tuple(p) for p, v in zip(_np(c.points).tolist(), _np(c.valid).tolist()) if v}
+    common = len(corner_set(ca_) & corner_set(cb_)) / max(len(corner_set(cb_)), 1)
+    # near-equal responses may swap their order in the greedy sweep
+    ck.add("shi_tomasi_corners common", common, 0.99, "share of the CPU's corners", True)
+    pts = _np(cb_.points)
+    ta_, tb_ = _both(lk.lucas_kanade_track, dev, prev, curr, pts)
+    held = (_np(tb_.status) & _np(cb_.valid) & (pts[:, 0] >= 10) & (pts[:, 0] <= w - 11)
+            & (pts[:, 1] >= 10) & (pts[:, 1] <= h - 11))
+    ck.add("lucas_kanade_track points", float(np.abs(_np(ta_.points) - _np(tb_.points))[held].max()),
+           1e-2, f"max abs px over {int(held.sum())} inner tracked features")
+    ck.add("lucas_kanade_track status", float((_np(ta_.status) == _np(tb_.status)).mean()), 0.995,
+           "share equal", True)
+    da_, db_ = _both(lk.lk_dense_flow, dev, prev, curr)
+    dd = np.abs(_np(da_) - _np(db_)).max(-1)
+    # the scatter-add's order is not fixed on the card, and a corner that
+    # differs moves the field around it
+    ck.add("lk_dense_flow p99", float(np.percentile(dd, 99)), 2e-2, "99th percentile abs px")
+    ck.add("lk_dense_flow mean", float(dd.mean()), 2e-2, "mean abs px")
+    pool_valid = rng.random(2000) < 0.5
+    pa, pb = _both(lambda p, v, x: lk.replenish_features(lk.FeaturePool(p, v), x).valid,
+                   dev, pts, pool_valid, prev)
+    ck.add("replenish_features valid", float((_np(pa) == _np(pb)).mean()), 0.99, "share equal", True)
+
+    # ---- sparse FoE on those tracks; its line intersections divide a
+    # cancelling difference by a small determinant, and the card fuses
+    # multiply-adds: 0.05 px as for XLA in tests/test_torch_foe_sparse.py
+    ok = _np(tb_.status) & _np(cb_.valid)
+    perm = rng.permutation(len(pts))
+    for tag, pm in (("rolled", None), ("permuted", perm)):
+        a, b = _both(lambda o, nw, v: foe_mod.get_foe_sparse(o, nw, v, perm=pm),
+                     dev, pts, _np(tb_.points), ok)
+        ck.add(f"get_foe_sparse {tag}", float(np.abs(_np(a) - _np(b)).max()), 0.05, "max abs px")
+
+    def traced(d, pm):
+        st = foe_mod.trace_init(len(pts), device=d)
+        r2 = np.random.default_rng(1)
+        cur = pts.astype(np.float64)
+        for k in range(25):
+            st = foe_mod.trace_update(
+                st, torch.as_tensor(cur.astype(np.float32)).to(d),
+                torch.as_tensor(ok).to(d),
+                torch.zeros(len(pts), dtype=torch.bool, device=d))
+            cur = cur + 0.01 * (cur - np.array([310.0, 190.0])) + r2.normal(scale=0.2, size=cur.shape)
+        return foe_mod.get_foe_sparse_traced(st, perm=pm)
+    for tag, pm in (("rolled", None), ("permuted", perm)):
+        ck.add(f"get_foe_sparse_traced {tag}",
+               float(np.abs(_np(traced(dev, pm)) - _np(traced(torch.device("cpu"), pm))).max()),
+               0.05, "max abs px")
+    n_checks = ck.finish()
+
+    # ---- time per frame at 752x480 (host clock, synchronised)
+    prev_d = torch.as_tensor(prev).to(dev)
+    curr_d = torch.as_tensor(curr).to(dev)
+    pts_d = torch.as_tensor(pts).to(dev)
+    mag_d = torch.as_tensor(mag).to(dev)
+    init_d = torch.as_tensor(init).to(dev)
+    quant_d, mask_d = cluster_image(mag_d, init_d)
+    masked = torch.where(mask_d, mag_d, torch.zeros_like(mag_d))
+    box0 = bs.analyze_pyramid(quant_d.float()).box_xywh
+    sweeps = []
+    real_sweep = lk._greedy_min_distance
+
+    def counting_sweep(*a, **k):
+        before = torch.cuda.Event(enable_timing=True)
+        after = torch.cuda.Event(enable_timing=True)
+        before.record()
+        out = real_sweep(*a, **k)
+        after.record()
+        sweeps.append((before, after))
+        return out
+    timings = {
+        "shi_tomasi_corners (2000 of 8000 candidates)": wall_ms(
+            lambda: lk.shi_tomasi_corners(prev_d, quality_level=0.05)),
+        "lucas_kanade_track (2000 features)": wall_ms(
+            lambda: lk.lucas_kanade_track(prev_d, curr_d, pts_d)),
+        "lk_dense_flow": wall_ms(lambda: lk.lk_dense_flow(prev_d, curr_d)),
+        "cluster_image (k-means 10x10)": wall_ms(lambda: cluster_image(mag_d, init_d)),
+        "analyze_pyramid": wall_ms(lambda: bs.analyze_pyramid(quant_d.float())),
+        "optimize_window": wall_ms(lambda: bs.optimize_window(masked, box0)),
+        "fit_homography_lstsq (1000 points)": wall_ms(
+            lambda: rf.fit_homography_lstsq(torch.as_tensor(p0[:1000]).to(dev),
+                                            torch.as_tensor(p1[:1000]).to(dev))),
+    }
+    lk._greedy_min_distance = counting_sweep
+    try:
+        lk.shi_tomasi_corners(prev_d, quality_level=0.05)
+        torch.cuda.synchronize()
+    finally:
+        lk._greedy_min_distance = real_sweep
+    timings["corner sweep alone"] = sweeps[0][0].elapsed_time(sweeps[0][1])
+    return {"checks": n_checks, "ms_per_frame": timings,
+            "corners": int(_np(ca_.valid).sum())}
+
+
+def _synthetic_processor(dev, h, w, n_frames, batch, tmp, **cfg_kw):
+    """A Processor over the in-repo synthetic sequence, its sequence
+    directory pointed at ``tmp`` (nothing is materialised: frames stay in
+    memory, results and images go to ``tmp``)."""
+    from mav_detection_tpu_torch.core.config import RunConfig
+    from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
+    from mav_detection_tpu_torch.pipeline.processor import Processor
+
+    cfg = RunConfig(dataset="synthetic", batch_size=batch, headless=True, **cfg_kw)
+    sp = SyntheticParams(height=h, width=w, n_frames=n_frames)
+    cfg.get_dataset = lambda: SyntheticDataset(params=sp)
+    proc = Processor(cfg, device=dev)
+    if tmp:
+        proc.dataset.seq_path = tmp
+        proc.dataset.results_path = os.path.join(tmp, "results")
+    return proc
+
+
+def phase_artifacts(dev) -> dict:
+    import torch
+
+    from mav_detection_tpu_torch.data.dataset import imread
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+
+    h, w, n_frames, batch = 480, 752, 12, 8
+    n_pairs = n_frames - 1
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = _synthetic_processor(dev, h, w, n_frames, batch, tmp,
+                                    flow_source="FARNEBACK")
+        if not proc.save_images:
+            raise AssertionError("save_images must default to True")
+        fi.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = proc.run_detection_foe()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fi.LAUNCHES)
+        if launches["farneback_iterate_fused"] <= 0:
+            raise AssertionError("artifacts: the run launched no kernel")
+        if sorted(results) != list(range(n_pairs)):
+            raise AssertionError(f"artifacts: results for {sorted(results)}")
+        names = [f"image_{i:05d}.png" for i in range(n_pairs)]
+        for kind in ("result-images", "derotated", "phi", "processed"):
+            got = sorted(os.listdir(os.path.join(tmp, kind)))
+            if got != names:       # padded lanes must not be written
+                raise AssertionError(f"artifacts: {kind} holds {got}")
+            for name in (names[0], names[-1]):
+                img = imread(os.path.join(tmp, kind, name))
+                if img.shape != (h, w, 3) or img.dtype != np.uint8:
+                    raise AssertionError(f"artifacts: {kind}/{name} is {img.shape}")
+        mask = imread(os.path.join(tmp, "result-images", names[0]))
+        if not set(np.unique(mask).tolist()) <= {0, 255}:
+            raise AssertionError("artifacts: result image is not a 0/255 mask")
+        frames = np.load(os.path.join(tmp, "video.npz"))["frames"]
+        if frames.shape != (n_pairs, h, w, 3) or frames.dtype != np.uint8:
+            raise AssertionError(f"artifacts: video.npz holds {frames.shape}")
+        n_json = len(os.listdir(os.path.join(tmp, "results")))
+        if n_json != n_pairs:
+            raise AssertionError(f"artifacts: {n_json} JSON files")
+        png_bytes = sum(os.path.getsize(os.path.join(tmp, kind, n))
+                        for kind in ("result-images", "derotated", "phi", "processed")
+                        for n in names)
+    stages = {k: v["total_s"] * 1e3 for k, v in proc.tracer.as_dict().items()}
+    return {"pairs": n_pairs, "wall_s": wall, "launches": launches,
+            "stages_ms": stages, "png_bytes": png_bytes,
+            "artifacts_ms_per_frame": stages["artifacts"] / n_pairs,
+            "encode_ms_per_frame": stages["encode"] / n_pairs}
+
+
+def phase_homography(dev) -> dict:
+    """The homography branch on FARNEBACK flow, on the card and on the CPU
+    (same numpy draw of the sampled points, same seeded k-means draw is not
+    possible across devices, so each run draws its own centers)."""
+    import torch
+
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.pipeline import processor as pmod
+
+    h, w, n_frames, batch = 480, 752, 9, 8
+    n_pairs = n_frames - 1
+    out = {}
+    for sparse in (False, True):
+        runs = {}
+        for d in (dev, torch.device("cpu")):
+            with tempfile.TemporaryDirectory() as tmp:
+                proc = _synthetic_processor(
+                    d, h, w, n_frames, batch, tmp if d == dev else "",
+                    algorithm="HOMOGRAPHY", flow_source="FARNEBACK",
+                    use_sparse_of=sparse)
+                # keep each frame's refined box (the results hold only IoU)
+                found = []
+                real = pmod.optimize_window
+
+                def keeping(img, box, found=found, real=real):
+                    out = real(img, box)
+                    found.append(out[1])
+                    return out
+                pmod.optimize_window = keeping
+                try:
+                    fi.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    results = proc.run_detection()
+                    if d == dev:
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    pmod.optimize_window = real
+                boxes = {i: tuple(_np(b).tolist()) for i, b in enumerate(found)}
+                launches = dict(fi.LAUNCHES)
+                mosaics = (len(os.listdir(os.path.join(tmp, "processed")))
+                           if d == dev else 0)
+            if sorted(results) != list(range(n_pairs)):
+                raise AssertionError(f"homography: results for {sorted(results)}")
+            ious = [results[i].tpr for i in range(n_pairs)]
+            if not np.isfinite(ious).all():
+                raise AssertionError(f"homography: non-finite IoU {ious}")
+            for i, (x, y, bw, bh) in boxes.items():
+                # the hill climb scores a box by its part inside the frame
+                # and may push a corner past the edge: the box must be
+                # finite, non-empty and overlap the frame
+                if not (np.isfinite([x, y, bw, bh]).all() and bw > 0 and bh > 0
+                        and x < w and y < h and x + bw > 0 and y + bh > 0):
+                    raise AssertionError(f"homography: frame {i} box {(x, y, bw, bh)}")
+            runs[d.type] = {"ious": ious, "boxes": boxes, "wall_s": wall,
+                            "launches": launches, "mosaics": mosaics,
+                            "stages_ms": {k: v["total_s"] * 1e3 for k, v in
+                                          proc.tracer.as_dict().items()}}
+        card, cpu = runs["cuda"], runs["cpu"]
+        if card["launches"].get("farneback_iterate_fused", 0) <= 0:
+            raise AssertionError("homography: the run launched no kernel")
+        if cpu["launches"].get("farneback_iterate_fused", 0) != 0:
+            raise AssertionError("homography: the CPU run counted a launch")
+        if card["mosaics"] != n_pairs:
+            raise AssertionError(f"homography: {card['mosaics']} mosaics")
+        if np.median(card["ious"]) < np.median(cpu["ious"]) - 0.05:
+            raise AssertionError(
+                f"homography: median IoU {np.median(card['ious'])} on the card, "
+                f"{np.median(cpu['ious'])} on the CPU")
+
+        def box_iou(a, b):
+            ix = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
+            iy = max(0.0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
+            return ix * iy / max(a[2] * a[3] + b[2] * b[3] - ix * iy, 1e-9)
+        out["sparse" if sparse else "plain"] = {
+            "pairs": n_pairs, "ious_card": card["ious"], "ious_cpu": cpu["ious"],
+            "median_iou_card": float(np.median(card["ious"])),
+            "median_iou_cpu": float(np.median(cpu["ious"])),
+            "card_vs_cpu_box_iou": [box_iou(card["boxes"][i], cpu["boxes"][i])
+                                    for i in range(n_pairs)],
+            "launches": card["launches"], "wall_s_card": card["wall_s"],
+            "wall_s_cpu": cpu["wall_s"], "ms_per_frame_card": card["wall_s"] * 1e3 / n_pairs,
+            "stages_ms_card": card["stages_ms"], "mosaics": card["mosaics"]}
+    return out
+
+
+def phase_lucas_kanade(dev) -> dict:
+    import torch
+
+    from mav_detection_tpu_torch.data.scene import make_scene
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.ops.flow import lucas_kanade as lk
+
+    h, w, max_corners = 480, 752, 2000
+    prev8, curr8, gt = make_scene(0, h=h, w=w)
+    g0 = torch.as_tensor(prev8.astype(np.float32)).to(dev)
+    g1 = torch.as_tensor(curr8.astype(np.float32)).to(dev)
+    corners = lk.shi_tomasi_corners(g0, max_corners=max_corners, quality_level=0.05)
+    tracked = lk.lucas_kanade_track(g0, g1, corners.points)
+    ok = _np(corners.valid & tracked.status)
+    pts = _np(corners.points)[ok]
+    disp = _np(tracked.points - corners.points)[ok]
+    gt_at = gt[np.clip(pts[:, 1].astype(int), 0, h - 1),
+               np.clip(pts[:, 0].astype(int), 0, w - 1)]
+    track_epe = float(np.linalg.norm(disp - gt_at, axis=-1).mean())
+    dense = _np(lk.lk_dense_flow(g0, g1, max_corners=max_corners))
+    dense_epe = float(np.linalg.norm(dense - gt, axis=-1)[16:-16, 16:-16].mean())
+    survivors = int(ok.sum())
+    if survivors < 0.75 * max_corners:
+        raise AssertionError(f"lucas_kanade: {survivors} survivors of {max_corners}")
+    if not track_epe < 0.12:
+        raise AssertionError(f"lucas_kanade: track EPE {track_epe} px >= 0.12")
+    if not dense_epe < 1.6:
+        raise AssertionError(f"lucas_kanade: dense interior EPE {dense_epe} px >= 1.6")
+
+    n_frames, batch = 5, 4
+    proc = _synthetic_processor(dev, h, w, n_frames, batch, "",
+                                flow_source="LUCAS_KANADE")
+    fi.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = proc.run_detection_foe()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(results) != list(range(n_frames - 1)):
+        raise AssertionError(f"lucas_kanade: results for {sorted(results)}")
+    foe_err = []
+    for i, fr in results.items():
+        vals = np.array([*fr.foe_dense, fr.fpr, fr.fpr_fixed, fr.sky_tpr,
+                         fr.sky_fpr, fr.center_phi], np.float64)
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"lucas_kanade frame {i}: non-finite {fr}")
+        foe_err.append(float(np.hypot(*np.subtract(fr.foe_dense, fr.foe_gt))))
+    if sum(fi.LAUNCHES.values()) != 0:
+        raise AssertionError("lucas_kanade: the LK source launched the Farneback kernel")
+    return {"survivors": survivors, "max_corners": max_corners,
+            "track_epe_px": track_epe, "dense_interior_epe_px": dense_epe,
+            "foe_loop": {"pairs": n_frames - 1, "wall_s": wall,
+                         "ms_per_frame": wall * 1e3 / (n_frames - 1),
+                         "foe_err_px": foe_err,
+                         "stages_ms": {k: v["total_s"] * 1e3 for k, v in
+                                       proc.tracer.as_dict().items()}}}
 
 
 def main() -> int:
@@ -403,7 +962,7 @@ def main() -> int:
         f"({times['accuracy']:.1f} s)")
 
     t0 = time.perf_counter()
-    runs = [phase_main_path(dev, 480, 752, 20, 8),
+    runs = [phase_main_path(dev, 480, 752, 12, 8),
             phase_main_path(dev, 1024, 1920, 6, 4)]
     times["main_path"] = time.perf_counter() - t0
     for r in runs:
@@ -413,6 +972,51 @@ def main() -> int:
             f"stages ms {json.dumps(r['stages_ms'])}, device ms per batch "
             f"{json.dumps(r['device_ms_per_batch'])} of {r['wall_ms_per_batch']:.3f} "
             f"ms wall (device idle share {r['device_idle_share']:.3f})")
+
+    t0 = time.perf_counter()
+    say("[modules] card against CPU at 752x480, same explicit draws:")
+    mods = phase_modules(dev)
+    times["modules"] = time.perf_counter() - t0
+    say(f"[modules] {mods['checks']} comparisons within tolerance; "
+        f"{mods['corners']} corners; host-clock ms per frame at 752x480 on "
+        f"{smi}: {json.dumps(mods['ms_per_frame'])} ({times['modules']:.1f} s)")
+
+    t0 = time.perf_counter()
+    art = phase_artifacts(dev)
+    times["artifacts"] = time.perf_counter() - t0
+    say(f"[artifacts] FoE loop, FARNEBACK, batch 8, {art['pairs']} pairs at "
+        f"752x480 with save_images: 4 x {art['pairs']} PNGs "
+        f"({art['png_bytes']} bytes), video.npz and {art['pairs']} JSON "
+        f"written; artifacts stage {art['artifacts_ms_per_frame']:.2f} ms per "
+        f"frame, encode {art['encode_ms_per_frame']:.2f} ms per frame on {smi}; "
+        f"launches {art['launches']}; stages ms {json.dumps(art['stages_ms'])} "
+        f"({times['artifacts']:.1f} s)")
+
+    t0 = time.perf_counter()
+    hom = phase_homography(dev)
+    times["homography"] = time.perf_counter() - t0
+    for tag, r in hom.items():
+        say(f"[homography] {tag} ({'--use-sparse-of, ' if tag == 'sparse' else ''}"
+            f"FARNEBACK flow, {r['pairs']} pairs at 752x480): IoU per frame on "
+            f"the card {json.dumps(r['ious_card'])} (median "
+            f"{r['median_iou_card']:.4f}), on the CPU {json.dumps(r['ious_cpu'])} "
+            f"(median {r['median_iou_cpu']:.4f}, gate: card >= CPU - 0.05); card "
+            f"box against CPU box IoU {json.dumps([round(v, 3) for v in r['card_vs_cpu_box_iou']])}; "
+            f"farneback_iterate_fused launches {r['launches']}; "
+            f"{r['ms_per_frame_card']:.2f} ms per frame on {smi} "
+            f"({r['wall_s_cpu']:.1f} s on the CPU); {r['mosaics']} mosaics; "
+            f"stages ms {json.dumps(r['stages_ms_card'])}")
+    say(f"[homography] ({times['homography']:.1f} s)")
+
+    t0 = time.perf_counter()
+    lkr = phase_lucas_kanade(dev)
+    times["lucas_kanade"] = time.perf_counter() - t0
+    say(f"[lucas_kanade] 752x480 bench scene: {lkr['survivors']} survivors of "
+        f"{lkr['max_corners']} (gate >= 75 %), mean track EPE "
+        f"{lkr['track_epe_px']:.4f} px (gate < 0.12), dense interior EPE "
+        f"{lkr['dense_interior_epe_px']:.4f} px (gate < 1.6); FoE loop with "
+        f"LUCAS_KANADE flow: {json.dumps(lkr['foe_loop'])} on {smi} "
+        f"({times['lucas_kanade']:.1f} s)")
     say(f"[phases] seconds {json.dumps(times)}")
 
     k = "farneback_iterate_fused"
@@ -427,6 +1031,9 @@ def main() -> int:
         "shape": fine["shape"], "tolerance": 0.0, "check": "pass",
         "schedule_err_px": main_shape["schedule_err_px"],
         "launches_1920x1024": runs[1]["launches"][k],
+        "launches_artifacts": art["launches"][k],
+        "launches_homography": hom["plain"]["launches"][k],
+        "launches_homography_sparse": hom["sparse"]["launches"][k],
         "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
         "per_batch": {f"{size} b={tb}": {
             key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",

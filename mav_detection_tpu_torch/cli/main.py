@@ -1,16 +1,24 @@
 """Command-line entry point of the port.
 
 The parser knows the reference's flag surface (``mav_detection_tpu.cli.
-main``) plus ``--device``; this slice runs the FoE detection loop on the
-synthetic dataset, and every flag or value outside that subset raises
-"not yet ported" instead of being ignored.
+main``) plus ``--device``; the port runs the batch engine on the synthetic
+dataset (the FoE detection loop, or the homography branch with
+``--algorithm HOMOGRAPHY``), and every flag or value outside the ``PORTED``
+table raises "not yet ported" instead of being ignored.
 
 Usage:
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --flow-source FARNEBACK --headless
+    python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
+        --flow-source LUCAS_KANADE --headless
+    python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
+        --algorithm HOMOGRAPHY --flow-source FARNEBACK [--use-sparse-of] \
+        --headless
 
-With ``SYNTHETIC_PATH`` set, the synthetic sequence is written there and the
-FrameResult JSON lands in its ``results/`` directory.
+With ``SYNTHETIC_PATH`` set, the synthetic sequence is written there; the
+FrameResult JSON lands in its ``results/`` directory and the debug images
+(FoE branch: ``result-images/``, ``derotated/``, ``phi/``, ``processed/``,
+``video.npz``; homography branch: the ``processed/`` mosaics) beside it.
 """
 from __future__ import annotations
 
@@ -21,11 +29,14 @@ from typing import List, Optional
 from mav_detection_tpu_torch.core.config import RunConfig
 from mav_detection_tpu_torch.pipeline.processor import Processor
 
-# flags this slice runs, and the values it accepts where it restricts them
+# flags the port runs, and the values it accepts where it restricts them
 PORTED = {
     "dataset": {"synthetic"},
-    "flow_source": {"FARNEBACK", "PRECOMPUTED"},
+    "flow_source": {"FARNEBACK", "PRECOMPUTED", "LUCAS_KANADE", "GROUND_TRUTH"},
     "mode": None,
+    "algorithm": None,
+    "use_sparse_of": None,
+    "debug": None,
     "batch_size": None,
     "foe_samples": None,
     "headless": None,
@@ -56,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--algorithm", type=str, default="ESSENTIAL",
                         help="ego-motion algorithm, see core.config.Algorithm")
     parser.add_argument("--flow-source", type=str, default="PRECOMPUTED",
-                        help="dense flow source (ported: FARNEBACK|PRECOMPUTED)")
+                        help="dense flow source (ported: FARNEBACK|PRECOMPUTED|"
+                             "LUCAS_KANADE|GROUND_TRUTH)")
     parser.add_argument("--batch-size", type=int, default=8,
                         help="frame pairs per device batch")
     parser.add_argument("--devices", type=int, default=0,
@@ -83,8 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args: argparse.Namespace,
                  parser: argparse.ArgumentParser) -> None:
-    """Raise for any flag set away from its default, or value, that this
-    slice does not run."""
+    """Raise for any flag set away from its default, or value, that the
+    port does not run."""
     for name, value in vars(args).items():
         allowed = PORTED.get(name, ())
         if name in PORTED:
@@ -103,11 +115,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
     check_ported(args, parser)
-    logger = get_logger()
+    logger = get_logger(args.debug)
     config = RunConfig(
         logger=logger, dataset=args.dataset, mode=args.mode,
-        flow_source=args.flow_source, batch_size=args.batch_size,
-        foe_samples=args.foe_samples, headless=args.headless)
+        algorithm=args.algorithm, flow_source=args.flow_source,
+        debug=args.debug, batch_size=args.batch_size,
+        foe_samples=args.foe_samples, use_sparse_of=args.use_sparse_of,
+        headless=args.headless)
     logger.info(f"Starting: {config}")
     processor = Processor(config, device=args.device)
     try:

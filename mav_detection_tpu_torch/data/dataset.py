@@ -11,14 +11,16 @@ Same directory layout and accessor surface as
 Not ported yet (each raises rather than degrading silently): recovering
 frames from ``recording.mp4`` (``data/preprocessing.py``) and SkyUNet
 inference for sequences without precomputed sky masks
-(``models/sky_segmentation.py``). Image IO needs ``imageio``; there is no
-OpenCV fallback.
+(``models/sky_segmentation.py``). Images are 8-bit PNGs, written and read by
+this module's own codec on ``zlib`` and ``struct`` (no imageio, no OpenCV).
 """
 from __future__ import annotations
 
 import glob
 import logging
 import os
+import struct
+import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -27,23 +29,123 @@ from mav_detection_tpu_torch.core.flo import read_flow
 from mav_detection_tpu_torch.core.rectangle import Rectangle, parse_yolo_annotation
 
 
-def imread(path: str) -> np.ndarray:
-    """Read an image as BGR uint8 (the upstream code is BGR-ordered)."""
-    import imageio.v3 as iio
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# channels per pixel by PNG colour type (8-bit, no palette)
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
-    img = iio.imread(path)
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def png_encode(img: np.ndarray) -> bytes:
+    """8-bit PNG bytes of a gray (h, w) or RGB (h, w, 3) uint8 array
+    (filter type 0 on every row, zlib level 3)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.ndim == 2:
+        colour = 0
+    elif img.ndim == 3 and img.shape[2] == 3:
+        colour = 2
+    else:
+        raise ValueError(f"png_encode takes (h, w) or (h, w, 3), got {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 1 + img[0].size), np.uint8)   # leading filter byte 0
+    rows[:, 1:] = img.reshape(h, -1)
+    return (_PNG_MAGIC
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 3))
+            + _png_chunk(b"IEND", b""))
+
+
+def _paeth_or_average(ftype: int, line: np.ndarray, prev: np.ndarray,
+                      bpp: int) -> np.ndarray:
+    """Undo PNG filter 3 (Average) or 4 (Paeth) on one row. Each byte needs
+    the reconstructed byte ``bpp`` to its left, so this is a byte loop."""
+    cur = line.tolist()
+    up = prev.tolist()
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if ftype == 3:
+            pred = (a + b) >> 1
+        else:
+            c = up[i - bpp] if i >= bpp else 0
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+        cur[i] = (cur[i] + pred) & 0xFF
+    return np.array(cur, np.uint8)
+
+
+def png_decode(data: bytes) -> np.ndarray:
+    """Decode an 8-bit, non-interlaced gray / gray+alpha / RGB / RGBA PNG into
+    (h, w) or (h, w, c) uint8. Rows with the Average or Paeth filter (which
+    other writers choose) take a byte loop; this module's own files use
+    filter 0."""
+    if data[:8] != _PNG_MAGIC:
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, colour, _, _, interlace = header
+    if depth != 8 or colour not in _PNG_CHANNELS or interlace:
+        raise ValueError(
+            f"unsupported PNG (bit depth {depth}, colour type {colour}, "
+            f"interlace {interlace}): 8-bit non-interlaced gray/RGB[A] only")
+    bpp = _PNG_CHANNELS[colour]
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError("PNG data length does not match its header")
+    raw = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, line = int(raw[y, 0]), raw[y, 1:]
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:    # Sub: running sum along the row, per channel
+            cur = np.cumsum(line.reshape(w, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif ftype == 2:    # Up
+            cur = line + prev
+        elif ftype in (3, 4):
+            cur = _paeth_or_average(ftype, line, prev, bpp)
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = out[y]
+    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+
+
+def imread(path: str) -> np.ndarray:
+    """Read an 8-bit PNG as BGR uint8 (the upstream code is BGR-ordered)."""
+    with open(path, "rb") as f:
+        img = png_decode(f.read())
     if img.ndim == 3 and img.shape[2] >= 3:
         img = img[..., :3][..., ::-1]  # RGB -> BGR
     return np.ascontiguousarray(img)
 
 
 def imwrite(path: str, img: np.ndarray) -> None:
-    import imageio.v3 as iio
-
+    """Write a gray (h, w) or BGR (h, w, 3+) array as an 8-bit PNG."""
     out = img
     if img.ndim == 3 and img.shape[2] >= 3:
         out = img[..., :3][..., ::-1]  # BGR -> RGB
-    iio.imwrite(path, out.astype(np.uint8))
+    with open(path, "wb") as f:
+        f.write(png_encode(out.astype(np.uint8)))
 
 
 def read_pfm(path: str) -> np.ndarray:

@@ -215,9 +215,11 @@ def _level_iter_count(params: FarnebackParams, k_level: int) -> int:
 
 
 # --------------------------------------------------------- device helpers
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def _device_const(kind: str, args: tuple, device: torch.device):
     """Per-device float32 copies of the host matrices (built once)."""
+    if kind == "band":
+        return torch.from_numpy(_band_matrix_np(*args)).to(device)
     if kind == "pyr":
         V, Hm = _poly_pyr_mats_np(*args)
         return (torch.from_numpy(V).to(device), torch.from_numpy(Hm).to(device))
@@ -231,6 +233,20 @@ def _device_const(kind: str, args: tuple, device: torch.device):
 
 def border_scale_map(h: int, w: int, device: torch.device) -> torch.Tensor:
     return _device_const("border", (h, w), torch.device(device))
+
+
+def _sep_correlate(img: torch.Tensor, kern_v: Tuple[float, ...],
+                   kern_h: Tuple[float, ...], mode: str) -> torch.Tensor:
+    """Separable 2-D correlation as two banded fp32 matmuls. ``img`` may be
+    (h, w) or (h, w, c): ``kern_v`` runs down the rows, ``kern_h`` along
+    them, borders by ``mode`` ("edge" or "reflect")."""
+    h, w = img.shape[0], img.shape[1]
+    Bv = _device_const("band", (h, tuple(kern_v), mode), img.device)
+    Bh = _device_const("band", (w, tuple(kern_h), mode), img.device)
+    if img.ndim == 2:
+        return torch.matmul(torch.matmul(Bv, img), Bh.T)
+    y = torch.einsum("ah,hwc->awc", Bv, img)
+    return torch.einsum("bw,awc->abc", Bh, y)
 
 
 def poly_exp_pyr_cf(img: torch.Tensor, smooth: Tuple[float, ...], lh: int,

@@ -1,7 +1,12 @@
-"""Focus-of-Expansion estimation, dense half
-(``mav_detection_tpu.ops.geometry.foe``: ``line_intersections``,
-``foe_ransac``, ``get_foe_dense``, ``get_phi``), batched over a leading frame
-axis. The sparse/trace functions come with the Lucas-Kanade slice.
+"""Focus-of-Expansion estimation (``mav_detection_tpu.ops.geometry.foe``).
+
+The dense half (``line_intersections``, ``foe_ransac``, ``get_foe_dense``,
+``get_phi``) is batched over a leading frame axis. The sparse half
+(``get_foe_sparse``, the ``TraceState`` ring and ``get_foe_sparse_traced``)
+works on one frame's tracks, as the reference's does. A random partner
+pairing cannot match across frameworks, so the sparse functions take the
+permutation itself (``perm``); without one the pairing is the deterministic
+roll.
 
 Default constants are upstream's: N=1000 samples, magnitude gate 2.5 px,
 inlier radius 30 px.
@@ -9,13 +14,14 @@ inlier radius 30 px.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 MAGNITUDE_THRESHOLD = 2.5
 RANSAC_THRESHOLD = 30.0
 NUM_SAMPLES = 1000
+TRACE_ROLLBACK = 20
 
 
 def line_intersections(p1: torch.Tensor, d1: torch.Tensor, p2: torch.Tensor,
@@ -96,6 +102,126 @@ def get_foe_dense(flow_uv: torch.Tensor, sample_yx: torch.Tensor,
     valid = gate & parallel_ok & (pts[..., 0] != 0.0)
     pts = torch.where(valid[..., None], pts, torch.zeros_like(pts))
     return foe_ransac(pts, valid, ransac_threshold)
+
+
+def _partner_lines(cur: torch.Tensor, d: torch.Tensor, valid: torch.Tensor,
+                   perm: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pick one partner motion line per track for intersection.
+
+    Upstream pairs each line with an iid-uniform random line, possibly
+    itself, which intersects as parallel and is dropped. A permutation
+    ``perm`` ((N,) indices) has the same marginal (uniform partner), no
+    partner collisions, and its fixed points degrade exactly like
+    upstream's self-picks (parallel -> invalid). Without one the pairing is
+    the deterministic rolled derangement (reproducible pipelines and tests).
+    """
+    if perm is None:
+        idx = torch.roll(torch.arange(cur.shape[0], device=cur.device), 1)
+    else:
+        idx = torch.as_tensor(perm, device=cur.device).long()
+    return cur[idx], d[idx], valid[idx]
+
+
+def _vote(cur, d, valid, perm, ransac_threshold) -> torch.Tensor:
+    """Intersect each valid motion line (through ``cur`` along ``-d``) with
+    its partner's and take the consensus vote: (N, 2) -> (2,)."""
+    # the partner must pass the SAME gate: a near-stationary partner line is
+    # noise-dominated and its intersection must not vote
+    p2, d2, v2 = _partner_lines(cur, d, valid, perm)
+    pts, ok = line_intersections(cur, -d, p2, -d2)
+    ok = ok & valid & v2
+    pts = torch.where(ok[..., None], pts, torch.zeros_like(pts))
+    return foe_ransac(pts[None], ok[None], ransac_threshold)[0]
+
+
+def get_foe_sparse(points_old: torch.Tensor, points_new: torch.Tensor,
+                   valid: torch.Tensor,
+                   ransac_threshold: float = RANSAC_THRESHOLD,
+                   perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sparse-track FoE (2,): each valid track (old -> new) that moved more
+    than 0.5 px defines a motion line; each line is intersected with a
+    partner line (see ``_partner_lines``) and the same consensus vote as the
+    dense path picks the FoE. Fixed shapes; invalid tracks are masked out
+    rather than filtered."""
+    d = points_new - points_old
+    moving = valid & (torch.linalg.norm(d, dim=-1) > 0.5)
+    return _vote(points_new, d, moving, perm, ransac_threshold)
+
+
+# ------------------------------------------------------------ trace history
+class TraceState(NamedTuple):
+    """Fixed-capacity per-track position history (functional ring buffer).
+
+    Upstream's LK trace lists with ``ROLLBACK`` frames of history: the
+    sparse FoE intersects each track's CURRENT motion against its position
+    up to ``rollback`` frames ago; a long baseline makes the motion lines far
+    better conditioned than one-frame displacements. Tracks replaced by LK
+    replenishment restart their age; surviving tracks keep their history.
+
+    Shapes: positions (T, N, 2); alive (T, N); age (N,) int32; head is the
+    ring slot written last, a plain int (it never depends on device data).
+    """
+    positions: torch.Tensor
+    alive: torch.Tensor
+    age: torch.Tensor
+    head: int
+
+
+def trace_init(num_tracks: int, capacity: int = TRACE_ROLLBACK + 1,
+               device: torch.device = torch.device("cpu")) -> TraceState:
+    return TraceState(
+        positions=torch.zeros((capacity, num_tracks, 2), dtype=torch.float32,
+                              device=device),
+        alive=torch.zeros((capacity, num_tracks), dtype=torch.bool, device=device),
+        # age = frames of history available; -1 so the first push lands at 0
+        age=torch.full((num_tracks,), -1, dtype=torch.int32, device=device),
+        head=-1,
+    )
+
+
+def trace_update(state: TraceState, points: torch.Tensor, valid: torch.Tensor,
+                 new_track: torch.Tensor) -> TraceState:
+    """Push one frame of track positions into the ring (the buffers are
+    copied: the old state stays valid, as the reference's does).
+
+    ``valid`` marks tracks alive this frame; ``new_track`` marks pool slots
+    that replenishment just re-seeded (their age restarts, severing the old
+    trace)."""
+    cap = state.positions.shape[0]
+    head = (state.head + 1) % cap
+    positions = state.positions.clone()
+    positions[head] = points.to(torch.float32)
+    alive = state.alive.clone()
+    alive[head] = valid
+    zero = torch.zeros_like(state.age)
+    age = torch.where(new_track, zero, torch.where(valid, state.age + 1, zero))
+    return TraceState(positions=positions, alive=alive, age=age, head=head)
+
+
+def get_foe_sparse_traced(state: TraceState, rollback: int = TRACE_ROLLBACK,
+                          ransac_threshold: float = RANSAC_THRESHOLD,
+                          min_baseline: float = 0.5,
+                          perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sparse FoE from trace history: per track, intersect the motion line
+    (position ``min(rollback, age)`` frames ago -> current position) with a
+    partner line, then the standard consensus vote."""
+    cap, n = state.alive.shape
+    head = state.head % cap
+    cur = state.positions[head]                 # (N, 2)
+    cur_ok = state.alive[head]
+
+    # per-track rollback clamped by age (and ring capacity)
+    rb = torch.clamp(state.age, max=min(rollback, cap - 1)).long()   # (N,)
+    idx = (head - rb) % cap                     # (N,) ring index per track
+    lane = torch.arange(n, device=cur.device)
+    old = state.positions[idx, lane]
+    old_ok = state.alive[idx, lane]
+
+    d = cur - old
+    valid = (cur_ok & old_ok & (rb > 0)
+             & (torch.linalg.norm(d, dim=-1) > min_baseline))
+    return _vote(cur, d, valid, perm, ransac_threshold)
 
 
 def get_phi(derotated_flow_uv: torch.Tensor, foe: torch.Tensor) -> torch.Tensor:

@@ -1,26 +1,41 @@
-"""The frame engine: host IO around the fused device detection step
-(``mav_detection_tpu.pipeline.processor.Processor.run_detection_foe`` on the
-batch engine).
+"""The frame engine: host IO around the device detection steps
+(``mav_detection_tpu.pipeline.processor.Processor`` on the batch engine).
 
-Frames are staged in host batches on a background thread, flow and the
-fused detection step run the whole batch on the card, and only a packed
-(B, 12) block of per-frame scalars comes back; FrameResult JSON goes to
-``results/image_%05d.json`` when the dataset has a sequence directory.
+FoE branch (``run_detection_foe``): frames are staged in host batches on a
+background thread, flow and the fused detection step run the whole batch on
+the card, and only a packed (B, 12) block of per-frame scalars comes back;
+FrameResult JSON goes to ``results/image_%05d.json`` when the dataset has a
+sequence directory. With ``save_images`` (the default) the full detection
+step runs instead and the per-frame debug images (``result-images/``,
+``derotated/``, ``phi/``, ``processed/`` overlays) are written, from one
+device-to-host copy per image kind per batch, then ``video.npz`` (and
+``processed.mp4`` where ``ffmpeg`` is on the path).
 
-Ported: flow sources FARNEBACK and PRECOMPUTED (with its FARNEBACK
-fallback), staging with pinned-memory uploads of B+1 unique gray frames per
-full batch, static-shape tail padding, one scalar pull per batch. Not ported
-yet, each raising rather than skipping: debug images (``save_images``, need
-``ops/image/visualize.py``), the scan/chunked/spatial engines, multi-device
-meshes, the homography branch, and the LK/RAFT/GT flow sources.
+Homography branch (``run_detection_homography``): flow in device batches;
+per frame a homography fit on 1000 sampled correspondences (or sparse LK
+tracks with ``use_sparse_of``), the global-motion residual, k-means on its
+magnitude, the pyramid window search and the window hill climb, all on the
+card; the box comes back, and with a sequence directory the 2x3 mosaic's
+images.
+
+Ported: flow sources FARNEBACK, PRECOMPUTED (with its FARNEBACK fallback),
+LUCAS_KANADE and GROUND_TRUTH; staging with pinned-memory uploads of B+1
+unique gray frames per full batch; static-shape tail padding; one scalar
+pull per batch. Not ported yet, each raising rather than skipping: the
+scan/chunked/spatial engines, multi-device meshes, the RAFT flow source, the
+native ``.flo`` prefetcher (``.flo`` files are read with numpy), and the
+``cv2.VideoWriter`` mp4 fallback (the port has no OpenCV).
 """
 from __future__ import annotations
 
+import glob
 import logging
 import os
+import shutil
+import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,22 +43,52 @@ import torch
 from mav_detection_tpu_torch.core.config import Algorithm, FlowSource, RunConfig
 from mav_detection_tpu_torch.core.flo import read_flow_batch
 from mav_detection_tpu_torch.core.frame_result import FrameResult
-from mav_detection_tpu_torch.data.dataset import create_if_not_exists
+from mav_detection_tpu_torch.core.rectangle import Rectangle
+from mav_detection_tpu_torch.data.dataset import (
+    create_if_not_exists,
+    imread,
+    imwrite,
+)
 from mav_detection_tpu_torch.ops.flow.farneback import (
     _farneback_cf,
     tuned_flow_params,
 )
+from mav_detection_tpu_torch.ops.flow.lucas_kanade import (
+    lk_dense_flow,
+    lucas_kanade_track,
+    shi_tomasi_corners,
+)
+from mav_detection_tpu_torch.ops.geometry.boxsearch import (
+    analyze_pyramid,
+    optimize_window,
+)
+from mav_detection_tpu_torch.ops.geometry.global_motion import (
+    homography_motion_field,
+    subtract_global_motion,
+)
+from mav_detection_tpu_torch.ops.geometry.kmeans import cluster_image
+from mav_detection_tpu_torch.ops.geometry.ransac_fits import fit_homography_lstsq
 from mav_detection_tpu_torch.ops.image.color import bgr_to_gray_host
+from mav_detection_tpu_torch.ops.image.visualize import (
+    apply_colormap,
+    flow_to_color,
+    to_rgb,
+)
 from mav_detection_tpu_torch.pipeline.detector import (
     DetectionStep,
+    _to_scalars,
+    detect_frame_batch,
     detect_frame_batch_scalars,
     pack_frame_scalars,
 )
 from mav_detection_tpu_torch.utils.device import resolve_device
 from mav_detection_tpu_torch.utils.tracing import Tracer
 
-# seed of the per-run FoE sample generator
+# seed of the per-run generators (FoE samples, k-means initial centers)
 SAMPLE_SEED = 0
+# the homography branch samples its correspondences this far from the edges
+HOMOGRAPHY_BORDER = 20
+HOMOGRAPHY_SAMPLES = 1000
 
 
 def _edge_pad_batch(arr, pad: int):
@@ -59,7 +104,7 @@ def _edge_pad_batch(arr, pad: int):
 
 
 class Processor:
-    """Detection runner (FoE branch, batch engine)."""
+    """Detection runner (FoE and homography branches, batch engine)."""
 
     def __init__(self, config: RunConfig,
                  device: Union[str, torch.device] = "cuda") -> None:
@@ -83,9 +128,9 @@ class Processor:
         w, h = (int(v) for v in self.dataset.resolution)
         self._farneback = tuned_flow_params(h, w)
         self.tracer = Tracer()
-        # per-frame debug images need ops/image/visualize.py (not ported);
-        # JSON results are always written
-        self.save_images = False
+        # write per-frame debug images (result/derotated/phi/overlay); JSON
+        # results are always written. Disable for throughput runs.
+        self.save_images = True
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
@@ -98,10 +143,10 @@ class Processor:
         if src == FlowSource.PRECOMPUTED and not self.dataset.has_precomputed_flow():
             self.logger.info("no precomputed flow found; using on-device Farneback")
             src = FlowSource.FARNEBACK
-        if src not in (FlowSource.PRECOMPUTED, FlowSource.FARNEBACK):
+        if src == FlowSource.RAFT:
             raise NotImplementedError(
-                f"--flow-source {src.name} is not ported yet; use FARNEBACK "
-                "or PRECOMPUTED")
+                "--flow-source RAFT is not ported yet; use FARNEBACK, "
+                "LUCAS_KANADE, PRECOMPUTED or GROUND_TRUTH")
         return src
 
     @staticmethod
@@ -127,15 +172,8 @@ class Processor:
         ds = self.dataset
         h, w = ds.capture_shape[:2]
         staged: Dict[str, object] = {}
-        if src == FlowSource.PRECOMPUTED:
-            # in-memory datasets have no .flo directory
-            paths = ([ds.get_flow_path(i) for i in idx]
-                     if getattr(ds, "flow_path", None) else [])
-            if paths and all(paths):
-                staged["flow_host"] = read_flow_batch(paths)
-            else:
-                staged["flow_host"] = np.stack(
-                    [np.asarray(ds.get_flow_uv(i), np.float32) for i in idx])
+        if src in (FlowSource.PRECOMPUTED, FlowSource.GROUND_TRUTH):
+            staged["flow_host"] = self._read_flow(idx, src)
         elif idx == list(range(idx[0], idx[0] + len(idx))):
             # contiguous transitions stage B+1 UNIQUE gray frames (video is
             # a chain); the device slices prevs/currs out of one upload
@@ -177,11 +215,42 @@ class Processor:
         self._stage_host_seconds += time.time() - t0
         return staged
 
+    def _read_flow(self, idx: List[int], src: FlowSource) -> np.ndarray:
+        """Host flow (n, h, w, 2) of a file-backed source: the measured
+        ``.flo`` files (PRECOMPUTED) or the ground-truth ones."""
+        ds = self.dataset
+        precomputed = src == FlowSource.PRECOMPUTED
+        # in-memory datasets have no .flo directories
+        on_disk = getattr(ds, "flow_path" if precomputed else "gt_of_path", None)
+        path_of = ds.get_flow_path if precomputed else ds.get_gt_of_path
+        paths = [path_of(i) for i in idx] if on_disk else []
+        if paths and all(paths):
+            return read_flow_batch(paths)
+        getter = ds.get_flow_uv if precomputed else ds.get_gt_of
+        return np.stack([np.asarray(getter(i), np.float32) for i in idx])
+
     def _to_dev(self, arr) -> torch.Tensor:
         return torch.as_tensor(arr).to(self.device)
 
-    def _flow_from_staged(self, staged: Dict[str, object]) -> torch.Tensor:
-        """Device flow (n, h, w, 2) for a staged batch."""
+    def _flow_pairs(self, prevs: torch.Tensor, currs: torch.Tensor,
+                    src: FlowSource, n_real: Optional[int] = None
+                    ) -> torch.Tensor:
+        """Device flow (n, h, w, 2) from gray frame pairs. LUCAS_KANADE runs
+        frame by frame; of a padded tail it computes only the first
+        ``n_real`` lanes and repeats the last (padded lanes are never read)."""
+        if src == FlowSource.FARNEBACK:
+            return _farneback_cf(prevs, currs, self._farneback)
+        n = prevs.shape[0]
+        n_real = n if n_real is None else n_real
+        flows = torch.stack([
+            lk_dense_flow(prevs[j].to(torch.float32), currs[j].to(torch.float32))
+            for j in range(n_real)])
+        return _edge_pad_batch(flows, n - n_real)
+
+    def _flow_from_staged(self, staged: Dict[str, object], src: FlowSource,
+                          n_real: Optional[int] = None) -> torch.Tensor:
+        """Device flow (n, h, w, 2) for a staged batch of flow source
+        ``src``, of which the first ``n_real`` lanes are real frames."""
         if "flow_host" in staged:
             return self._to_dev(staged["flow_host"])
         if "grays_dev" in staged:
@@ -192,18 +261,156 @@ class Processor:
         elif "grays" in staged:
             grays = self._to_dev(staged["grays"])
         else:
-            prevs = self._to_dev(staged["prevs"])
-            currs = self._to_dev(staged["currs"])
-            return _farneback_cf(prevs, currs, self._farneback)
-        return _farneback_cf(grays[:-1], grays[1:], self._farneback)
+            return self._flow_pairs(self._to_dev(staged["prevs"]),
+                                    self._to_dev(staged["currs"]), src, n_real)
+        return self._flow_pairs(grays[:-1], grays[1:], src, n_real)
+
+    def _flow_batch(self, indices: List[int]) -> torch.Tensor:
+        """Device flow (n, h, w, 2) for frame pairs (i, i+1), unstaged (the
+        homography branch's source of flow)."""
+        src = self._effective_flow_source()
+        ds = self.dataset
+        if src in (FlowSource.PRECOMPUTED, FlowSource.GROUND_TRUTH):
+            return self._to_dev(self._read_flow(indices, src))
+        prevs = np.stack([self._gray(ds.get_frame(i)) for i in indices])
+        currs = np.stack([self._gray(ds.get_frame(i + 1)) for i in indices])
+        return self._flow_pairs(self._to_dev(prevs), self._to_dev(currs), src)
 
     # ------------------------------------------------------------- detect
     def run_detection(self) -> Dict[int, FrameResult]:
         if self.config.algorithm == Algorithm.HOMOGRAPHY:
-            raise NotImplementedError(
-                "the homography branch is not ported yet; the FoE branch "
-                "runs for every other --algorithm")
+            return self.run_detection_homography()
         return self.run_detection_foe()
+
+    def run_detection_homography(self, kmeans_init: Optional[Sequence] = None
+                                 ) -> Dict[int, FrameResult]:
+        """Homography-branch detection: fit the transform on sampled flow,
+        synthesize + subtract global motion, cluster the residual magnitude,
+        box-search the brightest window, and report IoU against the
+        ground-truth annotation (as ``tpr``). Flow computes in device
+        batches; the fit/cluster/box stages run per frame, on the card.
+
+        ``kmeans_init``: optional initial k-means centers, one (attempts, k)
+        array of pixel indices per frame pair, in place of the draw from the
+        run's generator (seeded with ``SAMPLE_SEED``)."""
+        ds = self.dataset
+        rng = np.random.default_rng(0)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(SAMPLE_SEED)
+
+        out_dir = os.path.join(ds.seq_path, "processed") if ds.seq_path else ""
+        if out_dir:
+            create_if_not_exists(out_dir)
+            create_if_not_exists(ds.results_path)
+
+        for b0 in range(0, ds.N - 1, self.batch_size):
+            batch_idx = list(range(b0, min(b0 + self.batch_size, ds.N - 1)))
+            with self.tracer.stage("flow"):
+                flows = self._flow_batch(batch_idx)
+            self._homography_frame_batch(batch_idx, flows, rng, gen,
+                                         kmeans_init, out_dir)
+        self.logger.info("stage timing:\n" + self.tracer.summary())
+        return self.detection_results
+
+    def _sparse_correspondences(self, i: int, p0: torch.Tensor,
+                                p1: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sparse-LK transform-fit correspondences (the ``use_sparse_of``
+        flag): Shi-Tomasi corners on frame ``i`` tracked to ``i+1``. Slots
+        whose track fails keep the grid-flow correspondence passed in (both
+        are true correspondences, so the least-squares fit stays sound and
+        every shape stays static); when no track survives that is all of
+        them, upstream's fallback to the sampled coordinates."""
+        ds = self.dataset
+        g0 = self._to_dev(self._gray(ds.get_frame(i))).to(torch.float32)
+        g1 = self._to_dev(self._gray(ds.get_frame(i + 1))).to(torch.float32)
+        corners = shi_tomasi_corners(g0, max_corners=p0.shape[0],
+                                     quality_level=0.01)
+        tracks = lucas_kanade_track(g0, g1, corners.points)
+        ok = (corners.valid & tracks.status)[:, None]
+        if self.logger.isEnabledFor(logging.DEBUG):
+            self.logger.debug(f"features: {int(ok.sum())}")
+        return (torch.where(ok, corners.points, p0),
+                torch.where(ok, tracks.points, p1))
+
+    def _homography_frame_batch(self, batch_idx: List[int], flows: torch.Tensor,
+                                rng: np.random.Generator,
+                                gen: torch.Generator,
+                                kmeans_init: Optional[Sequence],
+                                out_dir: str) -> None:
+        ds = self.dataset
+        h, w = ds.capture_shape[:2]
+        border = HOMOGRAPHY_BORDER
+        boxes, gms, residuals, quants = [], [], [], []
+        for j, i in enumerate(batch_idx):
+            flow = flows[j]
+            with self.tracer.stage("fit"):
+                # the same numpy draw as the reference's, gathered on the card
+                sy = rng.integers(border, h - border, HOMOGRAPHY_SAMPLES)
+                sx = rng.integers(border, w - border, HOMOGRAPHY_SAMPLES)
+                p0 = self._to_dev(np.stack([sx, sy], 1).astype(np.float32))
+                p1 = p0 + flow[self._to_dev(sy), self._to_dev(sx)]
+                if self.config.use_sparse_of:
+                    p0, p1 = self._sparse_correspondences(i, p0, p1)
+                H = fit_homography_lstsq(p0, p1)
+                gm = homography_motion_field(H, h, w)
+                residual, mag = subtract_global_motion(flow, gm)
+            with self.tracer.stage("cluster"):
+                init = (None if kmeans_init is None
+                        else self._to_dev(np.asarray(kmeans_init[i])))
+                quant, mask = cluster_image(mag, init, generator=gen)
+            with self.tracer.stage("boxsearch"):
+                res = analyze_pyramid(quant.to(torch.float32))
+                _, box = optimize_window(
+                    torch.where(mask, mag, torch.zeros_like(mag)), res.box_xywh)
+            boxes.append(box)
+            if out_dir:
+                gms.append(gm)
+                residuals.append(residual)
+                quants.append(quant)
+
+        # one device->host copy per kind for the whole batch
+        with self.tracer.stage("materialize"):
+            boxes_h = torch.stack(boxes).cpu().numpy()
+            if out_dir:
+                flows_h = flows.cpu().numpy()
+                gms_h = torch.stack(gms).cpu().numpy()
+                residuals_h = torch.stack(residuals).cpu().numpy()
+                quants_h = torch.stack(quants).cpu().numpy()
+
+        with self.tracer.stage("artifacts"):
+            for j, i in enumerate(batch_idx):
+                bx = boxes_h[j]
+                rect = Rectangle((float(bx[0]), float(bx[1])),
+                                 (float(bx[2]), float(bx[3])))
+                gts = ds.get_annotation(i)
+                iou = max((Rectangle.calculate_iou_safe(rect, gt) for gt in gts),
+                          default=0.0)
+                fr = FrameResult(time=float(ds.get_time(i)), tpr=float(iou))
+                self.detection_results[i] = fr
+                self.config.results[i] = fr
+                if not out_dir:
+                    continue
+                with open(os.path.join(ds.results_path,
+                                       f"image_{i:05d}.json"), "w") as f:
+                    f.write(fr.to_json())
+                # 2x3 debug mosaic:
+                # top = frame+box | global motion | residual
+                # bottom = flow vis | global motion | cluster vis
+                frame = np.asarray(ds.get_frame(i))[..., :3].copy()
+                tl = rect.get_topleft_int()
+                br = rect.get_bottomright_int()
+                frame[max(tl[1], 0):br[1], max(tl[0], 0):tl[0] + 2] = (0, 255, 0)
+                frame[max(tl[1], 0):br[1], br[0] - 2:br[0]] = (0, 255, 0)
+                frame[max(tl[1], 0):tl[1] + 2, max(tl[0], 0):br[0]] = (0, 255, 0)
+                frame[br[1] - 2:br[1], max(tl[0], 0):br[0]] = (0, 255, 0)
+                gm_vis = flow_to_color(gms_h[j])
+                quant = quants_h[j].astype(np.float32)
+                cluster_vis = to_rgb(255.0 * quant / max(float(quant.max()), 1e-6))
+                top = np.hstack([frame, gm_vis, flow_to_color(residuals_h[j])])
+                bottom = np.hstack([flow_to_color(flows_h[j]), gm_vis, cluster_vis])
+                imwrite(os.path.join(out_dir, f"image_{i:05d}.png"),
+                        np.vstack([top, bottom]))
 
     def run_detection_foe(self, sample_yx: Optional[Sequence] = None
                           ) -> Dict[int, FrameResult]:
@@ -215,14 +422,18 @@ class Processor:
         ds = self.dataset
         n_pairs = ds.N - 1
         h, w = ds.capture_shape[:2]
-        save_images = bool(ds.seq_path) and self.save_images
-        if save_images:
-            raise NotImplementedError(
-                "save_images needs ops/image/visualize.py, which is not "
-                "ported yet; set save_images = False")
-        results_dir = ds.results_path if ds.seq_path else ""
-        if results_dir:
-            create_if_not_exists(results_dir)
+        out_dirs: Dict[str, str] = {}
+        if ds.seq_path:
+            out_dirs = {
+                "results": ds.results_path,
+                "result_imgs": os.path.join(ds.seq_path, "result-images"),
+                "derotated": os.path.join(ds.seq_path, "derotated"),
+                "phi": os.path.join(ds.seq_path, "phi"),
+                "processed": os.path.join(ds.seq_path, "processed"),
+            }
+            for d in out_dirs.values():
+                create_if_not_exists(d)
+        save_images = bool(out_dirs) and self.save_images
         gen = torch.Generator(device=self.device)
         gen.manual_seed(SAMPLE_SEED)
         step = self._detection_step()
@@ -255,7 +466,7 @@ class Processor:
                     nb = self.batch_size
 
                 with self.tracer.stage("flow"):
-                    flow = self._flow_from_staged(staged)
+                    flow = self._flow_from_staged(staged, src, len(idx))
                 with self.tracer.stage("stage+detect"):
                     if "gt_flow" in staged:
                         gt_flow = self._to_dev(staged["gt_flow"])
@@ -263,7 +474,11 @@ class Processor:
                         gt_flow = torch.zeros((nb, h, w, 2), device=self.device)
                     syx = (None if sample_yx is None
                            else self._to_dev(np.asarray(sample_yx[k])))
-                    out = detect_frame_batch_scalars(
+                    # the debug images need the full outputs (masks, phi map,
+                    # derotated flow); throughput runs keep the scalars only
+                    detect_fn = (detect_frame_batch if save_images
+                                 else detect_frame_batch_scalars)
+                    out = detect_fn(
                         flow, gt_flow, self._to_dev(staged["omegas"]),
                         self._to_dev(staged["dts"]),
                         self._to_dev(staged["segs"]),
@@ -272,8 +487,16 @@ class Processor:
                         self._to_dev(staged["gt_foes"]),
                         sample_yx=syx, generator=gen, config=step)
 
-                # one device->host transfer for the whole batch
+                # one device->host transfer of the scalars for the whole
+                # batch and, with debug images on, one per image kind; padded
+                # lanes' images stay on the card
                 with self.tracer.stage("materialize"):
+                    if save_images:
+                        n_real = len(idx)
+                        fixed_masks = out.estimate_fixed[:n_real].cpu().numpy()
+                        phi_maps = out.phi[:n_real].cpu().numpy()
+                        derot = out.flow_derotated[:n_real].cpu().numpy()
+                        out = _to_scalars(out)
                     packed = pack_frame_scalars(out).cpu().numpy()
 
                 with self.tracer.stage("artifacts"):
@@ -293,10 +516,15 @@ class Processor:
                         )
                         self.detection_results[i] = fr
                         self.config.results[i] = fr
-                        if results_dir:
-                            with open(os.path.join(results_dir,
-                                                   f"image_{i:05d}.json"), "w") as f:
+                        name = f"image_{i:05d}"
+                        if out_dirs:
+                            with open(os.path.join(out_dirs["results"],
+                                                   name + ".json"), "w") as f:
                                 f.write(fr.to_json())
+                        if save_images:
+                            self._write_debug_images(
+                                out_dirs, name, np.asarray(ds.get_frame(i)),
+                                fixed_masks[j], phi_maps[j], derot[j])
                 done = idx[-1] + 1
                 if done % max(n_pairs // 10, 1) < self.batch_size:
                     self.logger.info(
@@ -310,8 +538,88 @@ class Processor:
                 f"host staging {self._stage_host_seconds:.2f}s over "
                 f"{wall:.2f}s wall ({100 * self._stage_host_seconds / wall:.0f}% "
                 "— overlapped with device compute on a background thread)")
+        if out_dirs:
+            with self.tracer.stage("encode"):
+                self._encode_video(out_dirs["processed"],
+                                   os.path.join(ds.seq_path, "processed.mp4"))
         self.logger.info("stage timing:\n" + self.tracer.summary())
         return self.detection_results
+
+    @staticmethod
+    def _write_debug_images(out_dirs: Dict[str, str], name: str,
+                            frame: np.ndarray, fixed_mask: np.ndarray,
+                            phi_map: np.ndarray, derot: np.ndarray) -> None:
+        """One frame's four debug PNGs."""
+        imwrite(os.path.join(out_dirs["result_imgs"], name + ".png"),
+                to_rgb(255.0 * fixed_mask))
+        imwrite(os.path.join(out_dirs["derotated"], name + ".png"),
+                flow_to_color(derot))
+        imwrite(os.path.join(out_dirs["phi"], name + ".png"),
+                apply_colormap(phi_map.astype(np.float32)))
+        # overlay like upstream's mask_vis (alpha blend)
+        frame = frame.astype(np.float32)
+        overlay = frame.copy()
+        overlay[fixed_mask.astype(bool)] = (150, 0, 150)
+        vis = 0.2 * frame + 0.8 * overlay
+        imwrite(os.path.join(out_dirs["processed"], name + ".png"),
+                np.clip(vis, 0, 255).astype(np.uint8))
+
+    def _encode_video(self, img_dir: str, out_path: str, fps: int = 30) -> None:
+        """png sequence -> the codec-free ``video.npz`` sidecar, plus
+        ``processed.mp4`` through ``ffmpeg`` when it is on the path. The
+        reference's second encoder, ``cv2.VideoWriter``, is not ported (the
+        port has no OpenCV): without ffmpeg the mp4 is skipped, with a log
+        line, as the reference does when it finds no codec."""
+        if not glob.glob(os.path.join(img_dir, "image_*.png")):
+            return
+        self._encode_npz(img_dir,
+                         os.path.join(os.path.dirname(out_path), "video.npz"))
+        if shutil.which("ffmpeg") is None:
+            self.logger.warning("video encode skipped: no ffmpeg on the path")
+            return
+        cmd = ["ffmpeg", "-y", "-loglevel", "error", "-framerate",
+               str(fps), "-i", os.path.join(img_dir, "image_%05d.png"),
+               "-c:v", "libx264", "-pix_fmt", "yuv420p", out_path]
+        # check the exit code: an ffmpeg without libx264 exits non-zero
+        if subprocess.run(cmd).returncode != 0:
+            self.logger.warning("video encode failed: ffmpeg exited non-zero")
+
+    # Above this many bytes of raw frames, skip the npz sidecar rather than
+    # exhausting host memory after the detection work is done (a 1920x1024
+    # x 2000-frame run is ~12 GB raw). Override via env.
+    NPZ_MAX_BYTES = int(os.environ.get("MAVTPU_NPZ_MAX_BYTES", 4 << 30))
+
+    def _encode_npz(self, img_dir: str, out_path: str) -> None:
+        """png sequence -> single ``video.npz`` (key ``frames``, (n, h, w, 3)
+        uint8 BGR)."""
+        pngs = sorted(glob.glob(os.path.join(img_dir, "image_*.png")))
+
+        def read_bgr(path: str) -> np.ndarray:
+            img = imread(path)
+            return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img
+
+        first = read_bgr(pngs[0])
+        total = first.nbytes * len(pngs)
+        if total > self.NPZ_MAX_BYTES:
+            self.logger.warning(
+                f"npz encode skipped: {total / 2**30:.1f} GiB of frames "
+                f"exceeds MAVTPU_NPZ_MAX_BYTES "
+                f"({self.NPZ_MAX_BYTES / 2**30:.1f} GiB)")
+            return
+        # preallocate so peak host memory is one copy of the stack. A bad
+        # frame aborts the WHOLE artifact: box/annotation consumers key by
+        # position, so silently dropping a middle frame would off-by-one
+        # every frame after it.
+        frames = np.empty((len(pngs),) + first.shape, first.dtype)
+        for n, p in enumerate(pngs):
+            f = first if n == 0 else read_bgr(p)
+            if f.shape != first.shape:
+                self.logger.warning(
+                    f"npz encode skipped: bad frame {p} (positional box "
+                    "protocol forbids dropping frames)")
+                return
+            frames[n] = f
+        np.savez_compressed(out_path, frames=frames)
 
     def release(self) -> None:
         self.dataset.release()

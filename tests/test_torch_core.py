@@ -27,6 +27,15 @@ from mav_detection_tpu_torch.data.synthetic import SyntheticDataset as TSynth
 from mav_detection_tpu_torch.data.synthetic import SyntheticParams as TParams
 from mav_detection_tpu_torch.ops.image.color import bgr_to_gray_host as tgray
 
+
+@pytest.fixture
+def rng():
+    """A generator of this test's own. The repository-wide ``rng`` fixture is
+    one stream for the whole test run: drawing from it here would shift the
+    numbers that the JAX package's tests draw after this file in the same
+    worker process."""
+    return np.random.default_rng(1234)
+
 FR_KW = dict(time=0.35, tpr=0.912345678, fpr=float("nan"), tpr_fixed=1.0,
              fpr_fixed=0.0015, sky_tpr=0.94, sky_fpr=0.0,
              drone_size_pixels=254.0, drone_flow_pixels=(4.25, -1.5),

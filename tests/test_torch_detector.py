@@ -34,6 +34,15 @@ from mav_detection_tpu_torch.ops.image import metrics as tmetrics
 from mav_detection_tpu_torch.pipeline import detector as tdet
 
 
+@pytest.fixture
+def rng():
+    """A generator of this test's own. The repository-wide ``rng`` fixture is
+    one stream for the whole test run: drawing from it here would shift the
+    numbers that the JAX package's tests draw after this file in the same
+    worker process."""
+    return np.random.default_rng(1234)
+
+
 def jax_samples(keys, n_samples: int, h: int, w: int) -> np.ndarray:
     """(n, 2N, 2) (y, x) indices JAX's get_foe_dense draws from ``keys``."""
     out = []

@@ -33,6 +33,15 @@ from mav_detection_tpu_torch.ops.flow import farneback as tf
 from mav_detection_tpu_torch.ops.flow import farneback_iter as ti
 
 
+@pytest.fixture
+def rng():
+    """A generator of this test's own. The repository-wide ``rng`` fixture is
+    one stream for the whole test run: drawing from it here would shift the
+    numbers that the JAX package's tests draw after this file in the same
+    worker process."""
+    return np.random.default_rng(1234)
+
+
 def _frames(b, h, w, seed=0, motion=((1.3, 2.1), (-0.8, 1.6), (2.5, -1.2))):
     rng = np.random.default_rng(seed)
     prev = np.stack([gaussian_filter(rng.random((h, w)), 1.5) for _ in range(b)])

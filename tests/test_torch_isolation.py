@@ -19,6 +19,20 @@ _FORBIDDEN = re.compile(
     re.MULTILINE)
 
 
+# the modules of the single-card Processor surface beyond the FoE loop
+NEW_MODULES = [
+    "mav_detection_tpu_torch.ops.image.visualize",
+    "mav_detection_tpu_torch.ops.image.resize",
+    "mav_detection_tpu_torch.ops.image.color",
+    "mav_detection_tpu_torch.ops.geometry.warp",
+    "mav_detection_tpu_torch.ops.geometry.global_motion",
+    "mav_detection_tpu_torch.ops.geometry.ransac_fits",
+    "mav_detection_tpu_torch.ops.geometry.kmeans",
+    "mav_detection_tpu_torch.ops.geometry.boxsearch",
+    "mav_detection_tpu_torch.ops.flow.lucas_kanade",
+]
+
+
 def _sources():
     return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
@@ -31,17 +45,18 @@ def test_import_every_module_without_jax_or_cv2():
         "import mav_detection_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "missing = sorted(set(%r) - set(mods))\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'mav_detection_tpu', 'cv2'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(len(mods), bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n") % (NEW_MODULES,)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_mods = int(proc.stdout.split()[0])
-    assert n_mods >= 20, proc.stdout
+    assert n_mods >= 30, proc.stdout
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -109,3 +124,41 @@ def test_iterate_wrapper_rejects_other_devices():
     f = torch.zeros((1, 2, 8, 8), device="meta")
     with pytest.raises(ValueError, match="device"):
         farneback_iterate(t, t, f, torch.zeros((8, 8), device="meta"), 1)
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_new_module_is_part_of_the_port(name):
+    assert (REPO / (name.replace(".", "/") + ".py")).is_file()
+
+
+def test_image_io_needs_no_imageio():
+    """PNG reading and writing is the port's own codec: a fresh interpreter
+    writes and reads an image with imageio, PIL and cv2 barred."""
+    code = (
+        "import sys\n"
+        "for m in ('imageio', 'PIL', 'cv2'): sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from mav_detection_tpu_torch.data.dataset import imread, imwrite\n"
+        "img = (np.arange(5 * 7 * 3) %% 251).reshape(5, 7, 3).astype(np.uint8)\n"
+        "imwrite(%r, img)\n"
+        "assert (imread(%r) == img).all()\n")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "x.png")
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        proc = subprocess.run([sys.executable, "-c", code % (path, path)],
+                              cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_new_entry_points_raise_without_card():
+    """The homography branch and the LK source run on the card by default."""
+    _no_card()
+    from mav_detection_tpu_torch.cli.main import main
+
+    for argv in (["--algorithm", "HOMOGRAPHY", "--flow-source", "FARNEBACK"],
+                 ["--flow-source", "LUCAS_KANADE"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--dataset", "synthetic", "--headless", *argv])

@@ -1,11 +1,17 @@
 """The port's Processor held to the JAX package's on a synthetic 48x64
-sequence: 6 frames, batch 2, so the third batch is a padded tail.
+sequence: 6 frames, batch 2, so the third batch is a padded tail; the
+homography branch on the 120x160 set of tests/test_pipeline.py.
 
 The JAX processor draws FoE samples from per-batch keys (PRNGKey(0), one
-split per batch, one key per frame); the test rebuilds those draws and feeds
-them to the port through ``run_detection_foe(sample_yx=...)``.
+split per batch, one key per frame) and k-means centers from per-frame keys;
+the tests rebuild those draws and feed them to the port through
+``run_detection_foe(sample_yx=...)`` and
+``run_detection_homography(kmeans_init=...)``.
 """
+import glob
 import json
+import logging
+import os
 
 import numpy as np
 import pytest
@@ -22,6 +28,7 @@ from mav_detection_tpu_torch.cli.main import main as cli_main
 from mav_detection_tpu_torch.core.config import RunConfig
 from mav_detection_tpu_torch.core.frame_result import FrameResult
 from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
+from mav_detection_tpu_torch.data.dataset import imread
 from mav_detection_tpu_torch.pipeline.processor import Processor, _edge_pad_batch
 
 SMALL = dict(height=48, width=64, n_frames=6, expansion=0.08, foe=(30.0, 20.0),
@@ -130,31 +137,24 @@ def test_edge_pad_batch():
 
 
 @pytest.mark.parametrize("kw,attr", [
-    (dict(engine="scan"), None), (dict(devices=2), None),
-    (dict(algorithm="HOMOGRAPHY"), "run_detection"),
+    (dict(engine="scan"), None), (dict(engine="chunked"), None),
+    (dict(engine="spatial"), None), (dict(devices=2), None),
     (dict(flow_source="RAFT"), "run_detection_foe"),
-    ({}, "save_images")])
-def test_unported_paths_raise(kw, attr, tmp_path):
+    (dict(flow_source="RAFT", algorithm="HOMOGRAPHY"), "run_detection")])
+def test_unported_paths_raise(kw, attr):
+    kw = dict(kw)
     flow_source = kw.pop("flow_source", "FARNEBACK")
     if attr is None:
         with pytest.raises(NotImplementedError):
             port_processor(flow_source, **kw)
         return
     proc = port_processor(flow_source, **kw)
-    if attr == "save_images":
-        proc.save_images = True
-        proc.dataset.seq_path = str(tmp_path)
-        proc.dataset.results_path = str(tmp_path / "results")
-        with pytest.raises(NotImplementedError, match="visualize"):
-            proc.run_detection_foe()
-        return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="RAFT"):
         getattr(proc, attr)()
 
 
 def test_cli_runs_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setenv("SYNTHETIC_PATH", str(tmp_path))
-    pytest.importorskip("imageio")
     cli_main(["--dataset", "synthetic", "--flow-source", "FARNEBACK",
               "--headless", "--device", "cpu", "--batch-size", "8",
               "--foe-samples", "200"])
@@ -164,9 +164,395 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["--dataset", "midgard"], ["--engine", "scan"], ["--validate"],
-    ["--flow-source", "RAFT"], ["--algorithm", "HOMOGRAPHY"],
+    ["--flow-source", "RAFT"], ["--prepare-dataset"], ["--run-all"],
+    ["--engine", "chunked"], ["--data-to-yolo"], ["--undistort"],
     ["--sequence", "x"], ["--devices", "2"]])
 def test_cli_unported_flags_raise(argv):
     base = ["--dataset", "synthetic", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli_main(base + argv)
+
+
+# ------------------------------------------------ flow sources (FoE branch)
+def test_ground_truth_json_fields_match():
+    """GROUND_TRUTH reads the same flow on both sides: every JSON field
+    within 1e-5, as PRECOMPUTED."""
+    ref, got = run_jax("GROUND_TRUTH"), run_port("GROUND_TRUTH")
+    assert sorted(got) == sorted(ref) == list(range(N_PAIRS))
+    for i in ref:
+        r, g = _vals(ref[i]), _vals(got[i])
+        for k in r:
+            np.testing.assert_allclose(g[k], r[k], rtol=1e-5, atol=1e-5,
+                                       equal_nan=True, err_msg=f"frame {i} {k}")
+
+
+def test_ground_truth_reads_flo_files_from_disk(tmp_path):
+    """A materialised sequence serves GROUND_TRUTH from optical-flow/*.flo."""
+    cfg = RunConfig(dataset="synthetic", flow_source="GROUND_TRUTH", batch_size=BATCH)
+    cfg.get_dataset = lambda: SyntheticDataset(
+        params=SyntheticParams(**SMALL), materialize_to=str(tmp_path))
+    proc = Processor(cfg, device="cpu")
+    proc.dataset.gt_of_path = os.path.join(proc.dataset.seq_path, "optical-flow")
+    proc.dataset.get_gt_of = None            # the files must be what is read
+    flow = proc._read_flow([0, 1], cfg.flow_source)
+    np.testing.assert_array_equal(flow, np.stack(proc.dataset.flows[:2]))
+
+
+def test_lucas_kanade_json_fields_match():
+    """LUCAS_KANADE densifies sparse tracks on both sides (within 2e-2 px
+    of each other, see test_torch_lucas_kanade.py): FoE within 1 px, rates
+    within 0.02, everything else within 1e-3."""
+    ref, got = run_jax("LUCAS_KANADE"), run_port("LUCAS_KANADE")
+    assert sorted(got) == sorted(ref) == list(range(N_PAIRS))
+    for i in ref:
+        r, g = _vals(ref[i]), _vals(got[i])
+        for k in r:
+            tol = {"foe_dense": 1.0, "tpr": 0.02, "fpr": 0.02, "tpr_fixed": 0.02,
+                   "fpr_fixed": 0.02}.get(k, 1e-3)
+            np.testing.assert_allclose(g[k], r[k], atol=tol, equal_nan=True,
+                                       err_msg=f"frame {i} {k}")
+
+
+def test_lucas_kanade_tail_lanes_are_not_computed(monkeypatch):
+    """The padded lanes of a tail batch repeat the last real lane's flow."""
+    from mav_detection_tpu_torch.pipeline import processor as pmod
+
+    calls = []
+    real = pmod.lk_dense_flow
+    monkeypatch.setattr(pmod, "lk_dense_flow",
+                        lambda a, b: calls.append(1) or real(a, b))
+    res = port_processor("LUCAS_KANADE").run_detection_foe()
+    assert sorted(res) == list(range(N_PAIRS)) and len(calls) == N_PAIRS
+
+
+# ------------------------------------------------------------ debug images
+IMAGE_DIRS = ("result-images", "derotated", "phi", "processed")
+
+
+def _materialised(cls, params_cls, cfg_cls, tmp, **cfg_kw):
+    cfg = cfg_cls(dataset="synthetic", flow_source="PRECOMPUTED",
+                  batch_size=BATCH, **cfg_kw)
+    cfg.get_dataset = lambda: cls(params=params_cls(**SMALL),
+                                  materialize_to=str(tmp))
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def artifact_runs(tmp_path_factory):
+    """Both processors with save_images on (its default), each over its own
+    materialised copy of the sequence."""
+    jdir, tdir = tmp_path_factory.mktemp("jax"), tmp_path_factory.mktemp("port")
+    jproc = JProcessor(_materialised(JSynth, JParams, JRunConfig, jdir))
+    assert jproc.save_images
+    jproc.run_detection_foe()
+    tproc = Processor(_materialised(SyntheticDataset, SyntheticParams, RunConfig,
+                                    tdir), device="cpu")
+    assert tproc.save_images
+    syx = jax_batch_samples(N_PAIRS, BATCH, 1000, SMALL["height"], SMALL["width"])
+    tproc.run_detection_foe(sample_yx=syx)
+    return jproc.dataset.seq_path, tproc.dataset.seq_path, tproc
+
+
+@pytest.mark.parametrize("kind", IMAGE_DIRS)
+def test_debug_images_match_jax(artifact_runs, kind):
+    """Same names, shapes and dtypes; the masks equal; the colour images
+    within 1 level on >= 99 % of the values (the flow and phi they show
+    agree to 1e-5, and a value on a level boundary may fall either way)."""
+    jseq, tseq, _ = artifact_runs
+    jfiles = sorted(os.listdir(os.path.join(jseq, kind)))
+    tfiles = sorted(os.listdir(os.path.join(tseq, kind)))
+    assert tfiles == jfiles == [f"image_{i:05d}.png" for i in range(N_PAIRS)]
+    for name in jfiles:
+        ref = imread(os.path.join(jseq, kind, name))
+        got = imread(os.path.join(tseq, kind, name))
+        assert got.shape == ref.shape == (SMALL["height"], SMALL["width"], 3)
+        assert got.dtype == ref.dtype == np.uint8
+        if kind == "result-images":
+            np.testing.assert_array_equal(got, ref)
+        else:
+            close = np.abs(got.astype(int) - ref.astype(int)) <= 1
+            assert close.mean() >= 0.99, (kind, name, close.mean())
+
+
+def test_video_npz_and_json_match_jax(artifact_runs):
+    jseq, tseq, tproc = artifact_runs
+    ref = np.load(os.path.join(jseq, "video.npz"))["frames"]
+    got = np.load(os.path.join(tseq, "video.npz"))["frames"]
+    assert got.shape == ref.shape == (N_PAIRS, SMALL["height"], SMALL["width"], 3)
+    assert got.dtype == ref.dtype == np.uint8
+    assert (np.abs(got.astype(int) - ref.astype(int)) <= 1).mean() >= 0.99
+    assert sorted(os.listdir(os.path.join(tseq, "results"))) == \
+        sorted(os.listdir(os.path.join(jseq, "results")))
+    # every stage of the loop ran once per batch, the encode once
+    assert tproc.tracer.counts["artifacts"] == 3 and tproc.tracer.counts["encode"] == 1
+
+
+def test_one_pull_per_image_kind_per_batch(tmp_path, monkeypatch):
+    """With debug images on, a batch costs one device-to-host copy for the
+    scalars and one per image kind (mask, phi, derotated flow), whatever the
+    batch size; padded lanes are neither pulled nor written."""
+    import torch
+
+    tproc = Processor(_materialised(SyntheticDataset, SyntheticParams, RunConfig,
+                                    tmp_path), device="cpu")
+    pulls = []
+    real = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu",
+                        lambda self, *a, **k: pulls.append(tuple(self.shape))
+                        or real(self, *a, **k))
+    tproc.run_detection_foe()
+    assert len(pulls) == 4 * 3
+    h, w = SMALL["height"], SMALL["width"]
+    assert pulls[-4:] == [(1, h, w), (1, h, w), (1, h, w, 2), (BATCH, 12)]
+    for kind in IMAGE_DIRS:
+        assert len(os.listdir(tmp_path / "synthetic" / "forward-flight" / kind)) == N_PAIRS
+
+
+def test_save_images_off_writes_json_only(tmp_path):
+    tproc = Processor(_materialised(SyntheticDataset, SyntheticParams, RunConfig,
+                                    tmp_path), device="cpu")
+    tproc.save_images = False
+    tproc.run_detection_foe()
+    seq = tproc.dataset.seq_path
+    assert len(os.listdir(os.path.join(seq, "results"))) == N_PAIRS
+    assert all(not os.listdir(os.path.join(seq, k)) for k in IMAGE_DIRS)
+    assert not os.path.exists(os.path.join(seq, "video.npz"))
+
+
+def test_video_sidecar_cap_and_missing_ffmpeg(tmp_path, monkeypatch, caplog):
+    """The npz sidecar is skipped above its byte cap, and without ffmpeg the
+    mp4 is skipped with a log line instead of an error."""
+    from mav_detection_tpu_torch.data.dataset import imwrite
+    from mav_detection_tpu_torch.pipeline import processor as pmod
+
+    proc = port_processor("PRECOMPUTED")
+    img_dir = tmp_path / "processed"
+    img_dir.mkdir()
+    for i in range(3):
+        imwrite(str(img_dir / f"image_{i:05d}.png"), np.full((8, 9), 50 * i, np.uint8))
+    monkeypatch.setattr(pmod.shutil, "which", lambda name: None)
+    with caplog.at_level(logging.WARNING):
+        proc._encode_video(str(img_dir), str(tmp_path / "processed.mp4"))
+    assert "no ffmpeg" in caplog.text
+    frames = np.load(tmp_path / "video.npz")["frames"]
+    assert frames.shape == (3, 8, 9, 3) and frames[2, 0, 0].tolist() == [100] * 3
+    os.remove(tmp_path / "video.npz")
+    monkeypatch.setattr(Processor, "NPZ_MAX_BYTES", 100)
+    with caplog.at_level(logging.WARNING):
+        proc._encode_video(str(img_dir), str(tmp_path / "processed.mp4"))
+    assert "npz encode skipped" in caplog.text
+    assert not os.path.exists(tmp_path / "video.npz")
+
+
+# ------------------------------------------------------- homography branch
+HOMOG = dict(height=120, width=160, n_frames=8, expansion=0.035, foe=(95.0, 55.0),
+             drone_start=(30.0, 30.0), drone_radius=6)
+HOMOG_PAIRS = HOMOG["n_frames"] - 1
+
+
+def jax_kmeans_inits(n_pairs, batch, n_points, k=8, attempts=10):
+    """The JAX processor's k-means draws (processor.py key schedule: one
+    split per frame, ``fold_in(key, b0)`` after each batch; kmeans.py: one
+    ``choice`` without replacement per attempt)."""
+    key = jax.random.PRNGKey(0)
+    out = {}
+    for b0 in range(0, n_pairs, batch):
+        for i in range(b0, min(b0 + batch, n_pairs)):
+            key, sub = jax.random.split(key)
+            out[i] = np.stack([
+                np.asarray(jax.random.choice(s, n_points, (k,), replace=False))
+                for s in jax.random.split(sub, attempts)])
+        key = jax.random.fold_in(key, b0)
+    return out
+
+
+def _homography_cfg(cfg_cls, ds_cls, params_cls, tmp, **kw):
+    cfg = cfg_cls(dataset="synthetic", mode="FLOW_FOE_CLUSTERING",
+                  algorithm="HOMOGRAPHY", flow_source="GROUND_TRUTH",
+                  headless=True, **kw)
+    cfg.get_dataset = lambda: ds_cls(params=params_cls(**HOMOG),
+                                     materialize_to=str(tmp))
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def homography_runs(tmp_path_factory):
+    jdir, tdir = tmp_path_factory.mktemp("hj"), tmp_path_factory.mktemp("ht")
+    jproc = JProcessor(_homography_cfg(JRunConfig, JSynth, JParams, jdir))
+    ref = jproc.run_detection()
+    tproc = Processor(_homography_cfg(RunConfig, SyntheticDataset, SyntheticParams,
+                                      tdir), device="cpu")
+    inits = jax_kmeans_inits(HOMOG_PAIRS, 8, HOMOG["height"] * HOMOG["width"])
+    got = tproc.run_detection_homography(kmeans_init=inits)
+    return ref, got, jproc.dataset.seq_path, tproc.dataset.seq_path
+
+
+def test_homography_iou_matches_jax(homography_runs):
+    """One FrameResult per pair, whose ``tpr`` is the IoU with the target's
+    box: within 0.02 of the JAX processor's with JAX's k-means draws fed
+    in, and every other field at its default."""
+    ref, got, _, tseq = homography_runs
+    assert sorted(got) == sorted(ref) == list(range(HOMOG_PAIRS))
+    for i in ref:
+        assert got[i].tpr == pytest.approx(ref[i].tpr, abs=0.02), i
+        assert got[i].time == pytest.approx(ref[i].time)
+        assert got[i].fpr == ref[i].fpr == 0.0
+        text = open(os.path.join(tseq, "results", f"image_{i:05d}.json")).read()
+        assert text == got[i].to_json()
+
+
+def test_homography_mosaic_and_box_match_jax(homography_runs):
+    """The 2x3 mosaic has the reference's shape, and the box drawn into its
+    first tile (pure green, 2 px) sits within 1 px of the reference's."""
+    _, got, jseq, tseq = homography_runs
+    h, w = HOMOG["height"], HOMOG["width"]
+
+    def green_box(img):
+        tile = img[:h, :w]
+        ys, xs = np.where((tile == (0, 255, 0)).all(-1))
+        return np.array([xs.min(), ys.min(), xs.max(), ys.max()])
+
+    names = sorted(os.listdir(os.path.join(jseq, "processed")))
+    assert sorted(os.listdir(os.path.join(tseq, "processed"))) == names
+    assert len(names) == HOMOG_PAIRS
+    for name in names:
+        ref = imread(os.path.join(jseq, "processed", name))
+        img = imread(os.path.join(tseq, "processed", name))
+        assert img.shape == ref.shape == (2 * h, 3 * w, 3)
+        assert np.abs(green_box(img) - green_box(ref)).max() <= 1, name
+        # the global-motion and flow tiles show the same fields
+        for tile in (np.s_[:h, w:2 * w], np.s_[h:, :w]):
+            close = np.abs(img[tile].astype(int) - ref[tile].astype(int)) <= 1
+            assert close.mean() >= 0.99
+
+
+def test_homography_draws_its_own_kmeans_centers(tmp_path):
+    """Without fed draws the run is seeded: two runs give the same IoUs."""
+    runs = []
+    for k in range(2):
+        proc = Processor(_homography_cfg(RunConfig, SyntheticDataset,
+                                         SyntheticParams, tmp_path / str(k)),
+                         device="cpu")
+        runs.append({i: fr.tpr for i, fr in proc.run_detection().items()})
+    assert runs[0] == runs[1] and sorted(runs[0]) == list(range(HOMOG_PAIRS))
+    assert all(0.0 <= v <= 1.0 for v in runs[0].values())
+
+
+def test_homography_sparse_of(tmp_path, caplog):
+    """--use-sparse-of: LK feature tracks replace the sampled-flow
+    correspondences and the branch still gives a finite FrameResult per
+    pair; the debug log counts the surviving features."""
+    cfg = _homography_cfg(RunConfig, SyntheticDataset, SyntheticParams, tmp_path,
+                          use_sparse_of=True)
+    proc = Processor(cfg, device="cpu")
+    with caplog.at_level(logging.DEBUG, logger=proc.logger.name):
+        results = proc.run_detection()
+    assert sorted(results) == list(range(HOMOG_PAIRS))
+    assert all(np.isfinite(fr.tpr) and 0.0 <= fr.tpr <= 1.0 for fr in results.values())
+    assert caplog.text.count("features: ") == HOMOG_PAIRS
+    assert len(glob.glob(os.path.join(proc.dataset.seq_path, "processed", "*.png"))) \
+        == HOMOG_PAIRS
+
+
+def _two_frames(shift=(3.0, 2.0)):
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(3)
+    tex = ndi.gaussian_filter(rng.uniform(0, 255, (96, 128)).astype(np.float32), 2.0) * 4
+    f0 = np.repeat(tex[..., None], 3, -1).astype(np.uint8)
+    f1 = np.repeat(np.roll(tex, (int(shift[1]), int(shift[0])), (0, 1))[..., None],
+                   3, -1).astype(np.uint8)
+    grid = rng.uniform(20, 70, (200, 2)).astype(np.float32)
+    return f0, f1, grid, grid + np.float32(shift)
+
+
+class _TwoFrames:
+    def __init__(self, f0, f1):
+        self.frames = [f0, f1]
+
+    def get_frame(self, i):
+        return self.frames[i]
+
+
+def _bare_processor(proc_cls, cfg_cls, ds, **extra):
+    cfg = cfg_cls(dataset="synthetic", use_sparse_of=True, algorithm="HOMOGRAPHY",
+                  headless=True)
+    proc = proc_cls.__new__(proc_cls)
+    proc.config, proc.logger, proc.dataset = cfg, cfg.logger, ds
+    for k, v in extra.items():
+        setattr(proc, k, v)
+    return proc
+
+
+def test_sparse_correspondences_match_jax():
+    """The same corners tracked to the same places (1e-2 px), the same
+    slots replaced; and the homography fitted to them recovers the shift."""
+    import torch
+
+    from mav_detection_tpu_torch.ops.geometry import (
+        fit_homography_lstsq,
+        homography_motion_field,
+    )
+
+    f0, f1, grid, moved = _two_frames()
+    ds = _TwoFrames(f0, f1)
+    jp0, jp1 = _bare_processor(JProcessor, JRunConfig, ds)._sparse_correspondences(
+        ds, 0, grid, moved)
+    tproc = _bare_processor(Processor, RunConfig, ds, device=torch.device("cpu"))
+    p0, p1 = tproc._sparse_correspondences(0, torch.from_numpy(grid),
+                                           torch.from_numpy(moved))
+    replaced = ~np.isclose(jp0, grid).all(1)
+    assert replaced.sum() > 50
+    np.testing.assert_array_equal(p0.numpy(), jp0)
+    # a corner whose window is clamped at the frame's edge is ill-conditioned
+    # on both sides (see test_torch_lucas_kanade.py): hold the others
+    inner = ((jp0 >= 10) & (jp0 <= np.array([128, 96]) - 11)).all(1)
+    np.testing.assert_allclose(p1.numpy()[inner], jp1[inner], atol=1e-2)
+    gm = homography_motion_field(fit_homography_lstsq(p0, p1), 96, 128).numpy()
+    np.testing.assert_allclose(gm[20:-20, 20:-20].mean((0, 1)), [3.0, 2.0], atol=0.3)
+
+
+def test_sparse_correspondences_fall_back_without_tracks():
+    """No corner on a flat frame: every slot keeps the sampled
+    correspondence, upstream's fallback."""
+    import torch
+
+    flat = np.full((96, 128, 3), 90, np.uint8)
+    _, _, grid, moved = _two_frames()
+    tproc = _bare_processor(Processor, RunConfig, _TwoFrames(flat, flat),
+                            device=torch.device("cpu"))
+    p0, p1 = tproc._sparse_correspondences(0, torch.from_numpy(grid),
+                                           torch.from_numpy(moved))
+    np.testing.assert_array_equal(p0.numpy(), grid)
+    np.testing.assert_array_equal(p1.numpy(), moved)
+
+
+# --------------------------------------------------------------------- CLI
+@pytest.mark.parametrize("argv,n_mosaics", [
+    (["--algorithm", "HOMOGRAPHY", "--flow-source", "GROUND_TRUTH"], 1),
+    (["--algorithm", "HOMOGRAPHY", "--flow-source", "GROUND_TRUTH",
+      "--use-sparse-of", "--debug"], 1),
+    (["--flow-source", "GROUND_TRUTH", "--algorithm", "FOE"], 0)])
+def test_cli_accepts_the_new_flags(argv, n_mosaics, tmp_path, monkeypatch):
+    """The newly ported flags run end to end on a short sequence (the
+    dataset factory is swapped for a 4-frame one)."""
+    from mav_detection_tpu_torch.core import config as cfgmod
+
+    monkeypatch.setattr(
+        cfgmod.RunConfig, "get_dataset",
+        lambda self: SyntheticDataset(params=SyntheticParams(
+            **dict(HOMOG, n_frames=4)), materialize_to=str(tmp_path)))
+    cli_main(["--dataset", "synthetic", "--device", "cpu", "--headless", *argv])
+    seq = tmp_path / "synthetic" / "forward-flight"
+    assert len(list((seq / "results").glob("image_*.json"))) == 3
+    pngs = list((seq / "processed").glob("image_*.png"))
+    assert len(pngs) == 3
+    assert (imread(str(pngs[0])).shape == (240, 480, 3)) == bool(n_mosaics)
+    logging.getLogger("main").setLevel(logging.INFO)
+    logging.getLogger("mav_detection_tpu_torch").setLevel(logging.NOTSET)
+
+
+def test_cli_rejects_unknown_algorithm():
+    with pytest.raises(ValueError, match="Algorithm"):
+        cli_main(["--dataset", "synthetic", "--device", "cpu",
+                  "--algorithm", "MAGIC"])
