@@ -7,10 +7,12 @@ one NVIDIA GPU.
 Phases, each printing one line (plus its seconds):
   1. device  — the card's name and power limit (nvidia-smi); fails without a
                card.
-  2. build   — compiles csrc/farneback_iter.cu with nvcc for sm_90a.
+  2. build   — compiles csrc/farneback_iter.cu with nvcc for sm_90a and
+               runtime/native/loader.cpp with g++, both started together.
   3. kernels — the fused iterate kernel against its plain PyTorch version
                on the card, on coefficients of a seeded scene at the main
-               path's shapes (480x752 b=8 S=8 and 1024x1920 b=2 S=16): one
+               paths' shapes (480x752 b=8 S=8, 1024x1920 b=2 S=16, and the
+               scan engine's b=1 at both sizes): one
                iteration (must be bit-exact) and the whole (2, 3, 8) level
                schedule; then its time per launch (CUDA events around a
                replayed CUDA graph of 50 launches) at every pyramid layer
@@ -35,7 +37,11 @@ Phases, each printing one line (plus its seconds):
                the card against the same function of the port on the CPU
                with the same explicit draws; then the time per frame of
                corner selection, LK tracking, dense LK, k-means and the
-               window search (host clock around a synchronised call).
+               window search (host clock around a synchronised call). Then
+               the tensor-code Farneback solvers the same way: update_matrices
+               with each warp on a flow inside and one beyond the separable
+               warp's reach, solve_flow, jacobi_level with fast on and off,
+               and farneback_flow with warp="auto", fast=True.
   7. artifacts — the FoE loop (FARNEBACK, batch 8, 12 frames) with
                save_images on, into a temporary sequence directory: the
                four PNG sets, video.npz and the JSON counted and their
@@ -47,6 +53,23 @@ Phases, each printing one line (plus its seconds):
                scene against its analytic GT (track EPE < 0.12 px, dense
                interior EPE < 1.6 px, survivors >= 75 % of max_corners), then
                the FoE loop with --flow-source LUCAS_KANADE, 4 frames.
+ 10. scan    — Processor with engine="scan", FARNEBACK, 752x480, 12 frames:
+               143 = 13 x 11 kernel launches, every field finite, JSON
+               written and read back, every FrameResult field against the
+               batch engine's on the same per-transition draws; the dense
+               loop once more with torch.cuda.set_sync_debug_mode("error");
+               wall and device ms per transition (device: a replayed CUDA
+               graph of one transition) and the device idle share. Then 6
+               frames with use_sparse_of (results/foe_sparse.npy), then
+               1920x1024, 4 frames.
+ 11. native  — the loader's g++ build alone; 16 .flo files at 752x480
+               written natively and read by numpy and the reverse, bit
+               equal; the prefetcher in order within its depth; a truncated
+               file raises; a PRECOMPUTED run of the main path from files on
+               disk through the prefetcher against the same run through the
+               numpy reader; ms per file of each reader.
+ 12. entry   — entry(): fn(*example_args) on the card, finite, the FoE inside
+               the image and within 0.5 px of the same call on the CPU.
 Then the kernels JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line and
 exits non-zero; so does a machine without a card, or a directory without
@@ -900,6 +923,439 @@ def phase_lucas_kanade(dev) -> dict:
                                        proc.tracer.as_dict().items()}}}
 
 
+def phase_solvers(dev, size=(480, 752)) -> dict:
+    """The tensor-code Farneback solvers at 752x480, b = 1, on the card
+    against the CPU on the same inputs, and their host-clock ms."""
+    import torch
+
+    from mav_detection_tpu_torch.ops.flow import farneback as fb
+
+    (h, w), S = size, 8
+    prev, curr, gt = scene_batch(1, h, w, hires=False)
+    params = fb.FarnebackParams(warp="separable", max_shift=S)
+    _, _, levels = level_inputs(torch.device("cpu"), prev, curr, gt, params)
+    R0, R1, flow, border, _ = (a.numpy() if hasattr(a, "numpy") else a
+                               for a in levels[0])
+    peak = float(np.abs(flow).max())
+    flows = {"inside": flow * np.float32((S - 3) / peak),
+             "beyond": flow * np.float32((S + 4) / peak)}
+    ck = Checks("modules")
+    timings = {}
+
+    def on_card(*arrays):
+        return [torch.as_tensor(a).to(dev) for a in arrays]
+
+    for tag, f in flows.items():
+        covered = float(np.abs(f).max()) <= S - 1
+        if covered != (tag == "inside"):
+            raise AssertionError(f"solvers: flow '{tag}' peaks at {np.abs(f).max()}")
+        for warp in ("gather", "separable", "auto"):
+            a, b = _both(lambda *x: fb.update_matrices(*x, warp, S), dev,
+                         R0, R1, f, border)
+            ck.add(f"update_matrices {warp}, flow {tag} +-{S - 1}",
+                   float(np.abs(_np(a) - _np(b)).max() / np.abs(_np(b)).max()),
+                   1e-4, "max abs over M's scale")
+            if warp == "auto":
+                branch = "separable" if covered else "gather"
+                same = torch.equal(a, fb.update_matrices(*on_card(R0, R1, f, border),
+                                                         branch, S))
+                ck.add(f"update_matrices auto takes {branch}, flow {tag}",
+                       float(not same), 0, "differs from that branch")
+            args = on_card(R0, R1, f, border)
+            timings[f"update_matrices {warp} ({tag})"] = wall_ms(
+                lambda: fb.update_matrices(*args, warp, S))
+    M = _np(fb.update_matrices(*(torch.as_tensor(a) for a in (R0, R1, flows["inside"], border)),
+                               "separable", S))
+    a, b = _both(lambda m: fb.solve_flow(m, 12), dev, M)
+    ck.add("solve_flow", float(np.abs(_np(a) - _np(b)).max()), 1e-4, "max abs px")
+    M_d = torch.as_tensor(M).to(dev)
+    timings["solve_flow"] = wall_ms(lambda: fb.solve_flow(M_d, 12))
+    for fast in (False, True):
+        p = fb.FarnebackParams(warp="auto", fast=fast, max_shift=S)
+        a, b = _both(lambda *x: fb.jacobi_level(*x, p), dev, R0, R1, flows["inside"], border)
+        ck.add(f"jacobi_level fast={fast} (10 iterations)",
+               float(np.abs(_np(a) - _np(b)).max()), 1e-3, "max abs px")
+        args = on_card(R0, R1, flows["inside"], border)
+        timings[f"jacobi_level fast={fast}"] = wall_ms(lambda: fb.jacobi_level(*args, p))
+    p = fb.FarnebackParams(warp="auto", fast=True, levels=2, pyr_scale=0.5)
+    a, b = _both(lambda x, y: fb._farneback_cf(x, y, p), dev, prev, curr)
+    ck.add("farneback_flow warp=auto fast levels=2",
+           float(np.abs(_np(a) - _np(b)).max()), 1e-3, "max abs px")
+    pd, cd = on_card(prev, curr)
+    timings["farneback_flow warp=auto fast levels=2"] = wall_ms(
+        lambda: fb._farneback_cf(pd, cd, p))
+    return {"checks": ck.finish(), "ms": timings}
+
+
+def _finite_results(tag, results, results_dir):
+    """Every field of every FrameResult finite (the rates over an absent
+    target apart), and its JSON file equal to it; returns the FoE errors."""
+    from mav_detection_tpu_torch.core.frame_result import FrameResult
+
+    foe_err = []
+    for i, fr in results.items():
+        d = fr.to_dict()
+        if d["drone_size_pixels"] == 0:
+            for key in NAN_WITHOUT_TARGET:
+                d.pop(key)
+        vals = np.array([v for x in d.values() for v in np.atleast_1d(x)], np.float64)
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{tag} frame {i}: non-finite {fr}")
+        if results_dir:
+            back = FrameResult.from_json_file(
+                os.path.join(results_dir, f"image_{i:05d}.json"))
+            if json.dumps(back.to_dict()) != json.dumps(fr.to_dict()):
+                raise AssertionError(f"{tag} frame {i}: JSON does not round-trip")
+        foe_err.append(float(np.hypot(*np.subtract(fr.foe_dense, fr.foe_gt))))
+    return foe_err
+
+
+def _scan_run(dev, h, w, n_frames, sample_yx, tmp, **cfg_kw):
+    """One warm-up and one measured run of the scan engine; the launch
+    counter is zeroed just before the measured run and read just after."""
+    import torch
+
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.utils.tracing import Tracer
+
+    proc = _synthetic_processor(dev, h, w, n_frames, 8, tmp, flow_source="FARNEBACK",
+                                engine="scan", **cfg_kw)
+    proc.run_detection_foe(sample_yx=sample_yx)          # warm-up
+    torch.cuda.synchronize()
+    proc.tracer = Tracer()
+    proc.detection_results = {}
+    fi.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = proc.run_detection_foe(sample_yx=sample_yx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fi.LAUNCHES)
+    if sorted(results) != list(range(n_frames - 1)):
+        raise AssertionError(f"scan {w}x{h}: results for {sorted(results)}")
+    stages = {k: v["total_s"] * 1e3 for k, v in proc.tracer.as_dict().items()}
+    return proc, results, launches, wall, stages
+
+
+def _scan_device_ms(dev, proc, sample_yx) -> float:
+    """Device ms of one transition of the dense scan: a CUDA graph of the
+    two-frame scan replayed, so the host's time per launch does not show."""
+    import torch
+
+    from mav_detection_tpu_torch.pipeline import temporal as tt
+
+    inp = proc._sequence_inputs()
+    two = [torch.as_tensor(inp[k][:2]).to(dev) for k in
+           ("frames", "omegas", "dts", "segs", "skys", "depths", "gt_foes")]
+    syx = torch.as_tensor(sample_yx[:1]).to(dev)
+    step = proc._detection_step()
+    return graph_ms(lambda: tt.detect_sequence_scan(
+        *two, sample_yx=syx, params=proc._farneback, config=step), 5)
+
+
+def phase_scan(dev, size=(480, 752), hires_size=(1024, 1920)) -> dict:
+    import torch
+
+    from mav_detection_tpu_torch.pipeline import temporal as tt
+
+    (h, w), n_frames, batch = size, 12, 8
+    n = n_frames - 1
+    rng = np.random.default_rng(0)
+    n_samples = 1000
+    syx = np.stack([rng.integers(0, h, (n, 2 * n_samples)),
+                    rng.integers(0, w, (n, 2 * n_samples))], -1)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, results, launches, wall, stages = _scan_run(dev, h, w, n_frames, syx, tmp)
+        per_transition = sum(
+            proc._farneback.level_iters[min(k, 2)] for k in range(3))
+        if launches["farneback_iterate_fused"] != per_transition * n:
+            raise AssertionError(f"scan: {launches} launches, expected "
+                                 f"{per_transition} x {n}")
+        foe_err = _finite_results("scan", results, os.path.join(tmp, "results"))
+        if sorted(os.listdir(tmp)) != ["results"]:
+            raise AssertionError(f"scan: wrote {sorted(os.listdir(tmp))}")
+
+        # the same sequence through the batch engine with the same draws
+        # (the tail batch padded with the last transition's)
+        bproc = _synthetic_processor(dev, h, w, n_frames, batch, "",
+                                     flow_source="FARNEBACK")
+        bproc.save_images = False
+        padded = np.concatenate([syx, np.repeat(syx[-1:], (-n) % batch, axis=0)])
+        bres = bproc.run_detection_foe(
+            sample_yx=[padded[k:k + batch] for k in range(0, n, batch)])
+        worst = {}
+        for i in range(n):
+            a, b = results[i].to_dict(), bres[i].to_dict()
+            for key in a:
+                if key == "drone_flow_pixels":
+                    continue     # the scan derotates a zero ground-truth flow
+                x = np.asarray(a[key], np.float64)
+                y = np.asarray(b[key], np.float64)
+                both_nan = np.isnan(x) & np.isnan(y)
+                d = float(np.where(both_nan, 0.0, np.abs(x - y)).max())
+                worst[key] = max(worst.get(key, 0.0), d)
+        ck = Checks("scan")
+        for key, d in worst.items():
+            tol = (0.5 if key == "foe_dense" else 0.02 if key in
+                   ("tpr", "fpr", "tpr_fixed", "fpr_fixed", "sky_tpr", "sky_fpr")
+                   else 1e-3)
+            ck.add(f"scan vs batch engine: {key}", d, tol, "max abs over 11 frames")
+        ck.finish()
+
+        # the dense loop with every synchronisation an error: device tensors
+        # in, device tensors out, the caches warm from the runs above
+        inp = proc._sequence_inputs()
+        dev_in = [torch.as_tensor(inp[k]).to(dev) for k in
+                  ("frames", "omegas", "dts", "segs", "skys", "depths", "gt_foes")]
+        syx_d = torch.as_tensor(syx).to(dev)
+        step = proc._detection_step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scal, _ = tt.detect_sequence_scan(*dev_in, sample_yx=syx_d,
+                                              params=proc._farneback, config=step)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        foe_again = scal.foe.cpu().numpy()
+        foe_run = np.array([results[i].foe_dense for i in range(n)])
+        if not np.abs(foe_again - foe_run).max() <= 1e-3:
+            raise AssertionError("scan: the sync-checked loop gave another FoE")
+
+        device_ms = _scan_device_ms(dev, proc, syx)
+        loop_ms = (stages["scan"] + stages["materialize"]) / n
+        out[f"{w}x{h}"] = {
+            "pairs": n, "launches": launches, "wall_s": wall,
+            "wall_ms_per_transition": wall * 1e3 / n,
+            "loop_ms_per_transition": loop_ms,
+            "device_ms_per_transition": device_ms,
+            "device_idle_share": 1.0 - device_ms / loop_ms,
+            "stages_ms": stages, "median_foe_err_px": float(np.median(foe_err)),
+            "vs_batch_engine_max_abs": worst, "sync_debug_mode": "error: passed"}
+
+    # with the sparse trace FoE, 6 frames
+    looks = []
+    real_bool = torch.Tensor.__bool__
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.Tensor.__bool__ = lambda t: looks.append(1) or real_bool(t)
+        try:
+            proc, results, launches, wall, stages = _scan_run(
+                dev, h, w, 6, syx[:5], tmp, use_sparse_of=True)
+        finally:
+            torch.Tensor.__bool__ = real_bool
+        side = np.load(os.path.join(tmp, "results", "foe_sparse.npy"))
+        if side.shape != (5, 2) or not np.isfinite(side).all():
+            raise AssertionError(f"scan sparse: foe_sparse.npy holds {side}")
+        if launches["farneback_iterate_fused"] != 13 * 5:
+            raise AssertionError(f"scan sparse: {launches}")
+        _finite_results("scan sparse", results, os.path.join(tmp, "results"))
+        out[f"{w}x{h} use_sparse_of"] = {
+            "pairs": 5, "launches": launches,
+            "wall_ms_per_transition": wall * 1e3 / 5, "stages_ms": stages,
+            "foe_sparse": side.tolist(),
+            # two runs (warm-up and measured), 6 replenishments each
+            "host_looks_per_replenishment": len(looks) / 12}
+
+    # 1920x1024, 4 frames, dense
+    hh, hw = hires_size
+    syx_h = np.stack([rng.integers(0, hh, (3, 2 * n_samples)),
+                      rng.integers(0, hw, (3, 2 * n_samples))], -1)
+    proc, results, launches, wall, stages = _scan_run(dev, hh, hw, 4, syx_h, "")
+    if launches["farneback_iterate_fused"] != 13 * 3:
+        raise AssertionError(f"scan 1920x1024: {launches}")
+    foe_err = _finite_results("scan 1920x1024", results, "")
+    device_ms = _scan_device_ms(dev, proc, syx_h)
+    loop_ms = (stages["scan"] + stages["materialize"]) / 3
+    out[f"{hw}x{hh}"] = {
+        "pairs": 3, "launches": launches, "wall_ms_per_transition": wall * 1e3 / 3,
+        "loop_ms_per_transition": loop_ms, "device_ms_per_transition": device_ms,
+        "device_idle_share": 1.0 - device_ms / loop_ms, "stages_ms": stages,
+        "median_foe_err_px": float(np.median(foe_err))}
+    return out
+
+
+def phase_native(dev, size=(480, 752)) -> dict:
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from mav_detection_tpu_torch import _build
+    from mav_detection_tpu_torch.core import flo
+    from mav_detection_tpu_torch.core.config import RunConfig
+    from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.pipeline.processor import Processor
+    from mav_detection_tpu_torch.runtime import native_loader as native
+
+    if not native.available():
+        raise AssertionError("native: the loader library did not build")
+    (h, w), n_files = size, 16
+    rng = np.random.default_rng(0)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the g++ build alone, into a directory of its own
+        _build.SOURCES["loader_timed"] = _build.SOURCES["loader"]._replace(
+            out_dir=Path(tmp) / "lib")
+        try:
+            t0 = time.perf_counter()
+            _build.build(["loader_timed"])
+            out["gxx_build_s"] = time.perf_counter() - t0
+        finally:
+            del _build.SOURCES["loader_timed"]
+
+        fields = rng.normal(size=(n_files, h, w, 2)).astype(np.float32)
+        by_native = [os.path.join(tmp, f"n{i:06d}.flo") for i in range(n_files)]
+        by_numpy = [os.path.join(tmp, f"p{i:06d}.flo") for i in range(n_files)]
+        for i in range(n_files):
+            native.write_flow(by_native[i], fields[i])
+            flo.write_flow(by_numpy[i], fields[i])
+        for i in range(n_files):
+            if not np.array_equal(flo.read_flow(by_native[i]), fields[i]):
+                raise AssertionError(f"native: numpy read of native file {i} differs")
+            if not np.array_equal(native.read_flow(by_numpy[i]), fields[i]):
+                raise AssertionError(f"native: native read of numpy file {i} differs")
+        if not np.array_equal(native.read_flow_batch(by_numpy), fields):
+            raise AssertionError("native: batch read differs")
+
+        depth = 4
+        pf = native.FloPrefetcher(by_native, depth=depth, n_threads=2)
+        try:
+            peak = 0
+            for i in range(n_files):
+                peak = max(peak, pf.inflight())
+                if not np.array_equal(next(pf), fields[i]):
+                    raise AssertionError(f"native: prefetcher out of order at {i}")
+                peak = max(peak, pf.inflight())
+            if peak > depth or pf.inflight() != 0:
+                raise AssertionError(f"native: {peak} in flight, depth {depth}")
+        finally:
+            pf.close()
+        out["prefetcher_peak_inflight"] = peak
+
+        bad = os.path.join(tmp, "trunc.flo")
+        shutil.copy(by_native[0], bad)
+        with open(bad, "r+b") as f:
+            f.truncate(12 + 1000)
+        for read in (lambda: native.read_flow(bad),
+                     lambda: native.read_flow_batch([by_native[0], bad]),
+                     lambda: list(native.FloPrefetcher([by_native[0], bad]))):
+            try:
+                read()
+            except IOError:
+                continue
+            raise AssertionError("native: a truncated file was read without error")
+
+        def ms_per_file(fn):
+            fn()
+            t0 = time.perf_counter()
+            fn()
+            return (time.perf_counter() - t0) * 1e3 / n_files
+
+        def drain():
+            p = native.FloPrefetcher(by_native, depth=8, n_threads=2)
+            try:
+                return list(p)
+            finally:
+                p.close()
+        out["ms_per_file"] = {
+            "numpy read_flow": ms_per_file(lambda: [flo.read_flow(p) for p in by_native]),
+            "native read_flow": ms_per_file(lambda: [native.read_flow(p) for p in by_native]),
+            "native read_flow_batch (4 threads)": ms_per_file(
+                lambda: native.read_flow_batch(by_native)),
+            "FloPrefetcher drained (2 threads)": ms_per_file(drain)}
+
+        # the main path on PRECOMPUTED flow from files on disk, through the
+        # prefetcher and through the numpy reader
+        n_frames, batch = 12, 8
+        runs = {}
+        served = []
+        real_pf = native.FloPrefetcher
+
+        class Counted(real_pf):
+            def __next__(self):
+                got = super().__next__()
+                served.append(1)
+                return got
+        for reader in ("prefetcher", "numpy"):
+            cfg = RunConfig(dataset="synthetic", flow_source="PRECOMPUTED",
+                            batch_size=batch, headless=True)
+            sp = SyntheticParams(height=h, width=w, n_frames=n_frames)
+            cfg.get_dataset = lambda: SyntheticDataset(
+                params=sp, materialize_to=os.path.join(tmp, reader))
+            proc = Processor(cfg, device=dev)
+            proc.save_images = False
+            ds = proc.dataset
+            ds.flow_path = os.path.join(ds.seq_path, "flow")
+            os.makedirs(ds.flow_path)
+            for i in range(n_frames - 1):
+                native.write_flow(os.path.join(ds.flow_path, f"{i:06d}.flo"), ds.flows[i])
+            ds.get_flow_uv = None          # the files must be what is read
+            real_available = native.available
+            native.FloPrefetcher = Counted
+            if reader == "numpy":
+                native.available = lambda: False
+            try:
+                fi.reset_launch_counts()
+                t0 = time.perf_counter()
+                results = proc.run_detection_foe()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                native.FloPrefetcher = real_pf
+                native.available = real_available
+                proc.release()
+            _finite_results(f"native {reader}", results, ds.results_path)
+            runs[reader] = {"json": {i: fr.to_json() for i, fr in results.items()},
+                            "wall_s": wall, "launches": dict(fi.LAUNCHES),
+                            "served": len(served)}
+        if runs["prefetcher"]["served"] != n_frames - 1 or \
+                runs["numpy"]["served"] != n_frames - 1:
+            raise AssertionError(
+                f"native: the prefetcher served {runs['prefetcher']['served']} files "
+                f"on its run and {runs['numpy']['served'] - runs['prefetcher']['served']} "
+                "on the numpy reader's")
+        if runs["prefetcher"]["json"] != runs["numpy"]["json"]:
+            raise AssertionError("native: the two readers' runs differ")
+        out["precomputed"] = {
+            "pairs": n_frames - 1,
+            "frames_per_s": {k: (n_frames - 1) / r["wall_s"] for k, r in runs.items()},
+            "launches": runs["prefetcher"]["launches"]}
+    return out
+
+
+def phase_entry(dev) -> dict:
+    import torch
+
+    from mav_detection_tpu_torch.entry import entry
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+
+    fn, args = entry(dev)
+    if not all(a.is_cuda for a in args):
+        raise AssertionError("entry: example arguments are not on the card")
+    fn(*args)                                            # warm-up
+    fi.reset_launch_counts()
+    foe, tpr_fixed, fpr_fixed, total_mask = fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(fi.LAUNCHES)
+    if launches["farneback_iterate_fused"] != 13:
+        raise AssertionError(f"entry: {launches}")
+    h, w = args[0].shape
+    vals = _np(torch.stack([*foe, tpr_fixed, fpr_fixed]))
+    if not np.isfinite(vals).all() or total_mask.shape != (h, w):
+        raise AssertionError(f"entry: outputs {vals}, mask {tuple(total_mask.shape)}")
+    if not (0 <= vals[0] < w and 0 <= vals[1] < h):
+        raise AssertionError(f"entry: FoE {vals[:2]} outside the {w}x{h} image")
+    cpu_fn, cpu_args = entry("cpu")
+    cpu_foe = _np(cpu_fn(*cpu_args)[0])
+    err = float(np.abs(vals[:2] - cpu_foe).max())
+    if not err <= 0.5:
+        raise AssertionError(f"entry: FoE {vals[:2]} on the card, {cpu_foe} on the CPU")
+    return {"foe": vals[:2].tolist(), "foe_vs_cpu_px": err, "launches": launches,
+            "mask_pixels": int(total_mask.sum()),
+            "ms_per_step": wall_ms(lambda: fn(*args), 5)}
+
+
 def main() -> int:
     import torch
 
@@ -926,18 +1382,22 @@ def main() -> int:
         f"{torch.backends.cudnn.allow_tf32} ({times['device']:.1f} s)")
 
     build_s = _build.build_seconds()
-    regs = [ln.strip() for ln in _build.BUILD_LOG.splitlines()
+    regs = [ln.strip() for ln in _build.BUILD_LOGS["farneback_iter"].splitlines()
             if "registers" in ln]
     times["build"] = build_s
-    say(f"[build] csrc/farneback_iter.cu built in {build_s:.2f} s; "
+    say(f"[build] csrc/farneback_iter.cu (nvcc) and runtime/native/loader.cpp "
+        f"(g++), started together, built and loaded in {build_s:.2f} s; "
         f"ptxas: {regs}")
 
     t0 = time.perf_counter()
     main_shape = phase_kernels(dev, 8, 480, 752, hires=False)
     hires_shape = phase_kernels(dev, 2, 1024, 1920, hires=True,
                                 time_batches=(2, 4))
+    # the scan engine's and entry()'s shape: one frame pair per launch
+    scan_shape = phase_kernels(dev, 1, 480, 752, hires=False)
+    scan_hires_shape = phase_kernels(dev, 1, 1024, 1920, hires=True)
     times["kernels"] = time.perf_counter() - t0
-    for r in (main_shape, hires_shape):
+    for r in (main_shape, hires_shape, scan_shape, scan_hires_shape):
         say(f"[kernels] farneback_iterate_fused {r['shape']}: one iteration "
             f"max_abs_err {r['max_abs_err']} (tol 0, bit-exact), whole "
             f"schedule {r['schedule_err_px']} px (tol {SCHEDULE_TOL_PX}); "
@@ -980,6 +1440,12 @@ def main() -> int:
     say(f"[modules] {mods['checks']} comparisons within tolerance; "
         f"{mods['corners']} corners; host-clock ms per frame at 752x480 on "
         f"{smi}: {json.dumps(mods['ms_per_frame'])} ({times['modules']:.1f} s)")
+    t0 = time.perf_counter()
+    solv = phase_solvers(dev)
+    times["solvers"] = time.perf_counter() - t0
+    say(f"[modules] tensor-code Farneback solvers, b=1 at 752x480: "
+        f"{solv['checks']} comparisons within tolerance; host-clock ms per call "
+        f"on {smi}: {json.dumps(solv['ms'])} ({times['solvers']:.1f} s)")
 
     t0 = time.perf_counter()
     art = phase_artifacts(dev)
@@ -1017,6 +1483,38 @@ def main() -> int:
         f"{lkr['dense_interior_epe_px']:.4f} px (gate < 1.6); FoE loop with "
         f"LUCAS_KANADE flow: {json.dumps(lkr['foe_loop'])} on {smi} "
         f"({times['lucas_kanade']:.1f} s)")
+
+    t0 = time.perf_counter()
+    scan = phase_scan(dev)
+    times["scan"] = time.perf_counter() - t0
+    for tag, r in scan.items():
+        say(f"[scan] engine=scan FARNEBACK {tag} on {smi}: {json.dumps(r)}")
+    b8 = runs[0]
+    say(f"[scan] 752x480 per frame on {smi}: scan engine "
+        f"{scan['752x480']['loop_ms_per_transition']:.3f} ms in the loop "
+        f"({scan['752x480']['wall_ms_per_transition']:.3f} ms with staging and "
+        f"JSON), device {scan['752x480']['device_ms_per_transition']:.3f} ms, "
+        f"idle share {scan['752x480']['device_idle_share']:.3f}; batch engine "
+        f"(phase 5, b=8) {b8['wall_ms_per_batch'] / b8['batch']:.3f} ms wall, "
+        f"device {sum(b8['device_ms_per_batch'].values()) / b8['batch']:.3f} ms, "
+        f"idle share {b8['device_idle_share']:.3f} ({times['scan']:.1f} s)")
+
+    t0 = time.perf_counter()
+    nat = phase_native(dev)
+    times["native"] = time.perf_counter() - t0
+    say(f"[native] loader.cpp alone builds with g++ in {nat['gxx_build_s']:.2f} s; "
+        f"16 .flo files at 752x480 native <-> numpy bit-equal; prefetcher in "
+        f"order, at most {nat['prefetcher_peak_inflight']} in flight (depth 4); "
+        f"truncated file raises; ms per file on this host "
+        f"{json.dumps(nat['ms_per_file'])}; PRECOMPUTED main path from disk: "
+        f"{json.dumps(nat['precomputed'])} on {smi}, JSON equal between the "
+        f"readers ({times['native']:.1f} s)")
+
+    t0 = time.perf_counter()
+    ent = phase_entry(dev)
+    times["entry"] = time.perf_counter() - t0
+    say(f"[entry] entry() at 240x320 on {smi}: {json.dumps(ent)} "
+        f"({times['entry']:.1f} s)")
     say(f"[phases] seconds {json.dumps(times)}")
 
     k = "farneback_iterate_fused"
@@ -1034,6 +1532,10 @@ def main() -> int:
         "launches_artifacts": art["launches"][k],
         "launches_homography": hom["plain"]["launches"][k],
         "launches_homography_sparse": hom["sparse"]["launches"][k],
+        "launches_scan": scan["752x480"]["launches"][k],
+        "launches_scan_sparse": scan["752x480 use_sparse_of"]["launches"][k],
+        "launches_scan_1920x1024": scan["1920x1024"]["launches"][k],
+        "launches_entry": ent["launches"][k],
         "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
         "per_batch": {f"{size} b={tb}": {
             key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
@@ -1046,11 +1548,40 @@ def main() -> int:
                   "max_abs_err": hires_shape["max_abs_err"],
                   "schedule_err_px": hires_shape["schedule_err_px"]},
     }]
+    # the same kernel at the scan engine's shape, b = 1
+    scan_fine = scan_shape["timings"][1]["layers"][0]
+    scan_hires_fine = scan_hires_shape["timings"][1]["layers"][0]
+    rows.append({
+        "name": k, **KERNEL_ROWS[k],
+        "launches": scan["752x480"]["launches"][k],
+        "max_abs_err": scan_shape["max_abs_err"], "ms": scan_fine["ms"],
+        "plain_ms": scan_fine["plain_ms"], "bound_ms": scan_fine["bound_ms"],
+        "bound_by": scan_fine["bound_by"], "library_ms": None,
+        "shape": scan_fine["shape"], "tolerance": 0.0, "check": "pass",
+        "path": "scan engine", "tile": scan_fine["tile"],
+        "schedule_err_px": scan_shape["schedule_err_px"],
+        "layers": [{key: lv[key] for key in ("shape", "iterations", "tile", "ms",
+                                             "plain_ms", "bound_ms", "bound_by")}
+                   for lv in scan_shape["timings"][1]["layers"]],
+        "per_transition": {key: scan_shape["timings"][1][key] for key in
+                           ("ms_per_batch", "bound_ms_per_batch", "plain_ms_per_batch")},
+        "hires": {"shape": scan_hires_fine["shape"],
+                  **{key: scan_hires_fine[key] for key in ("ms", "plain_ms", "bound_ms")},
+                  "max_abs_err": scan_hires_shape["max_abs_err"],
+                  "schedule_err_px": scan_hires_shape["schedule_err_px"],
+                  "per_transition": {key: scan_hires_shape["timings"][1][key] for key in
+                                     ("ms_per_batch", "bound_ms_per_batch",
+                                      "plain_ms_per_batch")}},
+    })
     say(json.dumps({"kernels": rows,
                     "main_path": [{k: r[k] for k in (
                         "size", "frames_per_s", "median_foe_err_px",
                         "device_ms_per_batch", "wall_ms_per_batch",
-                        "device_idle_share")} for r in runs]}))
+                        "device_idle_share")} for r in runs],
+                    "scan": {tag: {key: r[key] for key in (
+                        "wall_ms_per_transition", "loop_ms_per_transition",
+                        "device_ms_per_transition", "device_idle_share")}
+                        for tag, r in scan.items() if "device_idle_share" in r}}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,13 +1,25 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
-``csrc/farneback_iter.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface under ``build/kernels/`` at the repo
-root (git-ignored), named by a hash of the source and flags so an edited
-source rebuilds. The library loads with ``ctypes``; the wrappers pass
-``tensor.data_ptr()`` and the current stream's handle as ``c_void_p``.
+Two sources, each compiled at first use into a shared library with a plain
+C interface and loaded with ``ctypes``:
 
-Only the repo's own source is compiled; there is no prebuilt artifact and
-no fallback: a missing ``nvcc`` or a failed build raises.
+* ``"farneback_iter"``: ``csrc/farneback_iter.cu``, the CUDA kernels, with
+  ``nvcc`` for ``sm_90a`` into ``build/kernels/``. The wrappers pass
+  ``tensor.data_ptr()`` and the current stream's handle as ``c_void_p``.
+* ``"loader"``: ``runtime/native/loader.cpp``, the host ``.flo`` codec and
+  prefetcher, with ``g++`` into ``build/native/``.
+
+Both directories lie under ``build/`` at the repo root (git-ignored). A
+library is named by a hash of its source and flags, so an edited source
+rebuilds. ``build`` starts one compiler process per source that is not built
+yet, all together, and then waits for them; ``load`` builds what it needs
+and sets the library's argtypes once.
+
+Only the repo's own sources are compiled; there is no prebuilt artifact. A
+missing compiler or a failed build raises ``RuntimeError``.
+
+By hand: ``python -m mav_detection_tpu_torch._build [name ...]`` builds the
+named libraries (all of them without names) and prints their paths.
 """
 from __future__ import annotations
 
@@ -16,24 +28,23 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent
+BUILD_ROOT = PKG_DIR.parent / "build"
 SOURCE = PKG_DIR / "csrc" / "farneback_iter.cu"
-BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+BUILD_DIR = BUILD_ROOT / "kernels"
 
 # -fmad=false keeps multiply and add as separate IEEE ops, as the reference
 # evaluates them; the Farneback kernel relies on it for bit-exactness.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-
-_LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-BUILD_LOG = ""   # nvcc output of the last build (ptxas register report)
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 def _nvcc() -> str:
@@ -48,45 +59,133 @@ def _nvcc() -> str:
         "build from csrc/ at first use and need the CUDA toolkit")
 
 
-def _build() -> Path:
-    """Compile the source unless already built; returns the library path.
-    Raises with the compiler's output if the build fails."""
-    global BUILD_LOG
-    h = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{SOURCE.stem}-{h.hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    BUILD_LOG = proc.stdout
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return out
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError(
+        "g++ not found on the PATH: the native .flo loader builds from "
+        "runtime/native/loader.cpp at first use")
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, building it at first use."""
-    global _LIB
+def _bind_kernels(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.farneback_iterate_fused.argtypes = [p, p, p, p, p, i, i, i, i, i, f,
+                                            i, p]
+    lib.farneback_iterate_fused.restype = i
+    lib.farneback_iterate_fused_info.argtypes = [i, i, i, p]
+    lib.farneback_iterate_fused_info.restype = i
+
+
+def _bind_loader(lib: ctypes.CDLL) -> None:
+    import numpy as np
+
+    i, p = ctypes.c_int, ctypes.c_void_p
+    s = ctypes.c_char_p
+    ip = ctypes.POINTER(ctypes.c_int)
+    sp = ctypes.POINTER(ctypes.c_char_p)
+    floats = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    lib.flo_probe.argtypes = [s, ip, ip]
+    lib.flo_probe.restype = i
+    lib.flo_read.argtypes = [s, floats, i, i]
+    lib.flo_read.restype = i
+    lib.flo_write.argtypes = [s, floats, i, i]
+    lib.flo_write.restype = i
+    lib.flo_read_batch.argtypes = [sp, i, floats, i, i, i]
+    lib.flo_read_batch.restype = i
+    lib.prefetcher_create.argtypes = [sp, i, i, i, i, i]
+    lib.prefetcher_create.restype = p
+    lib.prefetcher_next.argtypes = [p, floats]
+    lib.prefetcher_next.restype = i
+    lib.prefetcher_inflight.argtypes = [p]
+    lib.prefetcher_inflight.restype = i
+    lib.prefetcher_destroy.argtypes = [p]
+    lib.prefetcher_destroy.restype = None
+
+
+class _Source(NamedTuple):
+    path: Path
+    compiler: Callable[[], str]
+    flags: Tuple[str, ...]
+    out_dir: Path
+    bind: Callable[[ctypes.CDLL], None]
+
+
+SOURCES: Dict[str, _Source] = {
+    "farneback_iter": _Source(SOURCE, _nvcc, NVCC_FLAGS, BUILD_DIR,
+                              _bind_kernels),
+    "loader": _Source(PKG_DIR / "runtime" / "native" / "loader.cpp", _gxx,
+                      GXX_FLAGS, BUILD_ROOT / "native", _bind_loader),
+}
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# compiler output of the last build of each source (for the kernels, the
+# ptxas register report)
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def _target(src: _Source) -> Path:
+    h = hashlib.sha1(src.path.read_bytes() + " ".join(src.flags).encode())
+    return src.out_dir / f"lib{src.path.stem}-{h.hexdigest()[:12]}.so"
+
+
+def _build_locked(names: Sequence[str]) -> Dict[str, Path]:
+    targets = {n: _target(SOURCES[n]) for n in names}
+    running = []
+    for n, out in targets.items():
+        if out.exists():
+            continue
+        src = SOURCES[n]
+        compiler = src.compiler()
+        src.out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        proc = subprocess.Popen(
+            [compiler, *src.flags, "-o", str(tmp), str(src.path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((n, proc, tmp, out))
+    failed = []
+    for n, proc, tmp, out in running:
+        BUILD_LOGS[n] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{SOURCES[n].path.name}:\n{BUILD_LOGS[n]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("build failed for " + "\n".join(failed))
+    return targets
+
+
+def build(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
+    """Compile every named source (all of them by default) that is not
+    built yet, one compiler process each, started together; returns the
+    libraries' paths. Raises with the compiler's output if a build fails."""
     with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(_build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.farneback_iterate_fused.argtypes = [p, p, p, p, p, i, i, i,
-                                                    i, i, f, i, p]
-            lib.farneback_iterate_fused.restype = i
-            lib.farneback_iterate_fused_info.argtypes = [i, i, i, p]
-            lib.farneback_iterate_fused_info.restype = i
-            _LIB = lib
-        return _LIB
+        return _build_locked(list(SOURCES) if names is None else list(names))
 
 
-def build_seconds() -> float:
-    """Build and load the kernel library; returns the seconds it took."""
+def load(name: str = "farneback_iter") -> ctypes.CDLL:
+    """The loaded library ``name``, built at first use."""
+    with _LOCK:
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(_build_locked([name])[name]))
+            SOURCES[name].bind(lib)
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+def build_seconds(names: Optional[Sequence[str]] = None) -> float:
+    """Build (in parallel) and load the named libraries, all of them by
+    default; returns the seconds it took."""
     t0 = time.perf_counter()
-    load()
+    names = list(SOURCES) if names is None else list(names)
+    build(names)
+    for n in names:
+        load(n)
     return time.perf_counter() - t0
+
+
+if __name__ == "__main__":
+    for lib_name, lib_path in build(sys.argv[1:] or None).items():
+        print(lib_name, lib_path)

@@ -1,10 +1,11 @@
 """Command-line entry point of the port.
 
 The parser knows the reference's flag surface (``mav_detection_tpu.cli.
-main``) plus ``--device``; the port runs the batch engine on the synthetic
-dataset (the FoE detection loop, or the homography branch with
-``--algorithm HOMOGRAPHY``), and every flag or value outside the ``PORTED``
-table raises "not yet ported" instead of being ignored.
+main``) plus ``--device``; the port runs the batch and scan engines on the
+synthetic dataset (the FoE detection loop, or on the batch engine the
+homography branch with ``--algorithm HOMOGRAPHY``), and every flag or value
+outside the ``PORTED`` table raises "not yet ported" instead of being
+ignored.
 
 Usage:
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
@@ -14,6 +15,8 @@ Usage:
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --algorithm HOMOGRAPHY --flow-source FARNEBACK [--use-sparse-of] \
         --headless
+    python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
+        --flow-source FARNEBACK --engine scan [--use-sparse-of] --headless
 
 With ``SYNTHETIC_PATH`` set, the synthetic sequence is written there; the
 FrameResult JSON lands in its ``results/`` directory and the debug images
@@ -33,6 +36,7 @@ from mav_detection_tpu_torch.pipeline.processor import Processor
 PORTED = {
     "dataset": {"synthetic"},
     "flow_source": {"FARNEBACK", "PRECOMPUTED", "LUCAS_KANADE", "GROUND_TRUTH"},
+    "engine": {"BATCH", "SCAN"},
     "mode": None,
     "algorithm": None,
     "use_sparse_of": None,
@@ -74,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--devices", type=int, default=0,
                         help="shard frame batches over N devices")
     parser.add_argument("--engine", type=str, default="batch",
-                        help="frame engine (ported: batch)")
+                        help="frame engine (ported: batch|scan)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default) or cpu")
     parser.add_argument("--debug", action="store_true")
@@ -121,7 +125,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         algorithm=args.algorithm, flow_source=args.flow_source,
         debug=args.debug, batch_size=args.batch_size,
         foe_samples=args.foe_samples, use_sparse_of=args.use_sparse_of,
-        headless=args.headless)
+        engine=args.engine.lower(), headless=args.headless)
     logger.info(f"Starting: {config}")
     processor = Processor(config, device=args.device)
     try:

@@ -35,25 +35,19 @@ _TPU_ONLY = ("band_rows", "pallas_halo")
 
 def farneback_params_from_reference(d: Mapping[str, Any]) -> FarnebackParams:
     """The port's ``FarnebackParams`` for a reference ``FarnebackParams``
-    given as a dict. The port runs the reference's fused-iteration algorithm
-    (``warp="pallas"``, which refits every iteration); ``warp="separable"``
-    without the ``fast`` schedule is the same algorithm. The exact-gather
-    warps, the sparse refit schedule and reduced matmul precision are not
-    ported and raise."""
-    warp = d.get("warp", "gather")
-    if warp not in ("pallas", "separable"):
-        raise NotImplementedError(
-            f"warp={warp!r}: only the fused-iteration algorithm (warp "
-            "'pallas', or 'separable' without fast) is ported")
-    if warp == "separable" and d.get("fast", False):
-        raise NotImplementedError("the fast refit schedule is not ported")
+    given as a dict. ``warp`` and ``fast`` carry over, the reference's
+    ``warp="pallas"`` under the port's name for the fused iteration,
+    ``"fused"``; the TPU lowering knobs are dropped. Reduced matmul precision
+    is not ported and raises."""
     if d.get("precision", "highest") != "highest":
         raise NotImplementedError("the port runs every matmul in full fp32")
     known = set(FarnebackParams.__dataclass_fields__)
-    unknown = set(d) - known - {"warp", "fast", "precision", *_TPU_ONLY}
+    unknown = set(d) - known - {"precision", *_TPU_ONLY}
     if unknown:
         raise ValueError(f"unknown FarnebackParams fields: {sorted(unknown)}")
     kw = {k: v for k, v in d.items() if k in known}
+    if kw.get("warp") == "pallas":
+        kw["warp"] = "fused"
     if kw.get("level_iters") is not None:
         kw["level_iters"] = tuple(kw["level_iters"])
     return FarnebackParams(**kw)

@@ -2,8 +2,9 @@
 
 Format: float32 magic ``202021.25``, int32 width, int32 height, then
 ``h*w*2`` float32s interleaved ``u,v`` — the same contract as
-``mav_detection_tpu.core.flo``. The port reads batches sequentially with
-numpy; the reference's native C++ prefetcher is not ported yet.
+``mav_detection_tpu.core.flo``. Single files are read with numpy; batches
+with the native threaded reader (``runtime/native_loader.py``) where its
+library can be built, else sequentially with numpy.
 """
 from __future__ import annotations
 
@@ -49,7 +50,14 @@ def write_flow(filename: str, uv: np.ndarray) -> None:
 
 
 def read_flow_batch(filenames: Sequence[str]) -> np.ndarray:
-    """Read many same-shaped ``.flo`` files into an ``(n, h, w, 2)`` array."""
+    """Read many same-shaped ``.flo`` files into an ``(n, h, w, 2)`` array:
+    with the native loader where it is available (which of the two readers a
+    process uses is logged once, at INFO), else file by file with numpy. The
+    native reader raises on a truncated file; the numpy one pads it."""
+    from mav_detection_tpu_torch.runtime import native_loader
+
+    if native_loader.available():
+        return native_loader.read_flow_batch(list(filenames))
     if not filenames:
         return np.zeros((0, 0, 0, 2), np.float32)
     first = read_flow(filenames[0])

@@ -2,7 +2,10 @@ from mav_detection_tpu_torch.ops.flow.farneback import (
     FarnebackParams,
     farneback_flow,
     farneback_flow_batch,
+    jacobi_level,
+    solve_flow,
     tuned_flow_params,
+    update_matrices,
 )
 from mav_detection_tpu_torch.ops.flow.farneback_iter import (
     farneback_iterate,
@@ -13,7 +16,10 @@ __all__ = [
     "FarnebackParams",
     "farneback_flow",
     "farneback_flow_batch",
+    "jacobi_level",
+    "solve_flow",
     "tuned_flow_params",
+    "update_matrices",
     "farneback_iterate",
     "farneback_iterate_ref",
 ]

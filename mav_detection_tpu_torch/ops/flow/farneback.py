@@ -1,10 +1,13 @@
 """Farneback dense optical flow (channel-first batched path).
 
-Port of ``mav_detection_tpu/ops/flow/farneback.py``'s product path,
-``farneback_flow_batch`` -> ``_farneback_cf``: per pyramid level, the fused
-smooth+resize+polynomial-expansion matrices (two fp32 matmuls per frame set)
-and then the solver iterations (``farneback_iterate``: CUDA kernels on the
-card, the plain PyTorch version on the CPU). Flow fields match
+Port of ``mav_detection_tpu/ops/flow/farneback.py``: per pyramid level, the
+fused smooth+resize+polynomial-expansion matrices (two fp32 matmuls per
+frame set) and then the solver iterations. ``FarnebackParams.warp`` picks
+the solver: ``"fused"`` (the reference's ``"pallas"``) runs
+``farneback_iterate`` (the CUDA kernel on the card, its plain PyTorch
+version on the CPU); ``"gather"``, ``"separable"`` and ``"auto"`` run
+``jacobi_level`` over ``update_matrices`` and ``solve_flow``, tensor code on
+either device, with the ``fast`` refit schedule. Flow fields match
 ``cv2.calcOpticalFlowFarneback`` conventions (Farneback 2003, OpenCV's
 numerics) exactly as the reference's do.
 
@@ -12,11 +15,11 @@ The numpy matrix builders are copies of the reference's, so both packages
 build bit-identical matrices. Matmuls run in full fp32 (the reference's
 ``precision="highest"``); ``resolve_device`` turns TF32 off on the card.
 
-Only the reference's fused-iteration algorithm is ported (its ``warp="pallas"``
-configuration: refit every iteration, separable warp clipped to
-``max_shift``). The XLA-path solvers (``gather``/``separable``/``auto`` warps
-and the ``fast`` refit schedule) and the TPU-only knobs (``band_rows``,
-``pallas_halo``, ``interpret``, ``precision``) have no counterpart here.
+Every array of the solvers is channel-first, (b, c, H, W), where the
+reference's are (h, w, b, c). One level loop serves every batch size and
+every warp (the reference's batch-1 loop with its unfused preprocessing is
+not ported). The TPU-only knobs (``band_rows``, ``pallas_halo``,
+``interpret``, ``precision``) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -27,7 +30,12 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from mav_detection_tpu_torch.ops.flow.farneback_iter import farneback_iterate
+from mav_detection_tpu_torch.ops.flow.farneback_iter import (
+    _warp_coords,
+    farneback_iterate,
+    normal_equations,
+    warp_separable,
+)
 from mav_detection_tpu_torch.utils.device import resolve_device
 
 
@@ -41,7 +49,19 @@ class FarnebackParams:
     iterations: int = 10
     poly_n: int = 8
     poly_sigma: float = 1.2
-    # the refit warp's integer displacement is clipped to +-max_shift
+    # fast=True refits the normal-equation matrices after iterations
+    # {0, 1, 2, 4, 7} only, instead of after every one (jacobi_level; the
+    # fused iteration always refits)
+    fast: bool = False
+    # the refit warp:
+    #   "gather"    - true bilinear, 4 gathered taps (any displacement)
+    #   "separable" - two-stage warp, shifts clipped to +-max_shift
+    #   "auto"      - separable while max|flow| <= max_shift - 1, else gather,
+    #                 decided per refit on the device
+    #   "fused"     - the fused iteration kernel (the reference's "pallas"):
+    #                 separable warp, refit every iteration
+    warp: str = "gather"
+    # the separable warp's integer displacement is clipped to +-max_shift
     max_shift: int = 16
     # per-level iteration schedule, finest level first (levels beyond the
     # tuple reuse its last entry); overrides ``iterations`` when set
@@ -56,10 +76,10 @@ def tuned_flow_params(h: int, w: int) -> FarnebackParams:
     pyr_scale=0.5) and the (2, 3, 8) finest-first iteration schedule."""
     sched = (2, 3, 8)
     if h * w <= 480 * 752:
-        return FarnebackParams(levels=2, pyr_scale=0.5, iterations=6,
-                               max_shift=8, level_iters=sched)
-    return FarnebackParams(levels=2, pyr_scale=0.5, iterations=6,
-                           max_shift=16, level_iters=sched)
+        return FarnebackParams(levels=2, pyr_scale=0.5, warp="fused",
+                               iterations=6, max_shift=8, level_iters=sched)
+    return FarnebackParams(levels=2, pyr_scale=0.5, warp="fused",
+                           iterations=6, max_shift=16, level_iters=sched)
 
 
 # ----------------------------------------------------------------- helpers
@@ -284,10 +304,121 @@ def resize_linear_cf(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     return torch.matmul(torch.matmul(Rv, img), Rh.T)
 
 
+# ------------------------------------------------------- tensor-code solvers
+WARPS = ("gather", "separable", "auto", "fused")
+
+
+def _warp_gather(R1: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                 x1: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
+    """True bilinear warp of R1 (b, 5, H, W), four gathered taps; the
+    indices are clamped after the float clip, as the reference's are."""
+    b, c, H, W = R1.shape
+    x1i = torch.clamp(x1, 0, W - 1).to(torch.int64)
+    y1i = torch.clamp(y1, 0, H - 1).to(torch.int64)
+    x2i = torch.clamp(x1i + 1, max=W - 1)
+    y2i = torch.clamp(y1i + 1, max=H - 1)
+    flat = R1.reshape(b, c, H * W)
+
+    def tap(yi, xi):
+        idx = (yi * W + xi).reshape(b, 1, H * W).expand(b, c, H * W)
+        return torch.gather(flat, 2, idx).reshape(b, c, H, W)
+
+    a00 = ((1 - fx) * (1 - fy))[:, None]
+    a01 = (fx * (1 - fy))[:, None]
+    a10 = ((1 - fx) * fy)[:, None]
+    a11 = (fx * fy)[:, None]
+    return (a00 * tap(y1i, x1i) + a01 * tap(y1i, x2i)
+            + a10 * tap(y2i, x1i) + a11 * tap(y2i, x2i))
+
+
+def update_matrices(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
+                    border: torch.Tensor, warp: str = "gather",
+                    max_shift: int = 16, row0=None,
+                    global_h: int = 0) -> torch.Tensor:
+    """Per-pixel normal-equation entries M = [G11, G12, G22, h1, h2],
+    (b, 5, H, W), from R0/R1 (b, 5, H, W), flow (b, 2, H, W) and border
+    (H, W): the reference's ``_update_matrices``.
+
+    ``warp="auto"`` computes both warps and selects on the device by the
+    0-dim predicate max|flow| <= max_shift - 1, so that the choice costs no
+    look from the host. ``row0``/``global_h``: the arrays are a haloed row
+    slab of a larger image, ``row0`` its first global row (an int or a 0-dim
+    tensor) and ``global_h`` the image's height; the inside-image gate then
+    tests global rows."""
+    if warp not in ("gather", "separable", "auto"):
+        raise ValueError(f"warp={warp!r} is not valid here, has to be "
+                         "'gather', 'separable' or 'auto'")
+    fx, fy, sx, sy, x1, y1 = _warp_coords(flow, max_shift, row0, global_h)
+    if warp == "separable":
+        r = warp_separable(R1, fx, fy, sx, sy)
+    elif warp == "gather":
+        r = _warp_gather(R1, fx, fy, x1, y1)
+    else:
+        covered = flow.abs().max() <= float(max_shift - 1)
+        r = torch.where(covered, warp_separable(R1, fx, fy, sx, sy),
+                        _warp_gather(R1, fx, fy, x1, y1))
+    return normal_equations(R0, r, flow, border)
+
+
+def _box_blur(img: torch.Tensor, winsize: int) -> torch.Tensor:
+    """Replicate-edge window sum over the trailing two dims as two band
+    matmuls, un-normalised. The window always has 2*(winsize//2)+1 taps: an
+    even ``winsize`` sums one extra row and column while the caller still
+    divides by winsize**2 (as the reference and its oracle do)."""
+    h, w = img.shape[-2:]
+    ones = (1.0,) * (2 * (winsize // 2) + 1)
+    Bv = _device_const("band", (h, ones, "edge"), img.device)
+    Bh = _device_const("band", (w, ones, "edge"), img.device)
+    return torch.matmul(torch.matmul(Bv, img), Bh.T)
+
+
+def solve_flow(M: torch.Tensor, winsize: int) -> torch.Tensor:
+    """Window mean of M (b, 5, H, W) and the 2x2 solve: (b, 2, H, W) flow.
+    The 1e-3 regulariser acts on the normalised sums, so it damps the
+    solution by an amount that does not depend on the window."""
+    g = _box_blur(M, winsize) * (1.0 / (winsize * winsize))
+    g11, g12, g22, h1, h2 = g.unbind(1)
+    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
+    return torch.stack([(g11 * h2 - g12 * h1) * idet,
+                        (g22 * h1 - g12 * h2) * idet], dim=1)
+
+
+def _refit_schedule(params: FarnebackParams,
+                    iterations: Optional[int] = None) -> set:
+    """Iterations after which the normal-equation matrices are refit."""
+    n = params.iterations if iterations is None else iterations
+    if params.fast:
+        return {0, 1, 2, 4, 7} & set(range(n - 1))
+    return set(range(n - 1))
+
+
+def jacobi_level(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
+                 border: torch.Tensor, params: FarnebackParams,
+                 warp: Optional[str] = None,
+                 iterations: Optional[int] = None) -> torch.Tensor:
+    """One pyramid level's iterate/refit loop in tensor code: solve
+    everywhere, then refit everywhere (Jacobi), refits by
+    ``_refit_schedule``. With ``fast`` off this is the fused iteration's
+    sequence (refit, solve, refit, solve, ...)."""
+    warp = warp or params.warp
+    n = params.iterations if iterations is None else iterations
+    refit_after = _refit_schedule(params, n)
+    M = update_matrices(R0, R1, flow, border, warp, params.max_shift)
+    for it in range(n):
+        flow = solve_flow(M, params.winsize)
+        if it in refit_after:
+            M = update_matrices(R0, R1, flow, border, warp, params.max_shift)
+    return flow
+
+
 # --------------------------------------------------------------- top level
 def _farneback_cf(prev: torch.Tensor, curr: torch.Tensor,
                   params: FarnebackParams) -> torch.Tensor:
     """Channel-first batched solver: (b, h, w) x2 -> (b, h, w, 2)."""
+    if params.warp not in WARPS:
+        raise ValueError(
+            f"warp={params.warp!r} is not valid, has to be one of "
+            f"{', '.join(repr(v) for v in WARPS)}")
     prev = prev.to(torch.float32)
     curr = curr.to(torch.float32)
     b, h, w = prev.shape
@@ -313,10 +444,15 @@ def _farneback_cf(prev: torch.Tensor, curr: torch.Tensor,
                              params.poly_sigma)
         border = border_scale_map(lh, lw, prev.device)
 
-        flow = farneback_iterate(R0, R1, flow.contiguous(), border,
-                                 iterations=_level_iter_count(params, k_level),
-                                 winsize=params.winsize,
-                                 max_shift=params.max_shift)
+        iterations = _level_iter_count(params, k_level)
+        if params.warp == "fused":
+            flow = farneback_iterate(R0, R1, flow.contiguous(), border,
+                                     iterations=iterations,
+                                     winsize=params.winsize,
+                                     max_shift=params.max_shift)
+        else:
+            flow = jacobi_level(R0, R1, flow, border, params,
+                                iterations=iterations)
 
     return flow.permute(0, 2, 3, 1)
 
@@ -348,7 +484,8 @@ def farneback_flow(prev: ArrayLike, curr: ArrayLike,
                    device: Union[str, torch.device] = "cuda") -> torch.Tensor:
     """Dense flow from ``prev`` to ``curr`` (gray (h, w)) -> (h, w, 2).
     Batch 1 of the channel-first path (the reference's batch-1 path differs
-    from it only by fp rounding in its unfused preprocessing)."""
+    from it only by fp rounding in its unfused preprocessing). ``params``
+    defaults to ``tuned_flow_params`` for the frame size."""
     dev = resolve_device(device)
     prev = torch.as_tensor(prev, device=dev)[None]
     curr = torch.as_tensor(curr, device=dev)[None]

@@ -41,10 +41,15 @@ def reset_launch_counts() -> None:
 
 
 # ------------------------------------------------------------ plain version
-def _warp_coords(flow: torch.Tensor, S: int):
-    """Per-pixel (fx, fy, sx, sy) of the reference's coordinate block:
-    clamped coordinates, ``inside`` gating of the fractions, shifts clipped
-    to +-S. flow: (b, 2, H, W)."""
+def _warp_coords(flow: torch.Tensor, S: int, row0=None, global_h: int = 0):
+    """Per-pixel (fx, fy, sx, sy, x1, y1) of the reference's coordinate
+    block: ``inside`` gating of the fractions, shifts clipped to +-S, and the
+    floored source coordinates (floats). flow: (b, 2, H, W).
+
+    With ``row0`` the arrays are a haloed row slab of a ``global_h``-row
+    image whose first row is global row ``row0`` (an int or a 0-dim tensor):
+    the inside gate then tests global rows, so that a slab's edge is not
+    taken for the image's."""
     _, _, H, W = flow.shape
     dev = flow.device
     xs = torch.arange(W, device=dev, dtype=torch.float32)[None, None, :]
@@ -55,41 +60,52 @@ def _warp_coords(flow: torch.Tensor, S: int):
     y1 = torch.floor(fy_t)
     fx = fx_t - x1
     fy = fy_t - y1
-    inside = (x1 >= 0) & (x1 < W - 1) & (y1 >= 0) & (y1 < H - 1)
+    if row0 is None:
+        inside = (x1 >= 0) & (x1 < W - 1) & (y1 >= 0) & (y1 < H - 1)
+    else:
+        y1g = y1 + row0
+        inside = (x1 >= 0) & (x1 < W - 1) & (y1g >= 0) & (y1g < global_h - 1)
     zero = torch.zeros((), device=dev, dtype=torch.float32)
     fx = torch.where(inside, fx, zero)
     fy = torch.where(inside, fy, zero)
     sx = torch.clamp(x1 - xs, -S, S).to(torch.int64)
     sy = torch.clamp(y1 - ys, -S, S).to(torch.int64)
-    return fx, fy, sx, sy
+    return fx, fy, sx, sy, x1, y1
 
 
-def update_matrices_ref(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
-                        border: torch.Tensor, max_shift: int) -> torch.Tensor:
-    """Warp and normal equations, the first half of the plain version of
-    ``farneback_iterate_fused``: (b, 5, H, W) M."""
-    b, _, H, W = R0.shape
-    dev = R0.device
-    fx, fy, sx, sy = _warp_coords(flow, max_shift)
+def warp_separable(R1: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                   sx: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
+    """The reference's two-stage warp of R1 (b, 5, H, W): a y stage in which
+    every column mixes two rows with its own (fy, sy), then an x stage in
+    which the pixel's fx mixes that result at columns x+sx and x+sx+1.
+    Indices clamp to the plane (the reference's edge padding). The reference
+    sums 2S+2 shifted planes of which two carry weight; the two are gathered
+    here."""
+    b, c, H, W = R1.shape
+    dev = R1.device
     rows = torch.arange(H, device=dev)[None, :, None]
     cols = torch.arange(W, device=dev)[None, None, :]
 
-    # y stage at every column with that column's own fy, sy
     def rows_of(shift):
         idx = torch.clamp(rows + shift, 0, H - 1)
-        return torch.gather(R1, 2, idx[:, None].expand(b, 5, H, W))
+        return torch.gather(R1, 2, idx[:, None].expand(b, c, H, W))
 
     fy5 = fy[:, None]
     A = (1.0 - fy5) * rows_of(sy) + fy5 * rows_of(sy + 1)
 
-    # x stage: the pixel's fx mixes A at x+sx and x+sx+1 (clamped columns)
     def cols_of(shift):
         idx = torch.clamp(cols + shift, 0, W - 1)
-        return torch.gather(A, 3, idx[:, None].expand(b, 5, H, W))
+        return torch.gather(A, 3, idx[:, None].expand(b, c, H, W))
 
     fx5 = fx[:, None]
-    r = (1.0 - fx5) * cols_of(sx) + fx5 * cols_of(sx + 1)
+    return (1.0 - fx5) * cols_of(sx) + fx5 * cols_of(sx + 1)
 
+
+def normal_equations(R0: torch.Tensor, r: torch.Tensor, flow: torch.Tensor,
+                     border: torch.Tensor) -> torch.Tensor:
+    """The five normal-equation planes M = [G11, G12, G22, h1, h2]
+    (b, 5, H, W) from R0 and the warped R1 ``r``, in the reference's
+    operation order."""
     dx = flow[:, 0]
     dy = flow[:, 1]
     r4 = (R0[:, 2] + r[:, 2]) * 0.5
@@ -107,6 +123,15 @@ def update_matrices_ref(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
                         r5 * r5 + r6 * r6,
                         r4 * r2 + r6 * r3,
                         r6 * r2 + r5 * r3], dim=1)
+
+
+def update_matrices_ref(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
+                        border: torch.Tensor, max_shift: int) -> torch.Tensor:
+    """Warp and normal equations, the first half of the plain version of
+    ``farneback_iterate_fused``: (b, 5, H, W) M."""
+    fx, fy, sx, sy, _, _ = _warp_coords(flow, max_shift)
+    return normal_equations(R0, warp_separable(R1, fx, fy, sx, sy), flow,
+                            border)
 
 
 def box_solve_ref(M: torch.Tensor, winsize: int) -> torch.Tensor:

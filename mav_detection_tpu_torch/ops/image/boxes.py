@@ -20,8 +20,9 @@ def get_simple_bounding_box_device(img: torch.Tensor) -> torch.Tensor:
     dev = img.device
     row_idx = torch.arange(h, device=dev)
     col_idx = torch.arange(w, device=dev)
-    big = torch.tensor(max(h, w), device=dev)
-    neg = torch.tensor(-1, device=dev)
+    # made on the device (a scalar copied up from the host would synchronise)
+    big = torch.full((), max(h, w), dtype=torch.int64, device=dev)
+    neg = torch.full((), -1, dtype=torch.int64, device=dev)
     start_y = torch.where(row_any, row_idx, big).min(dim=1).values
     end_y = torch.where(row_any, row_idx, neg).max(dim=1).values
     start_x = torch.where(col_any, col_idx, big).min(dim=1).values

@@ -1,5 +1,6 @@
-"""The frame engine: host IO around the device detection steps
-(``mav_detection_tpu.pipeline.processor.Processor`` on the batch engine).
+"""The frame engines: host IO around the device detection steps
+(``mav_detection_tpu.pipeline.processor.Processor`` on the batch and scan
+engines).
 
 FoE branch (``run_detection_foe``): frames are staged in host batches on a
 background thread, flow and the fused detection step run the whole batch on
@@ -18,13 +19,22 @@ magnitude, the pyramid window search and the window hill climb, all on the
 card; the box comes back, and with a sequence directory the 2x3 mosaic's
 images.
 
+Scan engine (``run_detection_foe_scan``, ``--engine scan``): the whole
+sequence goes up in one pinned upload, ``detect_sequence_scan`` runs the
+Farneback solver and the detection step per transition with carried state
+and no look from the host, and one packed (T-1, 12) block comes back; with
+``use_sparse_of`` also the trace-based sparse FoE, saved as
+``results/foe_sparse.npy``. No debug images in this mode.
+
 Ported: flow sources FARNEBACK, PRECOMPUTED (with its FARNEBACK fallback),
 LUCAS_KANADE and GROUND_TRUTH; staging with pinned-memory uploads of B+1
-unique gray frames per full batch; static-shape tail padding; one scalar
-pull per batch. Not ported yet, each raising rather than skipping: the
-scan/chunked/spatial engines, multi-device meshes, the RAFT flow source, the
-native ``.flo`` prefetcher (``.flo`` files are read with numpy), and the
-``cv2.VideoWriter`` mp4 fallback (the port has no OpenCV).
+unique gray frames per full batch; ``.flo`` files through the native
+in-order prefetcher (numpy where its library cannot be built, said once in
+the log); static-shape tail padding; one scalar pull per batch. Not ported
+yet, each raising rather than skipping: the spatial engine, multi-device
+meshes (and with them the chunked engine, which exists only across
+devices), the RAFT flow source, and the ``cv2.VideoWriter`` mp4 fallback
+(the port has no OpenCV).
 """
 from __future__ import annotations
 
@@ -81,6 +91,8 @@ from mav_detection_tpu_torch.pipeline.detector import (
     detect_frame_batch_scalars,
     pack_frame_scalars,
 )
+from mav_detection_tpu_torch.pipeline.temporal import detect_sequence_scan
+from mav_detection_tpu_torch.runtime import native_loader
 from mav_detection_tpu_torch.utils.device import resolve_device
 from mav_detection_tpu_torch.utils.tracing import Tracer
 
@@ -104,17 +116,18 @@ def _edge_pad_batch(arr, pad: int):
 
 
 class Processor:
-    """Detection runner (FoE and homography branches, batch engine)."""
+    """Detection runner (FoE and homography branches; batch and scan
+    engines)."""
 
     def __init__(self, config: RunConfig,
                  device: Union[str, torch.device] = "cuda") -> None:
         self.device = resolve_device(device)
         self.config = config
         self.logger = config.logger or logging.getLogger("mav_detection_tpu_torch")
-        if config.engine != "batch":
+        if config.engine == "spatial":
             raise NotImplementedError(
-                f"--engine {config.engine} is not ported yet "
-                "(pipeline/temporal.py, parallel/spatial.py); use batch")
+                "--engine spatial is not ported yet (parallel/spatial.py); "
+                "use batch or scan")
         if config.devices and config.devices > 1:
             raise NotImplementedError(
                 "multi-device frame batches (parallel/mesh.py) are not "
@@ -123,6 +136,7 @@ class Processor:
         self.batch_size = max(1, config.batch_size)
         self.detection_results: Dict[int, FrameResult] = {}
         self._stage_host_seconds = 0.0
+        self._flo_prefetcher: Optional[native_loader.FloPrefetcher] = None
         self.is_exiting = False
         # the reference's product flow configuration, keyed by frame size
         w, h = (int(v) for v in self.dataset.resolution)
@@ -164,6 +178,15 @@ class Processor:
             event.record(self._copy_stream)
         return dev, event, host
 
+    def _await_upload(self, upload) -> torch.Tensor:
+        """The tensor of an ``_upload``, once the main stream waits for its
+        copy."""
+        tensor, event, _host = upload
+        main = torch.cuda.current_stream(self.device)
+        main.wait_event(event)
+        tensor.record_stream(main)
+        return tensor
+
     def _stage_batch(self, idx: List[int], src: FlowSource) -> Dict[str, object]:
         """Host staging of one frame batch (gray conversion, .flo reads, aux
         arrays) for flow source ``src``. Runs on a background thread so it
@@ -173,7 +196,14 @@ class Processor:
         h, w = ds.capture_shape[:2]
         staged: Dict[str, object] = {}
         if src in (FlowSource.PRECOMPUTED, FlowSource.GROUND_TRUTH):
-            staged["flow_host"] = self._read_flow(idx, src)
+            if self._flo_prefetcher is not None:
+                # reads run ahead on the prefetcher's native threads across
+                # batch boundaries (this one staging thread consumes the
+                # batches strictly in order)
+                staged["flow_host"] = np.stack(
+                    [next(self._flo_prefetcher) for _ in idx])
+            else:
+                staged["flow_host"] = self._read_flow(idx, src)
         elif idx == list(range(idx[0], idx[0] + len(idx))):
             # contiguous transitions stage B+1 UNIQUE gray frames (video is
             # a chain); the device slices prevs/currs out of one upload
@@ -215,16 +245,46 @@ class Processor:
         self._stage_host_seconds += time.time() - t0
         return staged
 
+    def _flo_paths(self, idx: Sequence[int], src: FlowSource) -> List[str]:
+        """The ``.flo`` files of a file-backed source for pairs ``idx``, or
+        [] where the dataset keeps its flow in memory or a file is missing."""
+        ds = self.dataset
+        precomputed = src == FlowSource.PRECOMPUTED
+        # in-memory datasets have no .flo directories
+        if not getattr(ds, "flow_path" if precomputed else "gt_of_path", None):
+            return []
+        path_of = ds.get_flow_path if precomputed else ds.get_gt_of_path
+        paths = [path_of(i) for i in idx]
+        return paths if all(paths) else []
+
+    def _close_flo_prefetcher(self) -> None:
+        if self._flo_prefetcher is not None:
+            self._flo_prefetcher.close()
+            self._flo_prefetcher = None
+
+    def _open_flo_prefetcher(self, n_pairs: int, src: FlowSource) -> None:
+        """Arm the native bounded in-order ``.flo`` prefetcher for a
+        file-backed flow source: its threads read ahead of the staging
+        thread across batch boundaries. Without files on disk, or where the
+        native library cannot be built (``native_loader.available`` says so
+        in the log), the batches are read by ``_read_flow``."""
+        # a prior run that stopped mid-sequence: release its reader threads
+        # before re-arming
+        self._close_flo_prefetcher()
+        if src not in (FlowSource.PRECOMPUTED, FlowSource.GROUND_TRUTH):
+            return
+        paths = self._flo_paths(range(n_pairs), src)
+        if paths and native_loader.available():
+            self._flo_prefetcher = native_loader.FloPrefetcher(
+                paths, depth=max(2 * self.batch_size, 4), n_threads=2)
+
     def _read_flow(self, idx: List[int], src: FlowSource) -> np.ndarray:
         """Host flow (n, h, w, 2) of a file-backed source: the measured
         ``.flo`` files (PRECOMPUTED) or the ground-truth ones."""
         ds = self.dataset
         precomputed = src == FlowSource.PRECOMPUTED
-        # in-memory datasets have no .flo directories
-        on_disk = getattr(ds, "flow_path" if precomputed else "gt_of_path", None)
-        path_of = ds.get_flow_path if precomputed else ds.get_gt_of_path
-        paths = [path_of(i) for i in idx] if on_disk else []
-        if paths and all(paths):
+        paths = self._flo_paths(idx, src)
+        if paths:
             return read_flow_batch(paths)
         getter = ds.get_flow_uv if precomputed else ds.get_gt_of
         return np.stack([np.asarray(getter(i), np.float32) for i in idx])
@@ -254,10 +314,7 @@ class Processor:
         if "flow_host" in staged:
             return self._to_dev(staged["flow_host"])
         if "grays_dev" in staged:
-            grays, event, _host = staged["grays_dev"]
-            main = torch.cuda.current_stream(self.device)
-            main.wait_event(event)
-            grays.record_stream(main)
+            grays = self._await_upload(staged["grays_dev"])
         elif "grays" in staged:
             grays = self._to_dev(staged["grays"])
         else:
@@ -412,13 +469,148 @@ class Processor:
                 imwrite(os.path.join(out_dir, f"image_{i:05d}.png"),
                         np.vstack([top, bottom]))
 
+    def _frame_result(self, i: int, row: np.ndarray, gt_foe) -> FrameResult:
+        """The FrameResult of pair ``i`` from its row of packed scalars
+        (``pack_frame_scalars``'s columns)."""
+        return FrameResult(
+            time=float(self.dataset.get_time(i)),
+            tpr=float(row[2]), fpr=float(row[3]),
+            tpr_fixed=float(row[4]), fpr_fixed=float(row[5]),
+            sky_tpr=float(row[6]), sky_fpr=float(row[7]),
+            drone_size_pixels=float(row[8]),
+            drone_flow_pixels=(float(row[9]), float(row[10])),
+            foe_dense=(float(row[0]), float(row[1])),
+            foe_gt=tuple(float(v) for v in gt_foe),
+            center_phi=float(row[11]),
+        )
+
+    def _sequence_inputs(self) -> Dict[str, np.ndarray]:
+        """Frame-indexed host inputs of the scan engine: element t describes
+        transition (t-1, t), with the aux arrays of the pair's FIRST frame
+        (the batch engine's (i, i+1) convention at t = i + 1); element 0 is
+        filler."""
+        ds = self.dataset
+        T = ds.N
+        h, w = ds.capture_shape[:2]
+        inputs = {
+            "frames": np.stack([self._gray(ds.get_frame(i)) for i in range(T)]),
+            "omegas": np.zeros((T, 3), np.float32),
+            "dts": np.ones((T,), np.float32),
+            "segs": np.zeros((T, h, w), np.uint8),
+            "skys": np.zeros((T, h, w), bool),
+            "depths": np.ones((T, h, w), np.float32),
+            "gt_foes": np.zeros((T, 2), np.float32),
+        }
+        for t in range(1, T):
+            i = t - 1
+            dt = float(ds.get_delta_time(i + 1)) or 1.0
+            inputs["omegas"][t] = np.asarray(
+                ds.get_angular_difference(i, i + 1), np.float32) / dt
+            inputs["dts"][t] = dt
+            seg = np.asarray(ds.get_segmentation(i))
+            inputs["segs"][t] = seg[..., 0] if seg.ndim == 3 else seg
+            inputs["skys"][t] = np.asarray(ds.get_sky_segmentation(i), bool)
+            depth = ds.get_depth(i)
+            if depth is not None:
+                inputs["depths"][t] = np.asarray(depth, np.float32)
+            gt_foe = ds.get_gt_foe(i)
+            inputs["gt_foes"][t] = (np.asarray(gt_foe, np.float32)
+                                    if gt_foe is not None else np.nan)
+        return inputs
+
+    def run_detection_foe_scan(self, sample_yx=None, sparse_perm=None
+                               ) -> Dict[int, FrameResult]:
+        """Temporal frame engine (``--engine scan``): one pinned upload of
+        the sequence, ``detect_sequence_scan`` over its transitions (the
+        Farneback solver with the processor's flow parameters, then the
+        fused detection step, with the flow history carried), one pull of
+        the packed (T-1, 12) scalars. FrameResult JSON keeps the batch
+        engine's schema; no debug images are produced in this mode. Flow is
+        always computed on the device, so file and net flow sources cannot
+        ride this engine.
+
+        ``sample_yx`` (T-1, 2N, 2) and, with ``use_sparse_of``,
+        ``sparse_perm`` (T-1, 256): the explicit draws of
+        ``detect_sequence_scan``, in place of its seeded generator."""
+        engine = self.config.engine
+        src = self.config.flow_source
+        if src in (FlowSource.RAFT, FlowSource.LUCAS_KANADE):
+            raise ValueError(
+                f"--engine {engine} computes Farneback flow inside the scan "
+                f"body; --flow-source {src.name} is not supported there: use "
+                "the batch engine")
+        if src != FlowSource.FARNEBACK:
+            self.logger.warning(
+                f"--engine {engine}: flow-source {src.name} ignored: the scan "
+                "engine computes Farneback flow on device")
+        if engine == "chunked":
+            # time chunks over a device mesh: there is none on one device
+            raise ValueError("--engine chunked requires --devices > 1")
+
+        ds = self.dataset
+        T = ds.N
+        with self.tracer.stage("stage"):
+            inputs = self._sequence_inputs()
+            if self._copy_stream is not None:
+                # every copy is enqueued before the first is waited for; the
+                # pinned buffers live in ``uploads`` until the run returns
+                uploads = {k: self._upload(v) for k, v in inputs.items()}
+                dev_in = {k: self._await_upload(u) for k, u in uploads.items()}
+            else:
+                dev_in = {k: torch.from_numpy(v) for k, v in inputs.items()}
+            if sample_yx is not None:
+                sample_yx = self._to_dev(np.asarray(sample_yx))
+            if sparse_perm is not None:
+                sparse_perm = self._to_dev(np.asarray(sparse_perm))
+
+        with self.tracer.stage("scan"):
+            out = detect_sequence_scan(
+                dev_in["frames"], dev_in["omegas"], dev_in["dts"],
+                dev_in["segs"], dev_in["skys"], dev_in["depths"],
+                dev_in["gt_foes"], sample_yx=sample_yx,
+                params=self._farneback, config=self._detection_step(),
+                track_sparse=self.config.use_sparse_of,
+                sparse_perm=sparse_perm)
+
+        with self.tracer.stage("materialize"):
+            packed = pack_frame_scalars(out[0]).cpu().numpy()
+            foe_sparse = (out[2].cpu().numpy() if self.config.use_sparse_of
+                          else None)
+
+        with self.tracer.stage("artifacts"):
+            results_dir = ds.results_path if ds.seq_path else ""
+            if results_dir:
+                create_if_not_exists(results_dir)
+            if foe_sparse is not None:
+                # FrameResult has no sparse-FoE field: the JSON schema stays
+                # and the trace-based FoE goes into a sidecar
+                if results_dir:
+                    np.save(os.path.join(results_dir, "foe_sparse.npy"),
+                            foe_sparse)
+                self.logger.info(f"sparse FoE (LK traces): median "
+                                 f"{np.nanmedian(foe_sparse, axis=0)}")
+            for t in range(1, T):       # transition (t-1, t) -> result i
+                i = t - 1
+                fr = self._frame_result(i, packed[i], inputs["gt_foes"][t])
+                self.detection_results[i] = fr
+                self.config.results[i] = fr
+                if results_dir:
+                    with open(os.path.join(results_dir,
+                                           f"image_{i:05d}.json"), "w") as f:
+                        f.write(fr.to_json())
+        self.logger.info("stage timing:\n" + self.tracer.summary())
+        return self.detection_results
+
     def run_detection_foe(self, sample_yx: Optional[Sequence] = None
                           ) -> Dict[int, FrameResult]:
         """Run the FoE detection loop over the dataset.
 
         ``sample_yx``: optional per-batch FoE sample indices, one
         (B_padded, 2N, 2) (y, x) array per batch, in place of the draw from
-        the run's generator (seeded once per run with ``SAMPLE_SEED``)."""
+        the run's generator (seeded once per run with ``SAMPLE_SEED``). On
+        the scan engine: one (T-1, 2N, 2) array for the whole sequence."""
+        if self.config.engine in ("scan", "chunked"):
+            return self.run_detection_foe_scan(sample_yx=sample_yx)
         ds = self.dataset
         n_pairs = ds.N - 1
         h, w = ds.capture_shape[:2]
@@ -441,6 +633,7 @@ class Processor:
 
         t_start = time.time()
         self._stage_host_seconds = 0.0
+        self._open_flo_prefetcher(n_pairs, src)
         batches = [list(range(b0, min(b0 + self.batch_size, n_pairs)))
                    for b0 in range(0, n_pairs, self.batch_size)]
         # double buffering: batch k+1 stages on a background thread while
@@ -502,18 +695,7 @@ class Processor:
                 with self.tracer.stage("artifacts"):
                     gt_foes = staged["gt_foes"]
                     for j, i in enumerate(idx):
-                        row = packed[j]
-                        fr = FrameResult(
-                            time=float(ds.get_time(i)),
-                            tpr=float(row[2]), fpr=float(row[3]),
-                            tpr_fixed=float(row[4]), fpr_fixed=float(row[5]),
-                            sky_tpr=float(row[6]), sky_fpr=float(row[7]),
-                            drone_size_pixels=float(row[8]),
-                            drone_flow_pixels=(float(row[9]), float(row[10])),
-                            foe_dense=(float(row[0]), float(row[1])),
-                            foe_gt=tuple(float(v) for v in gt_foes[j]),
-                            center_phi=float(row[11]),
-                        )
+                        fr = self._frame_result(i, packed[j], gt_foes[j])
                         self.detection_results[i] = fr
                         self.config.results[i] = fr
                         name = f"image_{i:05d}"
@@ -531,7 +713,10 @@ class Processor:
                         f"{done / n_pairs * 100:.1f}% {done}/{n_pairs} "
                         f"({done / max(time.time() - t_start, 1e-9):.1f} fps)")
         finally:
+            # also on an error mid-run: neither the stager thread nor the
+            # prefetcher's reader threads outlive it
             executor.shutdown(wait=True, cancel_futures=True)
+            self._close_flo_prefetcher()
         wall = time.time() - t_start
         if wall > 0:
             self.logger.info(
@@ -622,4 +807,5 @@ class Processor:
         np.savez_compressed(out_path, frames=frames)
 
     def release(self) -> None:
+        self._close_flo_prefetcher()
         self.dataset.release()

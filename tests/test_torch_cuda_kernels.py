@@ -85,3 +85,50 @@ def test_flow_on_card_matches_cpu(dev):
     cpu = tf.farneback_flow_batch(prev, curr, device="cpu").numpy()
     # same ops; only the matmuls' sum order differs between cuBLAS and CPU
     np.testing.assert_allclose(card, cpu, atol=1e-3)
+
+
+@pytest.mark.parametrize("h,w,S", [(480, 752, 8), (240, 376, 8), (120, 188, 8),
+                                   (240, 320, 8), (1024, 1920, 16)])
+def test_one_frame_pair_per_launch_bit_exact(dev, h, w, S):
+    """b = 1, the scan engine's and entry()'s shape, at every layer of the
+    752x480 pyramid, at 240x320 and at 1920x1024."""
+    R0, R1, flow, border = _inputs(dev, 1, h, w)
+    out = torch.empty_like(flow)
+    ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, S)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ti.box_solve_ref(
+        ti.update_matrices_ref(R0, R1, flow, border, S), 12))
+
+
+def test_dense_scan_never_synchronises(dev):
+    """The dense scan loop with every synchronisation an error: 13 launches
+    per transition, results equal to the CPU's within the flow's 1e-3 px."""
+    from mav_detection_tpu_torch.pipeline.detector import DetectionStep
+    from mav_detection_tpu_torch.pipeline.temporal import detect_sequence_scan
+
+    rng = np.random.default_rng(0)
+    T, h, w, n = 4, 96, 128, 64
+    frames = (rng.random((T, h, w)) * 255).astype(np.uint8)
+    host = (frames, np.zeros((T, 3), np.float32), np.ones(T, np.float32),
+            np.zeros((T, h, w), np.uint8), np.zeros((T, h, w), bool),
+            np.ones((T, h, w), np.float32), np.full((T, 2), 50.0, np.float32))
+    syx = np.stack([rng.integers(0, h, (T - 1, 2 * n)),
+                    rng.integers(0, w, (T - 1, 2 * n))], -1)
+    kw = dict(params=tf.tuned_flow_params(h, w), config=DetectionStep(foe_samples=n))
+    args = [torch.as_tensor(a).to(dev) for a in host]
+    syx_d = torch.as_tensor(syx).to(dev)
+    detect_sequence_scan(*args, sample_yx=syx_d, **kw)      # fills the caches
+    torch.cuda.synchronize()
+    ti.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, hist = detect_sequence_scan(*args, sample_yx=syx_d, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert ti.LAUNCHES["farneback_iterate_fused"] == 13 * (T - 1)
+    cpu, cpu_hist = detect_sequence_scan(*(torch.as_tensor(a) for a in host),
+                                         sample_yx=torch.as_tensor(syx), **kw)
+    np.testing.assert_allclose(hist.buffer.cpu().numpy(), cpu_hist.buffer.numpy(),
+                               atol=1e-3)
+    assert out.foe.shape == (T - 1, 2) and bool(torch.isfinite(out.foe).all())

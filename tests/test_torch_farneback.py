@@ -113,11 +113,16 @@ class TestConvert:
         jp = jf.FarnebackParams(warp="separable", levels=2, max_shift=8)
         tp = convert.farneback_params_from_reference(dataclasses.asdict(jp))
         assert (tp.levels, tp.max_shift, tp.iterations) == (2, 8, 10)
+        assert tp.warp == "separable" and not tp.fast
 
-    @pytest.mark.parametrize("kw", [dict(warp="gather"), dict(warp="auto"),
-                                    dict(warp="separable", fast=True),
+    @pytest.mark.parametrize("kw", [dict(warp="gather", precision="default"),
+                                    dict(warp="auto", precision="default"),
+                                    dict(warp="separable", fast=True,
+                                         precision="default"),
                                     dict(warp="pallas", precision="default")])
     def test_unported_configurations_raise(self, kw):
+        """Reduced matmul precision is the one configuration not ported
+        (every warp and the fast schedule are: tests/test_torch_solvers.py)."""
         with pytest.raises(NotImplementedError):
             convert.farneback_params_from_reference(
                 dataclasses.asdict(jf.FarnebackParams(**kw)))
@@ -246,7 +251,7 @@ def _chain_update_matrices(R0, R1, flow, border, S):
     form: sums over every shift s in [-S, S+1] of where-selected weights
     times shifted edge-padded planes."""
     b, _, H, W = R0.shape
-    fx, fy, sx, sy = ti._warp_coords(flow, S)
+    fx, fy, sx, sy = ti._warp_coords(flow, S)[:4]
     sx, sy = sx.float(), sy.float()
     pad = S + 1
     R1p = torch.nn.functional.pad(R1, (0, 0, pad, pad), mode="replicate")

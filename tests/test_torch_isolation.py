@@ -19,7 +19,8 @@ _FORBIDDEN = re.compile(
     re.MULTILINE)
 
 
-# the modules of the single-card Processor surface beyond the FoE loop
+# the modules of the single-card Processor surface beyond the FoE loop, the
+# scan engine, the native runtime and the entry point
 NEW_MODULES = [
     "mav_detection_tpu_torch.ops.image.visualize",
     "mav_detection_tpu_torch.ops.image.resize",
@@ -30,6 +31,9 @@ NEW_MODULES = [
     "mav_detection_tpu_torch.ops.geometry.kmeans",
     "mav_detection_tpu_torch.ops.geometry.boxsearch",
     "mav_detection_tpu_torch.ops.flow.lucas_kanade",
+    "mav_detection_tpu_torch.pipeline.temporal",
+    "mav_detection_tpu_torch.runtime.native_loader",
+    "mav_detection_tpu_torch.entry",
 ]
 
 
@@ -159,6 +163,11 @@ def test_new_entry_points_raise_without_card():
     from mav_detection_tpu_torch.cli.main import main
 
     for argv in (["--algorithm", "HOMOGRAPHY", "--flow-source", "FARNEBACK"],
-                 ["--flow-source", "LUCAS_KANADE"]):
+                 ["--flow-source", "LUCAS_KANADE"],
+                 ["--flow-source", "FARNEBACK", "--engine", "scan"]):
         with pytest.raises(RuntimeError, match="cuda"):
             main(["--dataset", "synthetic", "--headless", *argv])
+    from mav_detection_tpu_torch.entry import entry
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        entry()

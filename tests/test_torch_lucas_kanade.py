@@ -13,6 +13,10 @@ from mav_detection_tpu_torch import convert
 from mav_detection_tpu_torch.ops.flow import farneback as tfb
 from mav_detection_tpu_torch.ops.flow import lucas_kanade as tl
 
+# Tiny shapes: one intra-op thread, so that test workers running side by side
+# do not oversubscribe the cores (thousands of small ops, each a thread barrier).
+torch.set_num_threads(1)
+
 H, W = 96, 128
 
 

@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -30,6 +31,10 @@ from mav_detection_tpu_torch.core.frame_result import FrameResult
 from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
 from mav_detection_tpu_torch.data.dataset import imread
 from mav_detection_tpu_torch.pipeline.processor import Processor, _edge_pad_batch
+
+# Tiny shapes: one intra-op thread, so that test workers running side by side
+# do not oversubscribe the cores (thousands of small ops, each a thread barrier).
+torch.set_num_threads(1)
 
 SMALL = dict(height=48, width=64, n_frames=6, expansion=0.08, foe=(30.0, 20.0),
              drone_radius=5, drone_start=(10.0, 30.0), drone_velocity=(2.0, 1.0))
@@ -137,11 +142,14 @@ def test_edge_pad_batch():
 
 
 @pytest.mark.parametrize("kw,attr", [
-    (dict(engine="scan"), None), (dict(engine="chunked"), None),
+    (dict(engine="scan", devices=2), None), (dict(engine="chunked", devices=2), None),
     (dict(engine="spatial"), None), (dict(devices=2), None),
     (dict(flow_source="RAFT"), "run_detection_foe"),
     (dict(flow_source="RAFT", algorithm="HOMOGRAPHY"), "run_detection")])
 def test_unported_paths_raise(kw, attr):
+    """The spatial engine and every multi-device run (the chunked engine
+    exists only across devices) raise at construction, the RAFT source when
+    it is asked for flow."""
     kw = dict(kw)
     flow_source = kw.pop("flow_source", "FARNEBACK")
     if attr is None:
@@ -151,6 +159,16 @@ def test_unported_paths_raise(kw, attr):
     proc = port_processor(flow_source, **kw)
     with pytest.raises(NotImplementedError, match="RAFT"):
         getattr(proc, attr)()
+
+
+def test_scan_engine_is_ported_and_chunked_needs_devices():
+    """``engine="scan"`` runs (one FrameResult per transition); ``chunked``
+    on one device raises the reference's ValueError."""
+    res = port_processor("FARNEBACK", engine="scan").run_detection()
+    assert sorted(res) == list(range(N_PAIRS))
+    assert all(np.isfinite(fr.foe_dense).all() for fr in res.values())
+    with pytest.raises(ValueError, match="chunked requires --devices > 1"):
+        port_processor("FARNEBACK", engine="chunked").run_detection()
 
 
 def test_cli_runs_on_cpu(tmp_path, monkeypatch):
@@ -163,7 +181,7 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--dataset", "midgard"], ["--engine", "scan"], ["--validate"],
+    ["--dataset", "midgard"], ["--engine", "spatial"], ["--validate"],
     ["--flow-source", "RAFT"], ["--prepare-dataset"], ["--run-all"],
     ["--engine", "chunked"], ["--data-to-yolo"], ["--undistort"],
     ["--sequence", "x"], ["--devices", "2"]])
@@ -171,6 +189,14 @@ def test_cli_unported_flags_raise(argv):
     base = ["--dataset", "synthetic", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli_main(base + argv)
+
+
+def test_cli_engine_scan_runs_on_cpu(tmp_path, monkeypatch):
+    monkeypatch.setenv("SYNTHETIC_PATH", str(tmp_path))
+    cli_main(["--dataset", "synthetic", "--flow-source", "FARNEBACK", "--engine",
+              "SCAN", "--headless", "--device", "cpu", "--foe-samples", "200"])
+    results = sorted((tmp_path).rglob("results/image_*.json"))
+    assert len(results) == SyntheticParams().n_frames - 1
 
 
 # ------------------------------------------------ flow sources (FoE branch)
