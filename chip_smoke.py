@@ -70,13 +70,28 @@ Phases, each printing one line (plus its seconds):
                numpy reader; ms per file of each reader.
  12. entry   — entry(): fn(*example_args) on the card, finite, the FoE inside
                the image and within 0.5 px of the same call on the CPU.
-Then the kernels JSON line, the nvidia-smi line, and as the last line
+ 13. nets    — the learned nets: both shipped checkpoints read from
+               checkpoints/ by the port's own reader (the RAFT one migrated)
+               and converted, with the time of each; SkyUNet card against
+               CPU at 752x480 and its sky TPR / FPR against the scene's sky
+               band; RAFT card against CPU (fp32 and bf16) at 240x320 and
+               752x480, and its EPE against the analytic GT at 240x320 (8
+               iterations), 752x480 (6) and 1920x1024 (the quarter-scale
+               operating point); Processor.run_detection_foe with
+               FlowSource.RAFT at 752x480 (12 frames, batch 8) and 1920x1024
+               (6 frames, batch 4): frames/s, device ms per batch, idle
+               share, escalation rungs, host looks per batch, every
+               FrameResult finite; then the device ms of each RAFT stage at
+               752x480 b=8 beside its bound.
+Then the nets JSON line, the kernels JSON line, the nvidia-smi line, and as
+the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line and
 exits non-zero; so does a machine without a card, or a directory without
 the package.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -86,9 +101,11 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 non-tensor rate
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 non-tensor rate, dense
+# bf16 tensor rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 # fp32 operations of farneback_iterate_fused, counted from
 # csrc/farneback_iter.cu, per cell of each stage (integer index work not
 # counted): the y stage per A-window cell (coordinate block 20, 5 planes x 3,
@@ -107,6 +124,25 @@ KERNEL_ROWS = {
 }
 SCHEDULE_TOL_PX = 1e-4   # whole schedule; one iteration must be exact
 NAN_WITHOUT_TARGET = ("tpr", "tpr_fixed", "drone_flow_pixels")
+
+# nets phase gates. The JAX package's numbers on the same scipy renders
+# (tests/nets_reference_numbers.py, CPU): RAFT EPE / drone EPE 0.21213 /
+# 0.46367 px at 240x320 (8 iterations, seed 1), 3.41352 / 0.42099 px at
+# 752x480 (6, seed 0), 1.80235 / 1.34495 px at 1920x1024 (quarter scale);
+# SkyUNet TPR 1.0, FPR 0.0 at 752x480. 240x320 and the sky net keep the
+# reference's rails (tests/test_cross_domain.py:53-62); the other two sizes
+# have none there and are gated at the JAX number + 0.1 px.
+RAFT_EPE_GATES = {  # size: (h, w, iters, seed, EPE gate, drone EPE gate)
+    "320x240": (240, 320, 8, 1, 0.40, 2.0),
+    "752x480": (480, 752, 6, 0, 3.41352 + 0.1, 0.42099 + 0.1),
+    "1920x1024": (1024, 1920, None, 0, 1.80235 + 0.1, 1.34495 + 0.1),
+}
+SKY_TPR_MIN, SKY_FPR_MAX = 0.9, 0.05
+# card against the port's CPU: fp32 (TF32 off) and the product bf16 config,
+# whose convolutions round at other points in cuDNN and oneDNN
+RAFT_CARD_CPU_TOL_PX = {"fp32": 0.02, "bf16": 0.5}
+SKY_CARD_CPU_TOL = {"fp32": 1e-3, "bf16": 0.25}     # logits
+SKY_MASK_AGREEMENT = 0.995
 
 
 def say(msg: str) -> None:
@@ -1356,6 +1392,339 @@ def phase_entry(dev) -> dict:
             "ms_per_step": wall_ms(lambda: fn(*args), 5)}
 
 
+def _conv_flops(model, fn):
+    """fp32 and bf16 multiply-adds x2 of every ``models.layers.Conv`` that
+    ``fn()`` runs, counted from the output shapes by forward hooks."""
+    import torch
+
+    from mav_detection_tpu_torch.models.layers import Conv
+
+    flops = {"fp32": 0.0, "bf16": 0.0}
+
+    def hook(mod, args, out):
+        kind = "bf16" if args[1] == torch.bfloat16 else "fp32"
+        flops[kind] += 2.0 * out.numel() * mod.weight.shape[1] * mod.k * mod.k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Conv)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return flops
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: float, flops_fp32: float, flops_bf16: float) -> tuple:
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = (flops_fp32 / FP32_FLOPS_PER_S + flops_bf16 / BF16_FLOPS_PER_S) * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def _device_ms(fn, reps: int = 5) -> tuple:
+    """Device ms per call from a replayed CUDA graph; CUDA events around
+    eager calls where the stage cannot be captured."""
+    import torch
+
+    try:
+        return graph_ms(fn, reps), "cuda graph"
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return time_ms(fn, reps), "events"
+
+
+def _raft_stage_times(dev, frames: np.ndarray) -> list:
+    """Device ms of each RAFT stage of one video batch (len(frames) - 1
+    transitions) in the product config, beside its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from mav_detection_tpu_torch.models import pretrained
+    from mav_detection_tpu_torch.models import raft as tr
+
+    model, cfg = pretrained.load_raft(dev), tr.INFERENCE_CONFIG
+    dt, r = cfg.dtype, cfg.corr_radius
+    rows = []
+    with torch.no_grad():
+        x = tr._images_nchw(frames, dev) / 127.5 - 1.0
+        feats = model.fnet(x, dt)
+        cout = model.cnet(x[:-1], dt)
+        f1, f2 = feats[:-1], feats[1:]
+        b, _, h8, w8 = f1.shape
+        hidden = torch.tanh(cout[:, :cfg.hidden_dim])
+        context = F.relu(cout[:, cfg.hidden_dim:])
+        flow = torch.zeros((b, 2, h8, w8), device=dev)
+        pyr = tr.build_feature_pyramid(f2, cfg.corr_levels)
+        vols = tr.build_local_corr_volumes(f1, pyr, r, cfg.max_flow_lookup)
+        shapes = [tuple(p.shape[-2:]) for p in pyr]
+        corr = tr.lookup_corr_volumes(vols, shapes, flow, r)
+        up = tr.convex_upsample(flow, model.mask_head(
+            F.relu(model.mask_hidden(hidden, dt)).float(), torch.float32))
+        weights = {k: _nbytes(*getattr(model, k).parameters())
+                   for k in ("fnet", "cnet", "update")}
+        mask_w = _nbytes(*model.mask_hidden.parameters(), *model.mask_head.parameters())
+
+        def stage(name, fn, nbytes, extra_fp32=0.0):
+            fl = _conv_flops(model, fn)
+            ms, timer = _device_ms(fn)
+            bound, by = _bound(nbytes, fl["fp32"] + extra_fp32, fl["bf16"])
+            rows.append({"stage": name, "ms": ms, "timer": timer, "bound_ms": bound,
+                         "bound_by": by, "bytes": nbytes,
+                         "gflop_fp32": (fl["fp32"] + extra_fp32) / 1e9,
+                         "gflop_bf16": fl["bf16"] / 1e9})
+
+        stage("fnet", lambda: model.fnet(x, dt),
+              _nbytes(x, feats) + weights["fnet"])
+        stage("cnet", lambda: model.cnet(x[:-1], dt),
+              _nbytes(x[:-1], cout) + weights["cnet"])
+        # the dot products the volumes hold: C multiply-adds per entry
+        vol_flops = sum(2.0 * v.numel() * f1.shape[1] for v in vols)
+        stage("build_local_corr_volumes (with the feature pyramid)",
+              lambda: tr.build_local_corr_volumes(
+                  f1, tr.build_feature_pyramid(f2, cfg.corr_levels), r,
+                  cfg.max_flow_lookup),
+              _nbytes(f1, f2, *vols), vol_flops)
+        stage("refinement step (lookup + update block)",
+              lambda: model.update(hidden, context,
+                                   tr.lookup_corr_volumes(vols, shapes, flow, r),
+                                   flow, dt),
+              _nbytes(*vols, hidden, context, flow, hidden, flow) + weights["update"])
+        stage("mask head + convex_upsample",
+              lambda: tr.convex_upsample(flow, model.mask_head(
+                  F.relu(model.mask_hidden(hidden, dt)).float(), torch.float32)),
+              _nbytes(hidden, flow, up) + mask_w,
+              2.0 * b * 2 * 64 * 9 * h8 * w8)
+    del corr
+    return rows
+
+
+def _raft_loop(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
+    """The product loop on FlowSource.RAFT: a warm-up run, then a measured
+    one with the iterate kernel's counters zeroed, the saturation checks
+    counted and every synchronisation with the host recorded."""
+    import warnings
+
+    import torch
+
+    from mav_detection_tpu_torch.core.config import FlowSource
+    from mav_detection_tpu_torch.models import pretrained
+    from mav_detection_tpu_torch.models import raft as tr
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.ops.image.resize import resize_frames
+    from mav_detection_tpu_torch.pipeline.detector import detect_frame_batch_scalars
+    from mav_detection_tpu_torch.utils.tracing import Tracer
+
+    n_pairs = n_frames - 1
+    n_batches = -(-n_pairs // batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = _synthetic_processor(dev, h, w, n_frames, batch, tmp, flow_source="RAFT")
+        proc.save_images = False
+        proc.run_detection_foe()                               # warm-up
+        torch.cuda.synchronize()
+        proc.tracer = Tracer()
+        proc.detection_results = {}
+        checks = []
+        real_check = tr.check_flow_saturation
+
+        def counted(*a, **k):
+            checks.append(real_check(*a, **k))
+            return checks[-1]
+
+        tr.check_flow_saturation = counted
+        fi.reset_launch_counts()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    t0 = time.perf_counter()
+                    results = proc.run_detection_foe()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        finally:
+            tr.check_flow_saturation = real_check
+        launches = dict(fi.LAUNCHES)
+        syncs = collections.Counter(
+            f"{os.path.relpath(c.filename, os.path.dirname(os.path.abspath(__file__)))}:"
+            f"{c.lineno}" for c in caught if "synchroniz" in str(c.message))
+        if sorted(results) != list(range(n_pairs)):
+            raise AssertionError(f"nets loop {w}x{h}: results for {sorted(results)}")
+        foe_err = _finite_results(f"nets loop {w}x{h}", results, proc.dataset.results_path)
+
+        staged = proc._stage_batch(list(range(batch)), FlowSource.RAFT)
+        flow = proc._flow_from_staged(staged, FlowSource.RAFT)
+        aux = [proc._to_dev(staged[k]) for k in
+               ("gt_flow", "omegas", "dts", "segs", "skys", "depths", "gt_foes")]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step = proc._detection_step()
+        flow_ms = time_ms(lambda: proc._flow_from_staged(staged, FlowSource.RAFT), 5, 1)
+        detect_ms = time_ms(lambda: detect_frame_batch_scalars(
+            flow, *aux, generator=gen, config=step), 5, 1)
+        frames = np.stack([proc.dataset.get_frame(i) for i in range(batch + 1)])
+        # the flow's device time alone: the working-scale resize, the net and
+        # the upsample of one batch from a replayed CUDA graph (the
+        # saturation check's pull cannot be captured)
+        t = tr.tuned_raft_config(h, w)
+        model = pretrained.load_raft(dev)
+        frames_dev = torch.as_tensor(frames).to(dev)
+        hw = (h // t.scale, w // t.scale)
+
+        def flow_only():
+            fr = resize_frames(frames_dev, hw) if t.scale > 1 else frames_dev
+            fl = tr.raft_flow_video(fr, model, t.iters, t.config, dev)
+            return resize_frames(fl, (h, w)) * float(t.scale) if t.scale > 1 else fl
+
+        flow_graph_ms, flow_timer = _device_ms(flow_only, 3)
+    batch_wall_ms = wall * 1e3 / n_batches
+    return {
+        "size": f"{w}x{h}", "frames": n_frames, "batch": batch, "pairs": n_pairs,
+        "wall_s": wall, "frames_per_s": n_pairs / wall,
+        "farneback_launches": launches,
+        "saturation_checks": len(checks), "escalation_rungs": int(sum(checks)),
+        "host_looks_per_batch": sum(syncs.values()) / n_batches,
+        "synchronising_calls": dict(syncs),
+        "median_foe_err_px": float(np.median(foe_err)),
+        "stages_ms": {k: v["total_s"] * 1e3 for k, v in proc.tracer.as_dict().items()},
+        "device_ms_per_batch": {"flow": flow_ms, "detect": detect_ms},
+        "flow_device_ms_per_batch": flow_graph_ms, "flow_device_timer": flow_timer,
+        "wall_ms_per_batch": batch_wall_ms,
+        "device_idle_share": 1.0 - (flow_ms + detect_ms) / batch_wall_ms,
+        "device_idle_share_graph": 1.0 - (flow_graph_ms + detect_ms) / batch_wall_ms,
+        "_frames": frames,
+    }
+
+
+def phase_nets(dev, sky_hw=(480, 752), card_cpu=("320x240", "752x480"),
+               loops=((480, 752, 12, 8), (1024, 1920, 6, 4))) -> dict:
+    import torch
+
+    from mav_detection_tpu_torch import convert
+    from mav_detection_tpu_torch.data.scene import bench_scene, hires_scene_kwargs, make_scene
+    from mav_detection_tpu_torch.models import checkpoint, pretrained
+    from mav_detection_tpu_torch.models import raft as tr
+    from mav_detection_tpu_torch.models import sky_segmentation as ts
+
+    out = {}
+    # ---- load: the shipped files, the port's reader, the migration
+    if os.environ.get("MAV_CHECKPOINT_PATH"):
+        raise AssertionError("nets: MAV_CHECKPOINT_PATH is set; the shipped "
+                             "checkpoints must be read")
+    here = os.path.dirname(os.path.abspath(__file__))
+    load = {}
+    for name in ("raft", "sky"):
+        path = pretrained.checkpoint_path(name)
+        if os.path.dirname(path) != os.path.join(here, "checkpoints") or not os.path.isfile(path):
+            raise AssertionError(f"nets: {name} checkpoint at {path}")
+        t0 = time.perf_counter()
+        raw = checkpoint.load_msgpack(path)
+        t1 = time.perf_counter()
+        if name == "raft":
+            if "Conv_6" not in raw["params"]["refine"]["update"]:
+                raise AssertionError("nets: the shipped RAFT file is not the pre-hoist layout")
+            tree = pretrained._migrate_raft_state(raw)
+            if "Conv_6" in tree["params"]["refine"]["update"] or "mask_hidden" not in tree["params"]:
+                raise AssertionError("nets: RAFT migration did not move the mask head")
+            sd = convert.raft_state_dict_from_flax(tree)
+        else:
+            sd = convert.sky_state_dict_from_flax(raw)
+        t2 = time.perf_counter()
+        load[name] = {"path": os.path.relpath(path, here), "bytes": os.path.getsize(path),
+                      "read_s": t1 - t0, "convert_s": t2 - t1, "tensors": len(sd),
+                      "parameters": int(sum(v.numel() for v in sd.values()))}
+    pretrained.clear_cache()
+    models = {d: (pretrained.load_raft(d), pretrained.load_sky(d)) for d in (dev, "cpu")}
+    for d, (m, s) in models.items():
+        if m is None or s is None:
+            raise AssertionError(f"nets: no shipped model on {d}")
+    load["raft"]["migrated"] = True
+    out["load"] = load
+    checks = Checks("nets")
+
+    # ---- SkyUNet, card against CPU, and its sky band rates
+    h, w = sky_hw
+    prev, _, _, _ = bench_scene(0, h, w)
+    frame = np.repeat(prev[..., None], 3, -1)
+    sky = {}
+    for kind, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        card = _np(ts.sky_logits(models[dev][1], torch.as_tensor(frame)[None].to(dev), dtype)[0])
+        cpu = _np(ts.sky_logits(models["cpu"][1], torch.as_tensor(frame)[None], dtype)[0])
+        err = float(np.abs(card - cpu).max())
+        agree = float(((card > 0) == (cpu > 0)).mean())
+        checks.add(f"sky logits {kind} {w}x{h}", err, SKY_CARD_CPU_TOL[kind],
+                   "max |card - cpu|")
+        checks.add(f"sky mask {kind} {w}x{h}", agree, SKY_MASK_AGREEMENT, "agreement",
+                   at_least=True)
+        sky[kind] = {"max_abs_err": err, "mask_agreement": agree}
+    est = _np(ts.sky_mask(models[dev][1], frame, dev))
+    band = np.zeros((h, w), bool)
+    band[:int(0.35 * h)] = True
+    tpr = float((est & band).sum() / band.sum())
+    fpr = float((est & ~band).sum() / (~band).sum())
+    checks.add(f"sky TPR {w}x{h}", tpr, SKY_TPR_MIN, "TPR", at_least=True)
+    checks.add(f"sky FPR {w}x{h}", fpr, SKY_FPR_MAX, "FPR")
+    sky.update({"tpr": tpr, "fpr": fpr,
+                "ms": time_ms(lambda: ts.sky_mask(models[dev][1], frame, dev), 5)})
+    out["sky"] = sky
+
+    # ---- RAFT, card against CPU, then EPE against the analytic GT
+    raft = {}
+    t32 = tr.RAFTConfig(materialize_corr=False, dtype=torch.float32)
+    for size in card_cpu:
+        h, w, iters, seed, _, _ = RAFT_EPE_GATES[size]
+        prev, curr, _, _ = bench_scene(seed, h, w)
+        for kind, cfg in (("fp32", t32), ("bf16", tr.INFERENCE_CONFIG)):
+            card, cpu = (_np(tr.raft_flow(models[d][0], torch.as_tensor(prev)[None].to(d),
+                                          torch.as_tensor(curr)[None].to(d), iters, cfg)[0])
+                         for d in (dev, "cpu"))
+            err = np.abs(card - cpu)
+            checks.add(f"raft flow {kind} {size}", float(err.max()),
+                       RAFT_CARD_CPU_TOL_PX[kind], "max |card - cpu| px")
+            raft[f"{size} {kind} card vs cpu"] = {"max_abs_err_px": float(err.max()),
+                                                  "mean_abs_err_px": float(err.mean())}
+    epe = {}
+    for size, (h, w, iters, seed, gate, drone_gate) in RAFT_EPE_GATES.items():
+        if iters is None:                    # the operating point of large frames
+            kw = hires_scene_kwargs(h, w)
+            prev, curr, gt = make_scene(seed, h=h, w=w, **kw)
+            drone = ((np.arange(w)[None, :] - kw["drone_pos"][0]) ** 2
+                     + (np.arange(h)[:, None] - kw["drone_pos"][1]) ** 2
+                     <= kw["drone_radius"] ** 2)
+            run = lambda: tr.raft_flow_batch_tuned(prev[None], curr[None], device=dev)  # noqa: E731
+        else:
+            prev, curr, gt, drone = bench_scene(seed, h, w)
+            run = lambda: tr.raft_flow_batch(prev[None], curr[None], iters=iters,  # noqa: E731
+                                             device=dev)
+        flow = _np(run()[0])
+        err = np.linalg.norm(flow - gt, axis=-1)
+        e_int = float(err[16:-16, 16:-16].mean())
+        e_drone = float(err[drone].mean())
+        checks.add(f"raft EPE {size}", e_int, gate, "EPE vs GT px")
+        checks.add(f"raft drone EPE {size}", e_drone, drone_gate, "drone EPE px")
+        epe[size] = {"epe_px": e_int, "drone_epe_px": e_drone, "gate_px": gate,
+                     "drone_gate_px": drone_gate, "iters": iters or "tuned",
+                     "ms_per_pair": time_ms(run, 3, 1)}
+    raft["epe"] = epe
+    out["raft"] = raft
+
+    # ---- the product loop, then the stage times at 752x480 b=8
+    loops = [_raft_loop(dev, *size) for size in loops]
+    frames = loops[0]["_frames"]
+    for lp in loops:
+        lp.pop("_frames")
+        if any(lp["farneback_launches"].values()):
+            raise AssertionError(f"nets loop: Farneback launched on RAFT flow {lp}")
+    out["loops"] = loops
+    out["stages"] = _raft_stage_times(dev, frames)
+    out["checks"] = checks.finish()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1515,6 +1884,38 @@ def main() -> int:
     times["entry"] = time.perf_counter() - t0
     say(f"[entry] entry() at 240x320 on {smi}: {json.dumps(ent)} "
         f"({times['entry']:.1f} s)")
+
+    t0 = time.perf_counter()
+    nets = phase_nets(dev)
+    times["nets"] = time.perf_counter() - t0
+    for net, ld in nets["load"].items():
+        say(f"[nets] {net}: {ld['path']} ({ld['bytes']} bytes) read by the port's "
+            f"msgpack reader in {ld['read_s']:.3f} s, converted in "
+            f"{ld['convert_s']:.3f} s: {ld['tensors']} tensors, "
+            f"{ld['parameters']} parameters{', migrated' if ld.get('migrated') else ''}")
+    say(f"[nets] SkyUNet 752x480 on {smi}: {json.dumps(nets['sky'])}")
+    for k, v in nets["raft"].items():
+        say(f"[nets] RAFT {k} on {smi}: {json.dumps(v)}")
+    for lp in nets["loops"]:
+        say(f"[nets] RAFT loop {lp['size']} {lp['pairs']} pairs batch {lp['batch']}: "
+            f"{lp['frames_per_s']:.2f} frames/s on {smi}, device ms per batch "
+            f"{json.dumps(lp['device_ms_per_batch'])} (events; the flow alone "
+            f"{lp['flow_device_ms_per_batch']:.3f} ms, {lp['flow_device_timer']}) of "
+            f"{lp['wall_ms_per_batch']:.3f} ms wall (device idle share "
+            f"{lp['device_idle_share']:.3f}, {lp['device_idle_share_graph']:.3f} with "
+            f"the graph's flow), escalation rungs {lp['escalation_rungs']} of "
+            f"{lp['saturation_checks']} checks, host looks per batch "
+            f"{lp['host_looks_per_batch']:.2f} {json.dumps(lp['synchronising_calls'])}, "
+            f"median FoE err "
+            f"{lp['median_foe_err_px']:.3f} px, stages ms {json.dumps(lp['stages_ms'])}, "
+            f"farneback launches {lp['farneback_launches']}")
+    for st in nets["stages"]:
+        say(f"[nets] RAFT stage 752x480 b=8 {st['stage']}: {st['ms']:.4f} ms "
+            f"({st['timer']}), bound {st['bound_ms']:.4f} ms ({st['bound_by']}: "
+            f"{st['bytes']} bytes, {st['gflop_fp32']:.3f} GFLOP fp32, "
+            f"{st['gflop_bf16']:.3f} GFLOP bf16), share of bound "
+            f"{st['bound_ms'] / st['ms']:.3f} on {smi}")
+    say(f"[nets] {nets['checks']} checks within tolerance ({times['nets']:.1f} s)")
     say(f"[phases] seconds {json.dumps(times)}")
 
     k = "farneback_iterate_fused"
@@ -1573,6 +1974,13 @@ def main() -> int:
                                      ("ms_per_batch", "bound_ms_per_batch",
                                       "plain_ms_per_batch")}},
     })
+    say(json.dumps({"nets": {k: nets[k] for k in ("load", "sky", "raft", "stages")},
+                    "nets_loops": [{k: lp[k] for k in (
+                        "size", "frames_per_s", "device_ms_per_batch",
+                        "flow_device_ms_per_batch", "wall_ms_per_batch",
+                        "device_idle_share", "device_idle_share_graph",
+                        "escalation_rungs", "host_looks_per_batch",
+                        "median_foe_err_px")} for lp in nets["loops"]]}))
     say(json.dumps({"kernels": rows,
                     "main_path": [{k: r[k] for k in (
                         "size", "frames_per_s", "median_foe_err_px",
@@ -1584,7 +1992,8 @@ def main() -> int:
                         for tag, r in scan.items() if "device_idle_share" in r}}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

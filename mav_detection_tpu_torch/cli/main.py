@@ -13,6 +13,8 @@ Usage:
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --flow-source LUCAS_KANADE --headless
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
+        --flow-source RAFT --headless
+    python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --algorithm HOMOGRAPHY --flow-source FARNEBACK [--use-sparse-of] \
         --headless
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
@@ -35,7 +37,8 @@ from mav_detection_tpu_torch.pipeline.processor import Processor
 # flags the port runs, and the values it accepts where it restricts them
 PORTED = {
     "dataset": {"synthetic"},
-    "flow_source": {"FARNEBACK", "PRECOMPUTED", "LUCAS_KANADE", "GROUND_TRUTH"},
+    "flow_source": {"FARNEBACK", "PRECOMPUTED", "LUCAS_KANADE", "GROUND_TRUTH",
+                    "RAFT"},
     "engine": {"BATCH", "SCAN"},
     "mode": None,
     "algorithm": None,
@@ -72,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="ego-motion algorithm, see core.config.Algorithm")
     parser.add_argument("--flow-source", type=str, default="PRECOMPUTED",
                         help="dense flow source (ported: FARNEBACK|PRECOMPUTED|"
-                             "LUCAS_KANADE|GROUND_TRUTH)")
+                             "LUCAS_KANADE|GROUND_TRUTH|RAFT)")
     parser.add_argument("--batch-size", type=int, default=8,
                         help="frame pairs per device batch")
     parser.add_argument("--devices", type=int, default=0,

@@ -9,12 +9,19 @@ configures both packages. The carried state of the sparse path (the trace
 ring, the flow history, the feature pool, corners and tracks) crosses as
 dicts of numpy arrays (``{k: np.asarray(v) for k, v in state._asdict()
 .items()}`` on the reference's side, ``state_to_numpy`` on the port's).
-Checkpoint conversion for RAFT, SkyUNet and YOLO comes when those nets are
-ported.
+
+The learned nets' weights cross as the raw Flax param tree (nested dicts of
+numpy arrays: what ``models/checkpoint.py`` reads, and what
+``flax.serialization.msgpack_restore`` returns): ``raft_state_dict_from_flax``
+and ``sky_state_dict_from_flax`` give each model's ``state_dict``. Conv
+``kernel`` HWIO becomes ``weight`` OIHW, GroupNorm ``scale`` becomes
+``weight``, and Flax's automatic names map to the port's module names by the
+tables below. A key left over on either side raises. TinyYOLO's weights come
+with its slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple, Union
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -110,3 +117,101 @@ def track_result_from_reference(d: Mapping[str, Any],
     return TrackResult(points=_tensor(d, "points", torch.float32, device),
                        status=_tensor(d, "status", torch.bool, device),
                        error=_tensor(d, "error", torch.float32, device))
+
+
+# ------------------------------------------------- Flax weights of the nets
+# Flax module name -> (port module name, table of its children); a child
+# table of None means the module holds the leaves (kernel/bias/scale)
+_RESIDUAL = {"Conv_0": ("conv1", None), "GroupNorm_0": ("norm1", None),
+             "Conv_1": ("conv2", None), "GroupNorm_1": ("norm2", None),
+             "Conv_2": ("down", None)}
+_ENCODER = {"Conv_0": ("stem", None), "GroupNorm_0": ("stem_norm", None),
+            "ResidualBlock_0": ("layer1", _RESIDUAL),
+            "ResidualBlock_1": ("layer2", _RESIDUAL),
+            "ResidualBlock_2": ("layer3", _RESIDUAL),
+            "Conv_1": ("out", None)}
+_GRU = {"Conv_0": ("convz", None), "Conv_1": ("convr", None),
+        "Conv_2": ("convq", None)}
+_UPDATE = {"Conv_0": ("corr1", None), "Conv_1": ("corr2", None),
+           "Conv_2": ("flow1", None), "Conv_3": ("flow2", None),
+           "Conv_4": ("motion", None), "ConvGRU_0": ("gru", _GRU),
+           "Conv_5": ("flow_hidden", None), "flow_head": ("flow_head", None)}
+RAFT_TABLE = {"fnet": ("fnet", _ENCODER), "cnet": ("cnet", _ENCODER),
+              # the nn.scan'd refinement step holds the update block
+              "refine": ("", {"update": ("update", _UPDATE)}),
+              "mask_hidden": ("mask_hidden", None),
+              "mask_head": ("mask_head", None)}
+
+_BLOCK = {"Conv_0": ("conv1", None), "GroupNorm_0": ("norm1", None),
+          "Conv_1": ("conv2", None), "GroupNorm_1": ("norm2", None)}
+SKY_TABLE = {"ConvBlock_0": ("down1", _BLOCK), "ConvBlock_1": ("down2", _BLOCK),
+             "ConvBlock_2": ("down3", _BLOCK), "ConvBlock_3": ("bottom", _BLOCK),
+             "ConvBlock_4": ("up3", _BLOCK), "ConvBlock_5": ("up2", _BLOCK),
+             "ConvBlock_6": ("up1", _BLOCK), "Conv_0": ("head", None)}
+
+
+def _leaf(name: str, arr: np.ndarray) -> "tuple[str, torch.Tensor]":
+    arr = np.asarray(arr, np.float32)
+    if name == "kernel":                       # HWIO -> OIHW
+        return "weight", torch.from_numpy(arr.transpose(3, 2, 0, 1).copy())
+    if name == "scale":
+        return "weight", torch.from_numpy(arr.copy())
+    if name == "bias":
+        return "bias", torch.from_numpy(arr.copy())
+    raise KeyError(name)
+
+
+def _map_tree(tree: Mapping[str, Any], table: Optional[dict], prefix: str,
+              path: str, out: Dict[str, torch.Tensor]) -> None:
+    for key, sub in tree.items():
+        where = f"{path}/{key}"
+        if table is None:
+            try:
+                name, tensor = _leaf(key, sub)
+            except KeyError:
+                raise ValueError(f"unexpected Flax leaf {where}") from None
+            out[prefix + name] = tensor
+            continue
+        if key not in table:
+            raise ValueError(f"Flax module {where} has no counterpart in the port")
+        port, children = table[key]
+        _map_tree(sub, children, prefix + (port + "." if port else ""), where, out)
+
+
+def _state_dict_from_flax(tree: Mapping[str, Any], table: dict,
+                          model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    params = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+    _map_tree(params, table, "", "params", out)
+    expected = model.state_dict()
+    missing = sorted(set(expected) - set(out))
+    extra = sorted(set(out) - set(expected))
+    if missing or extra:
+        raise ValueError(f"weights do not match the port's model: missing "
+                         f"{missing}, left over {extra}")
+    for k, v in out.items():
+        if tuple(v.shape) != tuple(expected[k].shape):
+            raise ValueError(f"{k}: Flax shape {tuple(v.shape)}, port "
+                             f"{tuple(expected[k].shape)}")
+    return out
+
+
+def raft_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``models.raft.RAFT`` state_dict of a RAFT param tree in the
+    post-hoist layout (``pretrained._migrate_raft_state`` moves older
+    checkpoints there)."""
+    from mav_detection_tpu_torch.models.raft import RAFT
+
+    with torch.device("meta"):
+        model = RAFT()
+    return _state_dict_from_flax(tree, RAFT_TABLE, model)
+
+
+def sky_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``models.sky_segmentation.SkyUNet`` state_dict of a SkyUNet
+    param tree."""
+    from mav_detection_tpu_torch.models.sky_segmentation import SkyUNet
+
+    with torch.device("meta"):
+        model = SkyUNet()
+    return _state_dict_from_flax(tree, SKY_TABLE, model)

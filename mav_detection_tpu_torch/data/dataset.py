@@ -8,11 +8,12 @@ Same directory layout and accessor surface as
         depths/image_%05d.pfm        optical-flow/image_%05d.flo   (GT flow)
         annotation/image_%05d.txt    results/image_%05d.json
 
-Not ported yet (each raises rather than degrading silently): recovering
-frames from ``recording.mp4`` (``data/preprocessing.py``) and SkyUNet
-inference for sequences without precomputed sky masks
-(``models/sky_segmentation.py``). Images are 8-bit PNGs, written and read by
-this module's own codec on ``zlib`` and ``struct`` (no imageio, no OpenCV).
+Sky masks come from precomputed HRNet outputs where present, else from the
+SkyUNet (``models/sky_segmentation.py``) on ``Dataset.device``, cached back as
+HRNet-layout PNGs. Not ported yet (it raises rather than degrading
+silently): recovering frames from ``recording.mp4``
+(``data/preprocessing.py``). Images are 8-bit PNGs, written and read by this
+module's own codec on ``zlib`` and ``struct`` (no imageio, no OpenCV).
 """
 from __future__ import annotations
 
@@ -21,12 +22,14 @@ import logging
 import os
 import struct
 import zlib
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from mav_detection_tpu_torch.core.flo import read_flow
 from mav_detection_tpu_torch.core.rectangle import Rectangle, parse_yolo_annotation
+from mav_detection_tpu_torch.utils.device import resolve_device
 
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -198,7 +201,12 @@ def _resize_nearest(img: np.ndarray, w: int, h: int) -> np.ndarray:
 
 
 class Dataset:
-    """Filesystem-backed sequence with the upstream accessor surface."""
+    """Filesystem-backed sequence with the upstream accessor surface.
+
+    ``device`` is where the SkyUNet runs for frames without a precomputed
+    sky mask (the card unless set otherwise; the Processor sets its own)."""
+
+    device: Union[str, torch.device] = "cuda"
 
     def __init__(self, base_path: str, logger: Optional[logging.Logger],
                  sequence: str, img_dir: str = "/images", seq_dir: str = "") -> None:
@@ -280,16 +288,36 @@ class Dataset:
 
     def get_sky_segmentation(self, i: int) -> np.ndarray:
         """HRNet-layout sky mask: prediction PNG where sky = (180, 130, *)
-        RGB. Sequences without one need SkyUNet inference, not ported yet."""
+        RGB. Without one the SkyUNet runs on ``self.device`` and its mask is
+        written back as an HRNet-layout PNG, so that reruns read it; without
+        a SkyUNet checkpoint the mask is all false."""
         path = f"{self.hrnet_out}/image_{i:05d}_prediction.png"
         if not os.path.exists(path):
-            raise NotImplementedError(
-                f"no precomputed sky mask at {path}: SkyUNet inference "
-                "(models/sky_segmentation.py) is not ported yet")
+            mask = self._infer_sky_segmentation(i)
+            if mask is None:
+                return np.zeros(self.capture_shape[:2], bool)
+            if self.hrnet_out:
+                create_if_not_exists(self.hrnet_out)
+                vis = np.zeros(mask.shape + (3,), np.uint8)
+                vis[mask] = (0, 130, 180)  # BGR for imwrite -> RGB (180,130,0)
+                imwrite(path, vis)
+            return mask
         w, h = self.capture_size
         img = _resize_nearest(imread(path), w, h)
         # imread returns BGR; HRNet sky color is RGB (180, 130, ...)
         return (img[..., 2] == 180) & (img[..., 1] == 130)
+
+    def _infer_sky_segmentation(self, i: int) -> Optional[np.ndarray]:
+        """SkyUNet mask of frame ``i`` from the card (one pull per frame), or
+        None without a checkpoint."""
+        from mav_detection_tpu_torch.models import pretrained
+        from mav_detection_tpu_torch.models.sky_segmentation import sky_mask
+
+        dev = resolve_device(self.device)
+        model = pretrained.load_sky(dev)
+        if model is None:
+            return None
+        return sky_mask(model, self.get_frame(i), dev).cpu().numpy()
 
     def get_depth(self, i: int) -> Optional[np.ndarray]:
         path = f"{self.depth_path}/image_{i:05d}.pfm"

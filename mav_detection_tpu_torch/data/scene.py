@@ -94,3 +94,21 @@ def epe_interior(flow: np.ndarray, gt: np.ndarray, crop: int = 16) -> float:
     """Mean end-point error on the ``crop``-px interior (bench.py's gate)."""
     err = np.linalg.norm(np.asarray(flow) - gt, axis=-1)
     return float(err[crop:-crop, crop:-crop].mean())
+
+
+def bench_scene(seed: int, h: int, w: int
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The bench scene scaled to (h, w) as the reference's cross-domain
+    evaluation scales it (``tools/cross_domain_eval.py``): FoE, drone
+    position, speed and radius follow the frame size. Returns (prev8, curr8,
+    gt_flow, drone_mask)."""
+    scale = min(h / 480, w / 752)
+    foe = (FOE[0] * w / 752, FOE[1] * h / 480)
+    pos = (170.0 * w / 752, 120.0 * h / 480)
+    radius = max(10.0 * scale, 4.0)
+    prev, curr, gt = make_scene(seed, h=h, w=w, foe=foe, expansion=EXPANSION,
+                                drone_pos=pos, drone_vel=(4.0 * scale, 2.5 * scale),
+                                drone_radius=radius)
+    drone = ((np.arange(w)[None, :] - pos[0]) ** 2
+             + (np.arange(h)[:, None] - pos[1]) ** 2 <= radius ** 2)
+    return prev, curr, gt, drone

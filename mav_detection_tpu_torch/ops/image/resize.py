@@ -14,7 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from mav_detection_tpu_torch.ops.flow.farneback import _device_const
+from mav_detection_tpu_torch.ops.flow.farneback import _device_const, resize_linear_cf
 
 
 def _nearest_index(src: int, dst: int, device: torch.device) -> torch.Tensor:
@@ -42,6 +42,15 @@ def resize(img: torch.Tensor, shape: Tuple[int, int],
     # channels last: contract h, then w, leaving (lh, lw, c)
     y = torch.einsum("ah,hwc->awc", Rv, x)
     return torch.einsum("bw,awc->abc", Rh, y)
+
+
+def resize_frames(frames: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """``resize(..., "linear")`` of every frame of (n, h, w[, c]) at once, in
+    fp32 (``jax.image.resize`` to (n, lh, lw[, c]))."""
+    x = frames.to(torch.float32)
+    if x.ndim == 3:
+        return resize_linear_cf(x, shape)
+    return resize_linear_cf(x.permute(0, 3, 1, 2), shape).permute(0, 2, 3, 1)
 
 
 def resize_percent(img: torch.Tensor, scale_percent: float,

@@ -27,14 +27,16 @@ and no look from the host, and one packed (T-1, 12) block comes back; with
 ``results/foe_sparse.npy``. No debug images in this mode.
 
 Ported: flow sources FARNEBACK, PRECOMPUTED (with its FARNEBACK fallback),
-LUCAS_KANADE and GROUND_TRUTH; staging with pinned-memory uploads of B+1
-unique gray frames per full batch; ``.flo`` files through the native
-in-order prefetcher (numpy where its library cannot be built, said once in
-the log); static-shape tail padding; one scalar pull per batch. Not ported
-yet, each raising rather than skipping: the spatial engine, multi-device
-meshes (and with them the chunked engine, which exists only across
-devices), the RAFT flow source, and the ``cv2.VideoWriter`` mp4 fallback
-(the port has no OpenCV).
+LUCAS_KANADE, GROUND_TRUTH and RAFT (batch engine; ``models/raft.py``
+through its resolution-keyed entry points, with the coverage ladder decided
+on a padded tail's real lanes only); staging with pinned-memory uploads of
+B+1 unique frames per full batch (gray, or for RAFT the frames as they
+come); ``.flo`` files through the native in-order prefetcher (numpy where
+its library cannot be built, said once in the log); static-shape tail
+padding; one scalar pull per batch. Not ported yet, each raising rather than
+skipping: the spatial engine, multi-device meshes (and with them the chunked
+engine, which exists only across devices), and the ``cv2.VideoWriter`` mp4
+fallback (the port has no OpenCV).
 """
 from __future__ import annotations
 
@@ -58,6 +60,10 @@ from mav_detection_tpu_torch.data.dataset import (
     create_if_not_exists,
     imread,
     imwrite,
+)
+from mav_detection_tpu_torch.models.raft import (
+    raft_flow_batch_tuned,
+    raft_flow_video_tuned,
 )
 from mav_detection_tpu_torch.ops.flow.farneback import (
     _farneback_cf,
@@ -133,6 +139,8 @@ class Processor:
                 "multi-device frame batches (parallel/mesh.py) are not "
                 "ported yet; use one device")
         self.dataset = config.get_dataset()
+        # the SkyUNet of frames without a precomputed sky mask runs here too
+        self.dataset.device = self.device
         self.batch_size = max(1, config.batch_size)
         self.detection_results: Dict[int, FrameResult] = {}
         self._stage_host_seconds = 0.0
@@ -157,16 +165,18 @@ class Processor:
         if src == FlowSource.PRECOMPUTED and not self.dataset.has_precomputed_flow():
             self.logger.info("no precomputed flow found; using on-device Farneback")
             src = FlowSource.FARNEBACK
-        if src == FlowSource.RAFT:
-            raise NotImplementedError(
-                "--flow-source RAFT is not ported yet; use FARNEBACK, "
-                "LUCAS_KANADE, PRECOMPUTED or GROUND_TRUTH")
         return src
 
     @staticmethod
     def _gray(img) -> np.ndarray:
         # host-side BT.601, kept uint8: 4x less host->device traffic
         return bgr_to_gray_host(img, np.uint8)
+
+    def _flow_frame(self, src: FlowSource, i: int) -> np.ndarray:
+        """Frame ``i`` as the flow source takes it: RAFT the frame as it
+        comes (BGR uint8, as its checkpoint was trained), the others gray."""
+        img = self.dataset.get_frame(i)
+        return np.asarray(img) if src == FlowSource.RAFT else self._gray(img)
 
     def _upload(self, arr: np.ndarray):
         """Pinned host copy + asynchronous upload on the copy stream; the
@@ -205,19 +215,20 @@ class Processor:
             else:
                 staged["flow_host"] = self._read_flow(idx, src)
         elif idx == list(range(idx[0], idx[0] + len(idx))):
-            # contiguous transitions stage B+1 UNIQUE gray frames (video is
-            # a chain); the device slices prevs/currs out of one upload
-            g = np.stack([self._gray(ds.get_frame(i))
+            # contiguous transitions stage B+1 UNIQUE frames (video is a
+            # chain); the device slices prevs/currs out of one upload (RAFT
+            # encodes each of them once)
+            g = np.stack([self._flow_frame(src, i)
                           for i in range(idx[0], idx[-1] + 2)])
             if self._copy_stream is not None and len(idx) == self.batch_size:
                 # full batches upload HERE, overlapping the previous batch;
                 # tail batches stay host-side for the padding step
-                staged["grays_dev"] = self._upload(g)
+                staged["frames_dev"] = self._upload(g)
             else:
-                staged["grays"] = g
+                staged["frames"] = g
         else:
-            staged["prevs"] = np.stack([self._gray(ds.get_frame(i)) for i in idx])
-            staged["currs"] = np.stack([self._gray(ds.get_frame(i + 1)) for i in idx])
+            staged["prevs"] = np.stack([self._flow_frame(src, i) for i in idx])
+            staged["currs"] = np.stack([self._flow_frame(src, i + 1) for i in idx])
 
         gts = [ds.get_gt_of(i) for i in idx]
         if any(g is not None for g in gts):
@@ -295,11 +306,15 @@ class Processor:
     def _flow_pairs(self, prevs: torch.Tensor, currs: torch.Tensor,
                     src: FlowSource, n_real: Optional[int] = None
                     ) -> torch.Tensor:
-        """Device flow (n, h, w, 2) from gray frame pairs. LUCAS_KANADE runs
-        frame by frame; of a padded tail it computes only the first
-        ``n_real`` lanes and repeats the last (padded lanes are never read)."""
+        """Device flow (n, h, w, 2) from frame pairs (gray; RAFT: as they
+        come). LUCAS_KANADE runs frame by frame; of a padded tail it computes
+        only the first ``n_real`` lanes and repeats the last (padded lanes
+        are never read); RAFT decides its coverage ladder on those lanes."""
         if src == FlowSource.FARNEBACK:
             return _farneback_cf(prevs, currs, self._farneback)
+        if src == FlowSource.RAFT:
+            return raft_flow_batch_tuned(prevs, currs, device=self.device,
+                                         n_real=n_real)
         n = prevs.shape[0]
         n_real = n if n_real is None else n_real
         flows = torch.stack([
@@ -313,24 +328,26 @@ class Processor:
         ``src``, of which the first ``n_real`` lanes are real frames."""
         if "flow_host" in staged:
             return self._to_dev(staged["flow_host"])
-        if "grays_dev" in staged:
-            grays = self._await_upload(staged["grays_dev"])
-        elif "grays" in staged:
-            grays = self._to_dev(staged["grays"])
+        if "frames_dev" in staged:
+            frames = self._await_upload(staged["frames_dev"])
+        elif "frames" in staged:
+            frames = self._to_dev(staged["frames"])
         else:
             return self._flow_pairs(self._to_dev(staged["prevs"]),
                                     self._to_dev(staged["currs"]), src, n_real)
-        return self._flow_pairs(grays[:-1], grays[1:], src, n_real)
+        if src == FlowSource.RAFT:
+            # the chain's shared encoding: each frame through fnet once
+            return raft_flow_video_tuned(frames, device=self.device, n_real=n_real)
+        return self._flow_pairs(frames[:-1], frames[1:], src, n_real)
 
     def _flow_batch(self, indices: List[int]) -> torch.Tensor:
         """Device flow (n, h, w, 2) for frame pairs (i, i+1), unstaged (the
         homography branch's source of flow)."""
         src = self._effective_flow_source()
-        ds = self.dataset
         if src in (FlowSource.PRECOMPUTED, FlowSource.GROUND_TRUTH):
             return self._to_dev(self._read_flow(indices, src))
-        prevs = np.stack([self._gray(ds.get_frame(i)) for i in indices])
-        currs = np.stack([self._gray(ds.get_frame(i + 1)) for i in indices])
+        prevs = np.stack([self._flow_frame(src, i) for i in indices])
+        currs = np.stack([self._flow_frame(src, i + 1) for i in indices])
         return self._flow_pairs(self._to_dev(prevs), self._to_dev(currs), src)
 
     # ------------------------------------------------------------- detect

@@ -132,3 +132,30 @@ def test_dense_scan_never_synchronises(dev):
     np.testing.assert_allclose(hist.buffer.cpu().numpy(), cpu_hist.buffer.numpy(),
                                atol=1e-3)
     assert out.foe.shape == (T - 1, 2) and bool(torch.isfinite(out.foe).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 0.02), (torch.bfloat16, 0.5)])
+def test_raft_on_card_matches_cpu(dev, dtype, tol):
+    """RAFT (no hand kernel: cuDNN convolutions, cuBLAS matmuls, gathers)
+    with the shipped weights, card against CPU at 64x96."""
+    from mav_detection_tpu_torch.data.scene import make_scene
+    from mav_detection_tpu_torch.models import pretrained
+    from mav_detection_tpu_torch.models import raft as tr
+
+    prev, curr, _ = make_scene(0, h=64, w=96, drone_pos=(40.0, 30.0), drone_radius=6)
+    cfg = tr.RAFTConfig(materialize_corr=False, dtype=dtype)
+    card, cpu = (tr.raft_flow(pretrained.load_raft(d), torch.from_numpy(prev)[None].to(d),
+                              torch.from_numpy(curr)[None].to(d), 6, cfg)[0].cpu().numpy()
+                 for d in (dev, "cpu"))
+    np.testing.assert_allclose(card, cpu, atol=tol)
+
+
+def test_sky_mask_on_card_matches_cpu(dev):
+    from mav_detection_tpu_torch.data.scene import make_scene
+    from mav_detection_tpu_torch.models import pretrained
+    from mav_detection_tpu_torch.models import sky_segmentation as ts
+
+    frame = np.repeat(make_scene(0, h=64, w=96)[0][..., None], 3, -1)
+    card = ts.sky_mask(pretrained.load_sky(dev), frame, dev).cpu().numpy()
+    cpu = ts.sky_mask(pretrained.load_sky("cpu"), frame, "cpu").numpy()
+    assert (card == cpu).mean() >= 0.995

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX, the JAX package nor
-OpenCV, and its entry points run on the card or raise (no CPU fallback)."""
+"""The PyTorch port stands alone: it imports neither JAX, the JAX package,
+Flax, msgpack nor OpenCV, and its entry points run on the card or raise (no
+CPU fallback)."""
 import os
 import re
 import subprocess
@@ -19,8 +20,13 @@ _FORBIDDEN = re.compile(
     re.MULTILINE)
 
 
+# a Flax or msgpack import: the port reads the checkpoints with its own code
+_NO_FLAX = re.compile(r"^\s*(?:import|from)\s+(?:flax|msgpack)(?:[.\s,]|$)",
+                      re.MULTILINE)
+
+
 # the modules of the single-card Processor surface beyond the FoE loop, the
-# scan engine, the native runtime and the entry point
+# scan engine, the native runtime, the entry point, and the learned nets
 NEW_MODULES = [
     "mav_detection_tpu_torch.ops.image.visualize",
     "mav_detection_tpu_torch.ops.image.resize",
@@ -34,6 +40,12 @@ NEW_MODULES = [
     "mav_detection_tpu_torch.pipeline.temporal",
     "mav_detection_tpu_torch.runtime.native_loader",
     "mav_detection_tpu_torch.entry",
+    "mav_detection_tpu_torch.convert",
+    "mav_detection_tpu_torch.models.checkpoint",
+    "mav_detection_tpu_torch.models.pretrained",
+    "mav_detection_tpu_torch.models.layers",
+    "mav_detection_tpu_torch.models.sky_segmentation",
+    "mav_detection_tpu_torch.models.raft",
 ]
 
 
@@ -52,7 +64,8 @@ def test_import_every_module_without_jax_or_cv2():
         "missing = sorted(set(%r) - set(mods))\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'mav_detection_tpu', 'cv2'))\n"
+        "             ('jax', 'jaxlib', 'mav_detection_tpu', 'cv2', 'flax',\n"
+        "              'msgpack'))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n") % (NEW_MODULES,)
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -67,6 +80,19 @@ def test_import_every_module_without_jax_or_cv2():
 def test_source_has_no_forbidden_import(path):
     text = path.read_text()
     assert not _FORBIDDEN.findall(text), f"{path}: {_FORBIDDEN.findall(text)}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_neither_flax_nor_msgpack(path):
+    text = path.read_text()
+    assert not _NO_FLAX.findall(text), f"{path}: {_NO_FLAX.findall(text)}"
+
+
+def test_no_flax_pattern_catches_and_spares():
+    assert _NO_FLAX.search("from flax import serialization")
+    assert _NO_FLAX.search("  import msgpack")
+    assert not _NO_FLAX.search("# flax writes a msgpack map")
+    assert not _NO_FLAX.search("import flaxen")
 
 
 def test_forbidden_pattern_catches_and_spares():
@@ -171,3 +197,51 @@ def test_new_entry_points_raise_without_card():
 
     with pytest.raises(RuntimeError, match="cuda"):
         entry()
+
+
+def test_net_entry_points_raise_without_card():
+    """RAFT, the SkyUNet and a Processor on the RAFT source run on the card
+    by default."""
+    _no_card()
+    from mav_detection_tpu_torch.core.config import RunConfig
+    from mav_detection_tpu_torch.models.raft import (
+        raft_flow_batch,
+        raft_flow_batch_tuned,
+        raft_flow_video_tuned,
+    )
+    from mav_detection_tpu_torch.models.sky_segmentation import SkyUNet, sky_mask
+    from mav_detection_tpu_torch.pipeline.processor import Processor
+
+    frames = np.zeros((2, 64, 64, 3), np.uint8)
+    for call in (lambda: raft_flow_batch(frames[:1], frames[1:]),
+                 lambda: raft_flow_batch_tuned(frames[:1], frames[1:]),
+                 lambda: raft_flow_video_tuned(frames),
+                 lambda: sky_mask(SkyUNet(), frames[0]),
+                 lambda: Processor(RunConfig(dataset="synthetic", flow_source="RAFT"))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    from mav_detection_tpu_torch.cli.main import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--dataset", "synthetic", "--headless", "--flow-source", "RAFT"])
+
+
+def test_checkpoints_load_with_flax_and_msgpack_barred():
+    """A fresh interpreter reads, migrates and converts both shipped
+    checkpoints with flax and msgpack unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('flax', 'msgpack', 'jax'): sys.modules[m] = None\n"
+        "from mav_detection_tpu_torch.models import pretrained\n"
+        "raft = pretrained.load_raft('cpu'); sky = pretrained.load_sky('cpu')\n"
+        "assert raft is not None and sky is not None\n"
+        "assert raft.mask_hidden.weight.shape == (128, 96, 3, 3)\n"
+        "print(sum(p.numel() for p in raft.parameters()),\n"
+        "      sum(p.numel() for p in sky.parameters()))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("MAV_CHECKPOINT_PATH", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_raft, n_sky = (int(v) for v in proc.stdout.split())
+    assert n_raft > 1_000_000 and n_sky > 100_000

@@ -26,7 +26,7 @@ from mav_detection_tpu.ops.flow import tuned_flow_params as j_tuned
 from mav_detection_tpu.pipeline.processor import Processor as JProcessor
 
 from mav_detection_tpu_torch.cli.main import main as cli_main
-from mav_detection_tpu_torch.core.config import RunConfig
+from mav_detection_tpu_torch.core.config import FlowSource, RunConfig
 from mav_detection_tpu_torch.core.frame_result import FrameResult
 from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
 from mav_detection_tpu_torch.data.dataset import imread
@@ -58,9 +58,9 @@ def jax_batch_samples(n_pairs, batch, n_samples, h, w):
     return out
 
 
-def run_jax(flow_source, farneback=None):
+def run_jax(flow_source, farneback=None, seq=SMALL):
     cfg = JRunConfig(dataset="synthetic", flow_source=flow_source, batch_size=BATCH)
-    cfg.get_dataset = lambda: JSynth(params=JParams(**SMALL))
+    cfg.get_dataset = lambda: JSynth(params=JParams(**seq))
     proc = JProcessor(cfg)
     proc.save_images = False
     if farneback is not None:
@@ -68,16 +68,17 @@ def run_jax(flow_source, farneback=None):
     return proc.run_detection_foe()
 
 
-def port_processor(flow_source, **cfg_kw):
+def port_processor(flow_source, seq=SMALL, **cfg_kw):
     cfg = RunConfig(dataset="synthetic", flow_source=flow_source,
                     batch_size=BATCH, **cfg_kw)
-    cfg.get_dataset = lambda: SyntheticDataset(params=SyntheticParams(**SMALL))
+    cfg.get_dataset = lambda: SyntheticDataset(params=SyntheticParams(**seq))
     return Processor(cfg, device="cpu")
 
 
-def run_port(flow_source):
-    syx = jax_batch_samples(N_PAIRS, BATCH, 1000, SMALL["height"], SMALL["width"])
-    return port_processor(flow_source).run_detection_foe(sample_yx=syx)
+def run_port(flow_source, seq=SMALL):
+    syx = jax_batch_samples(seq["n_frames"] - 1, BATCH, 1000, seq["height"],
+                            seq["width"])
+    return port_processor(flow_source, seq).run_detection_foe(sample_yx=syx)
 
 
 def _vals(fr):
@@ -144,12 +145,13 @@ def test_edge_pad_batch():
 @pytest.mark.parametrize("kw,attr", [
     (dict(engine="scan", devices=2), None), (dict(engine="chunked", devices=2), None),
     (dict(engine="spatial"), None), (dict(devices=2), None),
-    (dict(flow_source="RAFT"), "run_detection_foe"),
-    (dict(flow_source="RAFT", algorithm="HOMOGRAPHY"), "run_detection")])
+    (dict(flow_source="RAFT", engine="scan"), "run_detection_foe"),
+    (dict(flow_source="RAFT", engine="scan"), "run_detection")])
 def test_unported_paths_raise(kw, attr):
     """The spatial engine and every multi-device run (the chunked engine
-    exists only across devices) raise at construction, the RAFT source when
-    it is asked for flow."""
+    exists only across devices) raise at construction; the RAFT source on
+    the scan engine raises the reference's ValueError when asked for flow
+    (the scan body computes Farneback flow)."""
     kw = dict(kw)
     flow_source = kw.pop("flow_source", "FARNEBACK")
     if attr is None:
@@ -157,7 +159,7 @@ def test_unported_paths_raise(kw, attr):
             port_processor(flow_source, **kw)
         return
     proc = port_processor(flow_source, **kw)
-    with pytest.raises(NotImplementedError, match="RAFT"):
+    with pytest.raises(ValueError, match="--flow-source RAFT is not supported there"):
         getattr(proc, attr)()
 
 
@@ -182,7 +184,7 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["--dataset", "midgard"], ["--engine", "spatial"], ["--validate"],
-    ["--flow-source", "RAFT"], ["--prepare-dataset"], ["--run-all"],
+    ["--num-hosts", "2"], ["--prepare-dataset"], ["--run-all"],
     ["--engine", "chunked"], ["--data-to-yolo"], ["--undistort"],
     ["--sequence", "x"], ["--devices", "2"]])
 def test_cli_unported_flags_raise(argv):
@@ -582,3 +584,113 @@ def test_cli_rejects_unknown_algorithm():
     with pytest.raises(ValueError, match="Algorithm"):
         cli_main(["--dataset", "synthetic", "--device", "cpu",
                   "--algorithm", "MAGIC"])
+
+
+# ------------------------------------------------------- RAFT flow source
+# The reference's RAFT needs a 1/64-scale pyramid level, so at least 64 px a
+# side: 64x96, 4 frames, batch 2 (a full contiguous batch and a padded tail).
+# A drone of ~200 px, so that one pixel flipped by bf16 rounding moves a
+# rate by 0.005, not 0.012.
+RAFT_SEQ = dict(SMALL, height=64, width=96, n_frames=4, foe=(40.0, 30.0),
+                drone_start=(20.0, 44.0), drone_radius=8)
+
+
+@pytest.fixture
+def j_raft_cached(monkeypatch):
+    """The JAX loader's cache holding the shipped RAFT tree (its own load
+    builds a template with ``model.init`` first, over a minute on a CPU)."""
+    from flax import serialization
+
+    from mav_detection_tpu.models import pretrained as j_pretrained
+    from mav_detection_tpu.models.raft import RAFTConfig as JRAFTConfig
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "checkpoints", "raft.msgpack")
+    with open(path, "rb") as f:
+        tree = j_pretrained._migrate_raft_state(serialization.msgpack_restore(f.read()))
+    monkeypatch.setitem(j_pretrained._CACHE, ("raft", JRAFTConfig()), tree)
+
+
+def test_raft_json_fields_match(j_raft_cached, monkeypatch):
+    """Both run the shipped RAFT through the video path: a contiguous batch
+    and a padded tail. FoE within 0.5 px, rates within 0.02, as for
+    Farneback; everything else within 1e-3. Both in the fp32 config: in
+    the product bf16 one the two frameworks' flows differ by up to ~0.05 px
+    (held in test_torch_raft.py), which on a 64x96 frame moves the dynamic
+    threshold by whole rows of pixels (fpr 0.055 apart, measured)."""
+    import jax.numpy as jnp
+
+    import mav_detection_tpu.models.raft as jr
+    import mav_detection_tpu_torch.models.raft as tr
+
+    monkeypatch.setattr(jr, "tuned_raft_config", lambda h, w: jr.TunedRAFT(
+        config=jr.RAFTConfig(materialize_corr=False, dtype=jnp.float32)))
+    monkeypatch.setattr(tr, "tuned_raft_config", lambda h, w: tr.TunedRAFT(
+        config=tr.RAFTConfig(materialize_corr=False, dtype=torch.float32)))
+    ref = run_jax("RAFT", seq=RAFT_SEQ)
+    got = run_port("RAFT", seq=RAFT_SEQ)
+    assert sorted(got) == sorted(ref) == list(range(RAFT_SEQ["n_frames"] - 1))
+    for i in ref:
+        r, g = _vals(ref[i]), _vals(got[i])
+        for k in r:
+            tol = {"foe_dense": 0.5, "tpr": 0.02, "fpr": 0.02, "tpr_fixed": 0.02,
+                   "fpr_fixed": 0.02}.get(k, 1e-3)
+            np.testing.assert_allclose(g[k], r[k], atol=tol, equal_nan=True,
+                                       err_msg=f"frame {i} {k}")
+
+
+def test_raft_stages_frames_as_they_come_and_counts_real_lanes(monkeypatch):
+    """RAFT stages the B+1 BGR frames of a contiguous batch (not gray), and
+    the padded tail's escalation sees its real lanes only."""
+    import mav_detection_tpu_torch.pipeline.processor as pmod
+
+    proc = port_processor("RAFT", RAFT_SEQ)
+    staged = proc._stage_batch([0, 1], FlowSource.RAFT)
+    np.testing.assert_array_equal(
+        staged["frames"], np.stack([proc.dataset.get_frame(i) for i in range(3)]))
+    seen = []
+    real = pmod.raft_flow_video_tuned
+
+    def spy(frames, **kw):
+        seen.append((tuple(frames.shape), kw["n_real"]))
+        return real(frames, **kw)
+
+    monkeypatch.setattr(pmod, "raft_flow_video_tuned", spy)
+    proc.save_images = False
+    proc.run_detection_foe()
+    h, w = RAFT_SEQ["height"], RAFT_SEQ["width"]
+    assert seen == [((3, h, w, 3), 2), ((3, h, w, 3), 1)]
+
+
+def test_raft_pair_and_unstaged_paths_agree_with_the_video_path():
+    """Non-contiguous staging (prevs/currs through raft_flow_batch_tuned) and
+    the unstaged ``_flow_batch`` of the homography branch give the video
+    path's flow (bf16 convolutions batched differently: within 0.1 px)."""
+    proc = port_processor("RAFT", RAFT_SEQ)
+    video = proc._flow_from_staged(proc._stage_batch([0, 1], FlowSource.RAFT),
+                                   FlowSource.RAFT)
+    pairs = proc._flow_from_staged(proc._stage_batch([1, 0], FlowSource.RAFT),
+                                   FlowSource.RAFT)
+    unstaged = proc._flow_batch([0, 1])
+    assert video.shape == (2, RAFT_SEQ["height"], RAFT_SEQ["width"], 2)
+    np.testing.assert_allclose(pairs.numpy()[::-1], video.numpy(), atol=0.1)
+    np.testing.assert_allclose(unstaged.numpy(), video.numpy(), atol=0.1)
+
+
+def test_raft_homography_branch_runs(tmp_path):
+    proc = port_processor("RAFT", RAFT_SEQ, algorithm="HOMOGRAPHY")
+    proc.dataset.seq_path = ""
+    res = proc.run_detection()
+    assert sorted(res) == list(range(RAFT_SEQ["n_frames"] - 1))
+
+
+def test_cli_accepts_raft_on_cpu(tmp_path, monkeypatch):
+    import mav_detection_tpu_torch.data as data_mod
+
+    monkeypatch.setenv("SYNTHETIC_PATH", str(tmp_path))
+    monkeypatch.setattr(data_mod, "make_dataset", lambda *a, **k: SyntheticDataset(
+        params=SyntheticParams(**RAFT_SEQ)))
+    cli_main(["--dataset", "synthetic", "--flow-source", "RAFT", "--headless",
+              "--device", "cpu", "--batch-size", "2", "--foe-samples", "200"])
+    results = sorted(tmp_path.rglob("results/image_*.json"))
+    assert len(results) == RAFT_SEQ["n_frames"] - 1
