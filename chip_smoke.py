@@ -83,8 +83,24 @@ Phases, each printing one line (plus its seconds):
                share, escalation rungs, host looks per batch, every
                FrameResult finite; then the device ms of each RAFT stage at
                752x480 b=8 beside its bound.
-Then the nets JSON line, the kernels JSON line, the nvidia-smi line, and as
-the last line
+ 14. datasets — sequences on disk. MIDGARD layout at 752x480 (12 frames,
+               written by SyntheticDataset(materialize_to=...)): the CLI with
+               its defaults and --headless (PRECOMPUTED falling back to the
+               fused Farneback kernel, 26 launches; the SkyUNet in the loop),
+               again on the cached HRNet-layout masks, again with .flo files
+               through the prefetcher (0 launches), and with --engine scan;
+               every FrameResult JSON finite; card against CPU on 4 frames
+               with the same draws (FoE 0.5 px, rates 0.02). Then without
+               depths/: both engines keep the ones plane (sky_tpr the mask's
+               share, sky_fpr NaN). A Paeth-filtered 752x480 RGB PNG decoded
+               natively and by the plain loop, bit-equal, ms per frame of
+               each. AirSim layout at 1920x1024: 7 mock captures collected,
+               SimDataset synthesising GT flow on the card (card against CPU
+               within 0.05 px), the FoE loop at batch 4 on GROUND_TRUTH and
+               FARNEBACK flow (the kernel at S=16): frames/s, median FoE
+               error, finite in-frame FoE.
+Then the nets and datasets JSON line, the kernels JSON line, the nvidia-smi
+line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line and
 exits non-zero; so does a machine without a card, or a directory without
 the package.
@@ -92,6 +108,7 @@ the package.
 from __future__ import annotations
 
 import collections
+import glob
 import json
 import os
 import subprocess
@@ -349,7 +366,7 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
     cfg = RunConfig(dataset="synthetic", flow_source="FARNEBACK",
                     batch_size=batch, headless=True)
     sp = SyntheticParams(height=h, width=w, n_frames=n_frames)
-    cfg.get_dataset = lambda: SyntheticDataset(params=sp)
+    cfg.get_dataset = lambda **_: SyntheticDataset(params=sp)
     t0 = time.perf_counter()
     proc = Processor(cfg, device=dev)
     proc.save_images = False       # a throughput run: JSON only
@@ -757,7 +774,7 @@ def _synthetic_processor(dev, h, w, n_frames, batch, tmp, **cfg_kw):
 
     cfg = RunConfig(dataset="synthetic", batch_size=batch, headless=True, **cfg_kw)
     sp = SyntheticParams(height=h, width=w, n_frames=n_frames)
-    cfg.get_dataset = lambda: SyntheticDataset(params=sp)
+    cfg.get_dataset = lambda **_: SyntheticDataset(params=sp)
     proc = Processor(cfg, device=dev)
     if tmp:
         proc.dataset.seq_path = tmp
@@ -1317,7 +1334,7 @@ def phase_native(dev, size=(480, 752)) -> dict:
             cfg = RunConfig(dataset="synthetic", flow_source="PRECOMPUTED",
                             batch_size=batch, headless=True)
             sp = SyntheticParams(height=h, width=w, n_frames=n_frames)
-            cfg.get_dataset = lambda: SyntheticDataset(
+            cfg.get_dataset = lambda **_: SyntheticDataset(
                 params=sp, materialize_to=os.path.join(tmp, reader))
             proc = Processor(cfg, device=dev)
             proc.save_images = False
@@ -1725,6 +1742,360 @@ def phase_nets(dev, sky_hw=(480, 752), card_cpu=("320x240", "752x480"),
     return out
 
 
+MIDGARD_SEQ = "countryside-natural/north-narrow"
+# the mock collection of tests/test_sim_loop.py: the target flies at the
+# camera, so it stays in frame (its pixels move against the ground's)
+SIM_COLLECTION = {
+    "orientations": ["north"],
+    "locations": {"testfield": {"x": 0.0, "y": 0.0, "z": -2.0}},
+    "orbit_speed": [2.0],
+    "global_speed": {"default": {"lin_x": 1.2, "sin_y": 0.0, "sin_z": 0.0}},
+    "heights": {"low": 3.0},
+    "radii": [15.0],
+    "modes": ["collision"],
+    "collision_angles": [10.0],
+}
+# GT flow card against CPU: both invert the view-projection matrix in fp32;
+# at 1920x1024 that inverse puts either within 0.0224 px of an fp64
+# computation (measured on the CPU), so the two within 0.05 px
+GT_FLOW_CARD_CPU_TOL_PX = 0.05
+CARD_CPU_FOE_TOL_PX, CARD_CPU_RATE_TOL = 0.5, 0.02
+RATES = ("tpr", "fpr", "tpr_fixed", "fpr_fixed", "sky_tpr", "sky_fpr")
+# FrameResult fields that are NaN by construction on a dataset without a GT
+# FoE (MIDGARD, VisDrone, experiment)
+NAN_WITHOUT_GT_FOE = ("foe_gt", "center_phi")
+
+
+def _png_paeth(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG with the Paeth filter on every row, encoded with
+    numpy: Paeth predicts from unfiltered bytes, so it is array code."""
+    import struct
+    import zlib
+
+    from mav_detection_tpu_torch.data.dataset import _PNG_MAGIC, _png_chunk
+
+    h, w = img.shape[:2]
+    x = img.reshape(h, -1).astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.empty((h, x.shape[1] + 1), np.uint8)
+    rows[:, 0] = 4
+    rows[:, 1:] = (x - pred) & 0xFF
+    return (_PNG_MAGIC
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 3))
+            + _png_chunk(b"IEND", b""))
+
+
+def _read_results(tag, results_dir, n_pairs, skip=()):
+    """The FrameResult JSON files of a run: ``n_pairs`` of them, every field
+    finite but those in ``skip`` (and the rates over an absent target)."""
+    from mav_detection_tpu_torch.core.frame_result import FrameResult
+
+    paths = sorted(glob.glob(os.path.join(results_dir, "image_*.json")))
+    if len(paths) != n_pairs:
+        raise AssertionError(f"{tag}: {len(paths)} FrameResult files, expected {n_pairs}")
+    out = {}
+    for i, p in enumerate(paths):
+        fr = FrameResult.from_json_file(p)
+        d = fr.to_dict()
+        drop = set(skip) | (set(NAN_WITHOUT_TARGET) if d["drone_size_pixels"] == 0 else set())
+        vals = np.array([v for k, x in d.items() if k not in drop
+                         for v in np.atleast_1d(x)], np.float64)
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{tag} frame {i}: non-finite {d}")
+        out[i] = fr
+    return out
+
+
+def _per_batch_launches(params, h, w) -> int:
+    from mav_detection_tpu_torch.ops.flow import farneback as fb
+
+    return sum(fb._level_iter_count(params, k)
+               for k in range(len(fb._pyramid_scales(h, w, params))))
+
+
+def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
+                   sim=(1024, 1920, 7, 4)) -> dict:
+    import shutil
+
+    import torch
+
+    from mav_detection_tpu_torch.cli.main import main as cli_main
+    from mav_detection_tpu_torch.core.config import RunConfig
+    from mav_detection_tpu_torch.data import airsim_flow as af
+    from mav_detection_tpu_torch.data import dataset as dsmod
+    from mav_detection_tpu_torch.data.scene import bench_scene
+    from mav_detection_tpu_torch.data.sim_data import SimDataset
+    from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
+    from mav_detection_tpu_torch.ops.flow import farneback as fb
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.pipeline.processor import Processor
+    from mav_detection_tpu_torch.runtime import native_loader as native
+    from mav_detection_tpu_torch.sim import MockSimClient, SimDataCollector
+
+    k = "farneback_iterate_fused"
+    out = {"launches": {}}
+    checks = Checks("datasets")
+    env_before = {v: os.environ.get(v) for v in ("MIDGARD_PATH", "SIMDATA_PATH")}
+    sky_calls = []
+    real_infer = dsmod.Dataset._infer_sky_segmentation
+
+    def counted_infer(self, i):
+        sky_calls.append(i)
+        return real_infer(self, i)
+
+    def cli(tag, argv, n_pairs):
+        """One CLI run, launch counter zeroed just before and read just
+        after; returns (frames/s, launches, results)."""
+        sky_calls.clear()
+        fi.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fi.LAUNCHES[k]
+        out["launches"][tag] = launches
+        return n_pairs / wall, launches, wall
+
+    try:
+        dsmod.Dataset._infer_sky_segmentation = counted_infer
+        with tempfile.TemporaryDirectory() as tmp:
+            # ---- MIDGARD layout: the CLI with its defaults
+            h, w, n_frames, batch = midgard
+            n_pairs = n_frames - 1
+            root = os.path.join(tmp, "midgard")
+            src = SyntheticDataset(sequence=MIDGARD_SEQ, params=SyntheticParams(
+                height=h, width=w, n_frames=n_frames), materialize_to=root)
+            seq = os.path.join(root, MIDGARD_SEQ)
+            shutil.rmtree(os.path.join(seq, "results"))
+            os.environ["MIDGARD_PATH"] = root
+            per_batch = _per_batch_launches(fb.tuned_flow_params(h, w), h, w)
+            mg = {}
+            fps, n, _ = cli("midgard", ["--headless"], n_pairs)
+            expected = per_batch * -(-n_pairs // batch)
+            if n != expected:
+                raise AssertionError(f"datasets midgard: {n} launches, expected {expected}")
+            if len(sky_calls) != n_pairs:
+                raise AssertionError(f"datasets midgard: SkyUNet ran {len(sky_calls)} times")
+            res = _read_results("midgard", os.path.join(seq, "results"), n_pairs,
+                                NAN_WITHOUT_GT_FOE)
+            hrnet = glob.glob(os.path.join(seq, "half-res-images", "hrnet", "*.png"))
+            mg["skyunet_in_loop_frames_per_s"] = fps
+            fps, n, _ = cli("midgard cached masks", ["--headless"], n_pairs)
+            if sky_calls or n != expected:
+                raise AssertionError(f"datasets midgard rerun: SkyUNet {len(sky_calls)} "
+                                     f"calls, {n} launches")
+            res2 = _read_results("midgard cached masks", os.path.join(seq, "results"),
+                                 n_pairs, NAN_WITHOUT_GT_FOE)
+            for i in res:
+                if res2[i].to_json() != res[i].to_json():
+                    raise AssertionError(f"datasets midgard: frame {i} differs on the "
+                                         "cached masks")
+            mg["cached_masks_frames_per_s"] = fps
+            mg["hrnet_pngs"] = len(hrnet)
+
+            # PRECOMPUTED through the prefetcher: .flo files in the flow dir
+            flow_dir = os.path.join(seq, "images", "output", "inference",
+                                    "run.epoch-0-flow-field")
+            os.makedirs(flow_dir)
+            for i in range(n_pairs):
+                native.write_flow(os.path.join(flow_dir, f"{i:06d}.flo"), src.flows[i])
+            served = []
+            real_pf = native.FloPrefetcher
+
+            class Counted(real_pf):
+                def __next__(self):
+                    got = super().__next__()
+                    served.append(1)
+                    return got
+            native.FloPrefetcher = Counted
+            try:
+                fps, n, _ = cli("midgard precomputed", ["--headless"], n_pairs)
+            finally:
+                native.FloPrefetcher = real_pf
+            if n != 0 or len(served) != n_pairs:
+                raise AssertionError(f"datasets midgard precomputed: {n} launches, "
+                                     f"{len(served)} files from the prefetcher")
+            _read_results("midgard precomputed", os.path.join(seq, "results"), n_pairs,
+                          NAN_WITHOUT_GT_FOE)
+            mg["precomputed_frames_per_s"] = fps
+            mg["prefetcher_files"] = len(served)
+            shutil.rmtree(flow_dir)
+
+            fps, n, wall = cli("midgard scan", ["--headless", "--engine", "scan"], n_pairs)
+            if n != per_batch * n_pairs:
+                raise AssertionError(f"datasets midgard scan: {n} launches")
+            _read_results("midgard scan", os.path.join(seq, "results"), n_pairs,
+                          NAN_WITHOUT_GT_FOE)
+            mg["scan_ms_per_transition"] = wall * 1e3 / n_pairs
+            out["midgard"] = mg
+
+            # ---- card against CPU on a short MIDGARD sequence, same draws
+            root4 = os.path.join(tmp, "midgard4")
+            SyntheticDataset(sequence=MIDGARD_SEQ, params=SyntheticParams(
+                height=h, width=w, n_frames=card_cpu_frames), materialize_to=root4)
+            os.environ["MIDGARD_PATH"] = root4
+            rng = np.random.default_rng(0)
+            n4 = card_cpu_frames - 1
+            draws = [np.stack([rng.integers(0, h, (n4, 2000)),
+                               rng.integers(0, w, (n4, 2000))], -1)]
+            runs = []
+            for d in (dev, torch.device("cpu")):          # the card caches the masks
+                proc = Processor(RunConfig(dataset="midgard", flow_source="FARNEBACK",
+                                           batch_size=n4), device=d)
+                proc.save_images = False
+                runs.append(proc.run_detection_foe(sample_yx=draws))
+            cc = {}
+            for key in ("foe_dense",) + RATES:
+                a = np.array([getattr(runs[0][i], key) for i in range(n4)], np.float64)
+                b = np.array([getattr(runs[1][i], key) for i in range(n4)], np.float64)
+                if not np.array_equal(np.isnan(a), np.isnan(b)):
+                    raise AssertionError(f"datasets card vs cpu {key}: {a} against {b}")
+                diff = float(np.nanmax(np.abs(a - b), initial=0.0))
+                tol = CARD_CPU_FOE_TOL_PX if key == "foe_dense" else CARD_CPU_RATE_TOL
+                checks.add(f"midgard card vs cpu {key}", diff, tol, "max |card - cpu|")
+                cc[key] = diff
+            out["midgard_card_vs_cpu"] = cc
+
+            # ---- depth-less MIDGARD: both engines keep the ones plane
+            shutil.rmtree(os.path.join(root4, MIDGARD_SEQ, "depths"))
+            sky = {}
+            for engine in ("batch", "scan"):
+                proc = Processor(RunConfig(dataset="midgard", flow_source="FARNEBACK",
+                                           engine=engine, batch_size=batch), device=dev)
+                proc.save_images = False
+                r = proc.run_detection_foe()
+                for i, fr in r.items():
+                    share = float(np.mean(proc.dataset.get_sky_segmentation(i)))
+                    if not (np.isfinite(fr.sky_tpr) and abs(fr.sky_tpr - share) < 1e-6
+                            and np.isnan(fr.sky_fpr)):
+                        raise AssertionError(
+                            f"datasets depth-less {engine} frame {i}: sky_tpr "
+                            f"{fr.sky_tpr} (mask share {share}), sky_fpr {fr.sky_fpr}")
+                sky[engine] = [r[i].sky_tpr for i in sorted(r)]
+            if not np.allclose(sky["batch"], sky["scan"]):
+                raise AssertionError(f"datasets depth-less: engines differ {sky}")
+            out["depthless_sky_tpr"] = sky["batch"]
+
+            # ---- PNG decode: a Paeth-filtered 752x480 RGB frame
+            gray = np.clip(bench_scene(0, h, w)[0], 0, 255).astype(np.uint8)
+            rgb = np.stack([gray, gray[::-1], gray[:, ::-1]], -1)
+            data = _png_paeth(rgb)
+            before = dict(dsmod.DECODES)
+            native_img = dsmod.png_decode(data)
+            t0 = time.perf_counter()
+            reps = 10
+            for _ in range(reps):
+                dsmod.png_decode(data)
+            native_ms = (time.perf_counter() - t0) * 1e3 / reps
+            saved, dsmod._UNFILTER = dsmod._UNFILTER, False
+            try:
+                t0 = time.perf_counter()
+                plain_img = dsmod.png_decode(data)
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                dsmod._UNFILTER = saved
+            if not (np.array_equal(native_img, plain_img) and np.array_equal(native_img, rgb)):
+                raise AssertionError("datasets png: native and plain decodes differ")
+            out["png"] = {"size": f"{w}x{h}", "native_ms": native_ms, "plain_ms": plain_ms,
+                          "native_decodes": dsmod.DECODES["native"] - before["native"],
+                          "plain_decodes": dsmod.DECODES["plain"] - before["plain"],
+                          "native_decodes_total": dsmod.DECODES["native"]}
+
+            # ---- AirSim layout: collect, GT flow on the card, the FoE loop
+            sh, sw, n_cap, sbatch = sim
+            sroot = os.path.join(tmp, "sim")
+            t0 = time.perf_counter()
+            col = SimDataCollector(MockSimClient(image_hw=(sh, sw), fov_deg=100),
+                                   SIM_COLLECTION, root_data_dir=sroot,
+                                   max_iterations=n_cap)
+            col.run()
+            render_s = time.perf_counter() - t0
+            sseq = os.path.relpath(col.get_base_dir(col.configs[0]), sroot)
+            os.environ["SIMDATA_PATH"] = sroot
+            t0 = time.perf_counter()
+            ds = SimDataset(sequence=sseq, device=dev)
+            open_s = time.perf_counter() - t0
+            if ds.N != n_cap or len(glob.glob(f"{ds.gt_of_path}/*.flo")) != n_cap - 1:
+                raise AssertionError(f"datasets sim: {ds.N} frames")
+            t0 = time.perf_counter()
+            ds.create_ground_truth_optical_flow()
+            gt_ms = (time.perf_counter() - t0) * 1e3 / (n_cap - 1)
+            states = ds.get_state_filenames()
+            gt_err = 0.0
+            dev_ms = []
+            for i in range(n_cap - 1):
+                packed = torch.from_numpy(af.pack_pair(*af.pair_inputs(ds, i, states)))
+                on_card = packed.to(dev)
+                card = _np(af.calculate_flow_packed(on_card, ds.capture_size))
+                cpu = _np(af.calculate_flow_packed(packed, ds.capture_size))
+                if not np.isfinite(card).all():
+                    raise AssertionError(f"datasets sim: non-finite GT flow, pair {i}")
+                gt_err = max(gt_err, float(np.abs(card - cpu).max()))
+                dev_ms.append(time_ms(lambda: af.calculate_flow_packed(
+                    on_card, ds.capture_size), 5, 1))
+            checks.add(f"sim GT flow card vs cpu {sw}x{sh}", gt_err,
+                       GT_FLOW_CARD_CPU_TOL_PX, "max |card - cpu| px")
+            loops = {}
+            for src_name in ("GROUND_TRUTH", "FARNEBACK"):
+                proc = Processor(RunConfig(dataset="simulation", sequence=sseq,
+                                           flow_source=src_name, batch_size=sbatch),
+                                 device=dev)
+                proc.save_images = False
+                proc.run_detection_foe()                 # warm-up
+                torch.cuda.synchronize()
+                fi.reset_launch_counts()
+                t0 = time.perf_counter()
+                r = proc.run_detection_foe()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n = fi.LAUNCHES[k]
+                out["launches"][f"simulation {src_name}"] = n
+                pairs = n_cap - 1
+                want = 0 if src_name == "GROUND_TRUTH" else \
+                    _per_batch_launches(proc._farneback, sh, sw) * -(-pairs // sbatch)
+                if n != want:
+                    raise AssertionError(f"datasets sim {src_name}: {n} launches, "
+                                         f"expected {want}")
+                foes = np.array([r[i].foe_dense for i in sorted(r)])
+                gts = np.array([r[i].foe_gt for i in sorted(r)])
+                if not np.isfinite(foes).all():
+                    raise AssertionError(f"datasets sim {src_name}: FoE {foes}")
+                inside = (foes[:, 0] >= 0) & (foes[:, 0] < sw) & (foes[:, 1] >= 0) & \
+                    (foes[:, 1] < sh)
+                med = np.median(foes, axis=0)
+                if src_name == "GROUND_TRUTH" and not inside.all():
+                    raise AssertionError(f"datasets sim GT: FoE outside the frame {foes}")
+                if not (0 <= med[0] < sw and 0 <= med[1] < sh):
+                    raise AssertionError(f"datasets sim {src_name}: median FoE {med}")
+                _read_results(f"sim {src_name}", ds.results_path, pairs)
+                loops[src_name] = {
+                    "frames_per_s": pairs / wall, "launches": n,
+                    "median_foe_err_px": float(np.median(np.hypot(*(foes - gts).T))),
+                    "foe_in_frame": int(inside.sum()), "pairs": pairs}
+            out["sim"] = {"size": f"{sw}x{sh}", "frames": n_cap, "render_s": render_s,
+                          "render_s_per_frame": render_s / n_cap, "open_s": open_s,
+                          "gt_flow_ms_per_pair": gt_ms,
+                          "gt_flow_device_ms_per_pair": float(np.median(dev_ms)),
+                          "gt_flow_card_vs_cpu_px": gt_err, "loops": loops}
+    finally:
+        dsmod.Dataset._infer_sky_segmentation = real_infer
+        for v, val in env_before.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+    out["checks"] = checks.finish()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1754,8 +2125,9 @@ def main() -> int:
     regs = [ln.strip() for ln in _build.BUILD_LOGS["farneback_iter"].splitlines()
             if "registers" in ln]
     times["build"] = build_s
-    say(f"[build] csrc/farneback_iter.cu (nvcc) and runtime/native/loader.cpp "
-        f"(g++), started together, built and loaded in {build_s:.2f} s; "
+    say(f"[build] csrc/farneback_iter.cu (nvcc), runtime/native/loader.cpp and "
+        f"runtime/native/png.cpp (g++), started together, built and loaded in "
+        f"{build_s:.2f} s; "
         f"ptxas: {regs}")
 
     t0 = time.perf_counter()
@@ -1916,6 +2288,41 @@ def main() -> int:
             f"{st['gflop_bf16']:.3f} GFLOP bf16), share of bound "
             f"{st['bound_ms'] / st['ms']:.3f} on {smi}")
     say(f"[nets] {nets['checks']} checks within tolerance ({times['nets']:.1f} s)")
+
+    t0 = time.perf_counter()
+    dsets = phase_datasets(dev)
+    times["datasets"] = time.perf_counter() - t0
+    mg = dsets["midgard"]
+    say(f"[datasets] MIDGARD layout 752x480, 11 pairs, the CLI's defaults on {smi}: "
+        f"{mg['skyunet_in_loop_frames_per_s']:.2f} frames/s with the SkyUNet in the "
+        f"loop, {mg['cached_masks_frames_per_s']:.2f} on the cached masks "
+        f"({mg['hrnet_pngs']} HRNet-layout PNGs), {mg['precomputed_frames_per_s']:.2f} "
+        f"on PRECOMPUTED through the prefetcher ({mg['prefetcher_files']} files), "
+        f"scan engine {mg['scan_ms_per_transition']:.2f} ms per transition; launches "
+        f"{json.dumps(dsets['launches'])}")
+    say(f"[datasets] card vs CPU, 4 frames: {json.dumps(dsets['midgard_card_vs_cpu'])}; "
+        f"depth-less sky_tpr (both engines, sky_fpr NaN) "
+        f"{json.dumps(dsets['depthless_sky_tpr'])}")
+    pg = dsets["png"]
+    say(f"[datasets] PNG decode {pg['size']} RGB, Paeth rows, on this host: native "
+        f"{pg['native_ms']:.3f} ms, plain loop {pg['plain_ms']:.1f} ms per frame, "
+        f"bit-equal; decodes native {pg['native_decodes']} / plain "
+        f"{pg['plain_decodes']} in this step, {pg['native_decodes_total']} native in "
+        f"the process")
+    sm = dsets["sim"]
+    say(f"[datasets] AirSim layout {sm['size']}, {sm['frames']} mock captures: render "
+        f"{sm['render_s_per_frame']:.2f} s per frame (host); SimDataset opened in "
+        f"{sm['open_s']:.2f} s; GT flow {sm['gt_flow_ms_per_pair']:.2f} ms per pair with "
+        f"its file IO, {sm['gt_flow_device_ms_per_pair']:.3f} ms on the card (events), "
+        f"card vs CPU {sm['gt_flow_card_vs_cpu_px']:.3g} px (tol "
+        f"{GT_FLOW_CARD_CPU_TOL_PX}) on {smi}")
+    for src_name, lp in sm["loops"].items():
+        say(f"[datasets] AirSim FoE loop {sm['size']} batch 4 {src_name}: "
+            f"{lp['frames_per_s']:.2f} frames/s on {smi}, median |FoE - GT FoE| "
+            f"{lp['median_foe_err_px']:.2f} px, FoE in frame {lp['foe_in_frame']} of "
+            f"{lp['pairs']}, launches {lp['launches']}")
+    say(f"[datasets] {dsets['checks']} checks within tolerance "
+        f"({times['datasets']:.1f} s)")
     say(f"[phases] seconds {json.dumps(times)}")
 
     k = "farneback_iterate_fused"
@@ -1937,6 +2344,7 @@ def main() -> int:
         "launches_scan_sparse": scan["752x480 use_sparse_of"]["launches"][k],
         "launches_scan_1920x1024": scan["1920x1024"]["launches"][k],
         "launches_entry": ent["launches"][k],
+        "launches_datasets": dsets["launches"],
         "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
         "per_batch": {f"{size} b={tb}": {
             key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
@@ -1975,6 +2383,8 @@ def main() -> int:
                                       "plain_ms_per_batch")}},
     })
     say(json.dumps({"nets": {k: nets[k] for k in ("load", "sky", "raft", "stages")},
+                    "datasets": {key: dsets[key] for key in (
+                        "midgard", "midgard_card_vs_cpu", "png", "sim")},
                     "nets_loops": [{k: lp[k] for k in (
                         "size", "frames_per_s", "device_ms_per_batch",
                         "flow_device_ms_per_batch", "wall_ms_per_batch",

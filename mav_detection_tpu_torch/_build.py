@@ -1,13 +1,15 @@
 """Build and load the port's native libraries.
 
-Two sources, each compiled at first use into a shared library with a plain
-C interface and loaded with ``ctypes``:
+Three sources, each compiled at first use into a shared library with a
+plain C interface and loaded with ``ctypes``:
 
 * ``"farneback_iter"``: ``csrc/farneback_iter.cu``, the CUDA kernels, with
   ``nvcc`` for ``sm_90a`` into ``build/kernels/``. The wrappers pass
   ``tensor.data_ptr()`` and the current stream's handle as ``c_void_p``.
 * ``"loader"``: ``runtime/native/loader.cpp``, the host ``.flo`` codec and
   prefetcher, with ``g++`` into ``build/native/``.
+* ``"png"``: ``runtime/native/png.cpp``, the PNG row unfilter of
+  ``data/dataset.py``'s decoder, with ``g++`` into ``build/native/``.
 
 Both directories lie under ``build/`` at the repo root (git-ignored). A
 library is named by a hash of its source and flags, so an edited source
@@ -16,7 +18,8 @@ yet, all together, and then waits for them; ``load`` builds what it needs
 and sets the library's argtypes once.
 
 Only the repo's own sources are compiled; there is no prebuilt artifact. A
-missing compiler or a failed build raises ``RuntimeError``.
+missing compiler raises ``CompilerMissing``, a failed build ``RuntimeError``
+(of which ``CompilerMissing`` is a subclass).
 
 By hand: ``python -m mav_detection_tpu_torch._build [name ...]`` builds the
 named libraries (all of them without names) and prints their paths.
@@ -47,6 +50,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
+class CompilerMissing(RuntimeError):
+    """The compiler a source needs is not installed here."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -54,7 +61,7 @@ def _nvcc() -> str:
     cand = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(cand):
         return cand
-    raise RuntimeError(
+    raise CompilerMissing(
         "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
         "build from csrc/ at first use and need the CUDA toolkit")
 
@@ -63,9 +70,9 @@ def _gxx() -> str:
     found = shutil.which("g++")
     if found:
         return found
-    raise RuntimeError(
-        "g++ not found on the PATH: the native .flo loader builds from "
-        "runtime/native/loader.cpp at first use")
+    raise CompilerMissing(
+        "g++ not found on the PATH: the native .flo loader and PNG unfilter "
+        "build from runtime/native/*.cpp at first use")
 
 
 def _bind_kernels(lib: ctypes.CDLL) -> None:
@@ -103,6 +110,15 @@ def _bind_loader(lib: ctypes.CDLL) -> None:
     lib.prefetcher_destroy.restype = None
 
 
+def _bind_png(lib: ctypes.CDLL) -> None:
+    import numpy as np
+
+    u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i64 = ctypes.c_int64
+    lib.png_unfilter.argtypes = [u8, u8, i64, i64, ctypes.c_int]
+    lib.png_unfilter.restype = ctypes.c_int
+
+
 class _Source(NamedTuple):
     path: Path
     compiler: Callable[[], str]
@@ -116,6 +132,8 @@ SOURCES: Dict[str, _Source] = {
                               _bind_kernels),
     "loader": _Source(PKG_DIR / "runtime" / "native" / "loader.cpp", _gxx,
                       GXX_FLAGS, BUILD_ROOT / "native", _bind_loader),
+    "png": _Source(PKG_DIR / "runtime" / "native" / "png.cpp", _gxx, GXX_FLAGS,
+                   BUILD_ROOT / "native", _bind_png),
 }
 
 _LOCK = threading.Lock()

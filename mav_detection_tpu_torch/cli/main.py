@@ -1,13 +1,24 @@
 """Command-line entry point of the port.
 
 The parser knows the reference's flag surface (``mav_detection_tpu.cli.
-main``) plus ``--device``; the port runs the batch and scan engines on the
-synthetic dataset (the FoE detection loop, or on the batch engine the
-homography branch with ``--algorithm HOMOGRAPHY``), and every flag or value
-outside the ``PORTED`` table raises "not yet ported" instead of being
-ignored.
+main``) plus ``--device``; the port runs the batch and scan engines on every
+dataset (the FoE detection loop, or on the batch engine the homography
+branch with ``--algorithm HOMOGRAPHY``), and every flag or value outside the
+``PORTED`` table raises "not yet ported" instead of being ignored.
+
+The bare defaults run the FoE loop over a MIDGARD sequence (``MIDGARD_PATH``,
+sequence ``countryside-natural/north-narrow`` unless ``--sequence`` names
+another) on PRECOMPUTED flow, which falls back to Farneback on the card where
+the sequence has no ``.flo`` files. Simulation sequences come from the
+collector (``cli/collect.py``).
 
 Usage:
+    MIDGARD_PATH=<dir> python -m mav_detection_tpu_torch.cli.main --headless
+    python -m mav_detection_tpu_torch.cli.collect --collection foe-demo \
+        --mock --image-size 1024x1920 --data-dir <dir> --max-iterations 8
+    SIMDATA_PATH=<dir> python -m mav_detection_tpu_torch.cli.main \
+        --dataset simulation --sequence <collected sequence> \
+        --flow-source GROUND_TRUTH --batch-size 4 --headless
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --flow-source FARNEBACK --headless
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
@@ -20,10 +31,12 @@ Usage:
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --flow-source FARNEBACK --engine scan [--use-sparse-of] --headless
 
-With ``SYNTHETIC_PATH`` set, the synthetic sequence is written there; the
-FrameResult JSON lands in its ``results/`` directory and the debug images
-(FoE branch: ``result-images/``, ``derotated/``, ``phi/``, ``processed/``,
-``video.npz``; homography branch: the ``processed/`` mosaics) beside it.
+``--dataset vis_drone`` reads ``VIS_DRONE_PATH``, ``--dataset experiment``
+``EXPERIMENT_PATH``. With ``SYNTHETIC_PATH`` set, the synthetic sequence is
+written there. The FrameResult JSON lands in the sequence's ``results/``
+directory and the debug images (FoE branch: ``result-images/``,
+``derotated/``, ``phi/``, ``processed/``, ``video.npz``; homography branch:
+the ``processed/`` mosaics) beside it.
 """
 from __future__ import annotations
 
@@ -36,7 +49,8 @@ from mav_detection_tpu_torch.pipeline.processor import Processor
 
 # flags the port runs, and the values it accepts where it restricts them
 PORTED = {
-    "dataset": {"synthetic"},
+    "dataset": {"synthetic", "midgard", "simulation", "vis_drone", "experiment"},
+    "sequence": None,
     "flow_source": {"FARNEBACK", "PRECOMPUTED", "LUCAS_KANADE", "GROUND_TRUTH",
                     "RAFT"},
     "engine": {"BATCH", "SCAN"},
@@ -66,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Detects MAVs in the dataset using optical flow "
                     "(PyTorch/CUDA port).")
     parser.add_argument("--dataset", type=str, default="midgard",
-                        help="dataset to process (ported: synthetic)")
+                        help="dataset to process: midgard|simulation|"
+                             "vis_drone|experiment|synthetic")
     parser.add_argument("--sequence", type=str, default="",
                         help="sequence to process")
     parser.add_argument("--mode", type=str, default="FLOW_UV",
@@ -124,7 +139,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     check_ported(args, parser)
     logger = get_logger(args.debug)
     config = RunConfig(
-        logger=logger, dataset=args.dataset, mode=args.mode,
+        logger=logger, dataset=args.dataset, sequence=args.sequence,
+        mode=args.mode,
         algorithm=args.algorithm, flow_source=args.flow_source,
         debug=args.debug, batch_size=args.batch_size,
         foe_samples=args.foe_samples, use_sparse_of=args.use_sparse_of,

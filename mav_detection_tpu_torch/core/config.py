@@ -145,10 +145,11 @@ class RunConfig:
             self.settings.get("validation_sequences", [])
         )
 
-    def get_dataset(self):  # -> data.Dataset (late import to avoid cycles)
+    def get_dataset(self, device="cuda"):  # -> data.Dataset (late import)
         from mav_detection_tpu_torch.data import make_dataset
 
-        ds = make_dataset(self.get_dataset_type(), self.logger, self.sequence)
+        ds = make_dataset(self.get_dataset_type(), self.logger, self.sequence,
+                          device=device)
         self.sequence = ds.sequence
         return ds
 

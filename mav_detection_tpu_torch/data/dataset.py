@@ -10,10 +10,17 @@ Same directory layout and accessor surface as
 
 Sky masks come from precomputed HRNet outputs where present, else from the
 SkyUNet (``models/sky_segmentation.py``) on ``Dataset.device``, cached back as
-HRNet-layout PNGs. Not ported yet (it raises rather than degrading
-silently): recovering frames from ``recording.mp4``
-(``data/preprocessing.py``). Images are 8-bit PNGs, written and read by this
-module's own codec on ``zlib`` and ``struct`` (no imageio, no OpenCV).
+HRNet-layout PNGs. At construction the preprocessing of
+``data/preprocessing.py`` runs as in the reference: frames are recovered from
+``recording.mp4`` through ``ffmpeg`` where it is on the path; stray ``.jpg``
+frames raise, since the port has no JPEG decoder.
+
+Images are PNGs, written and read by this module's own codec on ``zlib`` and
+``struct`` (no imageio, no OpenCV). The decoder undoes the row filters in
+native code (``runtime/native/png.cpp``, built with g++ at first use) and
+reads what the reference's imageio reads: gray, gray+alpha, RGB, RGBA and
+palette images at 8 bits, 16-bit gray as uint16, other 16-bit images as
+their high bytes, palettes at 1, 2 and 4 bits too.
 """
 from __future__ import annotations
 
@@ -21,20 +28,32 @@ import glob
 import logging
 import os
 import struct
+import threading
 import zlib
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from mav_detection_tpu_torch import _build
 from mav_detection_tpu_torch.core.flo import read_flow
 from mav_detection_tpu_torch.core.rectangle import Rectangle, parse_yolo_annotation
 from mav_detection_tpu_torch.utils.device import resolve_device
 
+_LOG = logging.getLogger("mav_detection_tpu_torch.data")
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-# channels per pixel by PNG colour type (8-bit, no palette)
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# channels per pixel by PNG colour type (3: palette indices)
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# bit depths the decoder reads, by colour type
+_PNG_DEPTHS = {0: (8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+# images decoded with the native unfilter and with the Python loop, since
+# the process started (chip_smoke.py reads them to show which path ran)
+DECODES: Dict[str, int] = {"native": 0, "plain": 0}
+_DECODES_LOCK = threading.Lock()
+_UNFILTER_LOCK = threading.Lock()
+_UNFILTER = None        # the native function once loaded; False without g++
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:
@@ -82,20 +101,87 @@ def _paeth_or_average(ftype: int, line: np.ndarray, prev: np.ndarray,
     return np.array(cur, np.uint8)
 
 
+def unfilter_plain(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the row filters of an inflated image, (h, 1 + stride) uint8 with
+    the filter type first in each row -> (h, stride): the plain version of
+    ``runtime/native/png.cpp::png_unfilter``. Sub and Up are array
+    operations; Average and Paeth rows take a byte loop."""
+    h, stride = raw.shape[0], raw.shape[1] - 1
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, line = int(raw[y, 0]), raw[y, 1:]
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:    # Sub: running sum along the row, per byte lane
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif ftype == 2:    # Up
+            cur = line + prev
+        elif ftype in (3, 4):
+            cur = _paeth_or_average(ftype, line, prev, bpp)
+        else:
+            raise ValueError(f"bad PNG filter type {ftype} in row {y}")
+        out[y] = cur
+        prev = out[y]
+    return out
+
+
+def _native_unfilter():
+    """``png_unfilter`` from the native library, built at first use; False
+    where g++ is missing (said once at WARNING). A failed build raises."""
+    global _UNFILTER
+    with _UNFILTER_LOCK:
+        if _UNFILTER is None:
+            try:
+                _UNFILTER = _build.load("png").png_unfilter
+            except _build.CompilerMissing as e:
+                _UNFILTER = False
+                _LOG.warning(f"PNG rows are unfiltered by the Python loop, "
+                             f"about 0.5 s per 752x480 RGB frame: {e}")
+        return _UNFILTER
+
+
+def png_unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """``unfilter_plain``'s result, from the native library where it builds."""
+    native = _native_unfilter()
+    if not native:
+        out = unfilter_plain(raw, bpp)
+        kind = "plain"
+    else:
+        raw = np.ascontiguousarray(raw, np.uint8)
+        h, stride = raw.shape[0], raw.shape[1] - 1
+        out = np.empty((h, stride), np.uint8)
+        rc = native(raw.reshape(-1), out.reshape(-1), h, stride, bpp)
+        if rc != 0:
+            raise ValueError(f"bad PNG filter type in row {rc - 1}" if rc > 0
+                             else f"png_unfilter: bad arguments ({h}, {stride}, {bpp})")
+        kind = "native"
+    with _DECODES_LOCK:
+        DECODES[kind] += 1
+    return out
+
+
 def png_decode(data: bytes) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced gray / gray+alpha / RGB / RGBA PNG into
-    (h, w) or (h, w, c) uint8. Rows with the Average or Paeth filter (which
-    other writers choose) take a byte loop; this module's own files use
-    filter 0."""
+    """Decode a non-interlaced PNG into (h, w) or (h, w, c), as the
+    reference's ``imageio.v3.imread`` returns it: uint8, except 16-bit gray
+    (uint16); other 16-bit images give their high bytes, as Pillow reads
+    them. Palette images expand to RGB, or to RGBA where a ``tRNS`` chunk
+    gives alpha (imageio drops it: ``imread`` keeps three channels either
+    way). Sub-byte gray and interlaced files raise ``ValueError``."""
     if data[:8] != _PNG_MAGIC:
         raise ValueError("not a PNG file")
-    pos, idat, header = 8, [], None
+    pos, idat, header, palette, trns = 8, [], None, None, None
     while pos < len(data):
         (length,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -103,38 +189,44 @@ def png_decode(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in _PNG_CHANNELS or interlace:
+    if colour not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[colour] or interlace:
         raise ValueError(
             f"unsupported PNG (bit depth {depth}, colour type {colour}, "
-            f"interlace {interlace}): 8-bit non-interlaced gray/RGB[A] only")
-    bpp = _PNG_CHANNELS[colour]
-    stride = w * bpp
+            f"interlace {interlace}): bit depths 1, 2 and 4 are read for "
+            "palettes only, and interlaced (Adam7) files not at all")
+    channels = _PNG_CHANNELS[colour]
+    bits = channels * depth
+    stride = (w * bits + 7) // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
         raise ValueError("PNG data length does not match its header")
-    raw = raw.reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        ftype, line = int(raw[y, 0]), raw[y, 1:]
-        if ftype == 0:
-            cur = line
-        elif ftype == 1:    # Sub: running sum along the row, per channel
-            cur = np.cumsum(line.reshape(w, bpp), axis=0,
-                            dtype=np.uint8).reshape(-1)
-        elif ftype == 2:    # Up
-            cur = line + prev
-        elif ftype in (3, 4):
-            cur = _paeth_or_average(ftype, line, prev, bpp)
-        else:
-            raise ValueError(f"bad PNG filter type {ftype}")
-        out[y] = cur
-        prev = out[y]
-    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+    rows = png_unfilter(raw.reshape(h, stride + 1), max(1, bits // 8))
+    if depth < 8:           # packed palette indices, most significant first
+        bits_of = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+        img = (bits_of << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+            -1, dtype=np.uint8)[..., None]
+    elif depth == 16:
+        img = rows.view(">u2").reshape(h, w, channels)
+        img = img.astype(np.uint16) if colour == 0 else (img >> 8).astype(np.uint8)
+    else:
+        img = rows.reshape(h, w, channels)
+    if colour == 3:
+        if palette is None:
+            raise ValueError("palette PNG without PLTE")
+        if trns is not None:
+            alpha = np.full((len(palette), 1), 255, np.uint8)
+            alpha[:min(len(trns), len(palette)), 0] = trns[:len(palette)]
+            palette = np.concatenate([palette, alpha], axis=1)
+        index = img[..., 0]
+        if index.size and int(index.max()) >= len(palette):
+            raise ValueError("PNG palette index out of range")
+        return palette[index]
+    return img[..., 0] if channels == 1 else img
 
 
 def imread(path: str) -> np.ndarray:
-    """Read an 8-bit PNG as BGR uint8 (the upstream code is BGR-ordered)."""
+    """Read a PNG as BGR uint8 (the upstream code is BGR-ordered), or gray
+    (h, w); 16-bit gray stays uint16."""
     with open(path, "rb") as f:
         img = png_decode(f.read())
     if img.ndim == 3 and img.shape[2] >= 3:
@@ -204,13 +296,17 @@ class Dataset:
     """Filesystem-backed sequence with the upstream accessor surface.
 
     ``device`` is where the SkyUNet runs for frames without a precomputed
-    sky mask (the card unless set otherwise; the Processor sets its own)."""
+    sky mask, and where a ``SimDataset`` synthesises its ground-truth flow:
+    the card unless the caller passes another (the Processor passes its
+    own)."""
 
     device: Union[str, torch.device] = "cuda"
 
     def __init__(self, base_path: str, logger: Optional[logging.Logger],
-                 sequence: str, img_dir: str = "/images", seq_dir: str = "") -> None:
+                 sequence: str, img_dir: str = "/images", seq_dir: str = "",
+                 device: Union[str, torch.device] = "cuda") -> None:
         self.logger = logger or logging.getLogger("mav_detection_tpu_torch.data")
+        self.device = device
         self.sequence = sequence or self.get_default_sequence()
         self.base_path = base_path
         self.seq_path = f"{base_path}{seq_dir}/{self.sequence}"
@@ -228,13 +324,21 @@ class Dataset:
         self.hrnet_out = f"{self.half_res_img_path}/hrnet"
         self.flow_path = f"{self.img_path}/output/inference/run.epoch-0-flow-field"
 
+        # idempotent preprocessing, as the reference's: recover frames from a
+        # recording where ffmpeg is on the path, refuse stray jpgs (no JPEG
+        # decoder here), normalize indices
+        from mav_detection_tpu_torch.data import preprocessing as prep
+
+        vid_path = f"{self.seq_path}/recording.mp4"
+        if os.path.isdir(self.img_path):
+            prep.jpgs_to_pngs(self.img_path)
+        if not glob.glob(f"{self.img_path}/image_*.png") and os.path.exists(vid_path):
+            prep.video_to_images(vid_path, f"{self.img_path}/image_%5d.png")
+            prep.renormalize_indices(self.img_path)
+
         self._frames = sorted_glob(f"{self.img_path}/image_*.png")
         self.N = len(self._frames)
         if self.N == 0:
-            if os.path.exists(f"{self.seq_path}/recording.mp4"):
-                raise NotImplementedError(
-                    f"{self.seq_path} holds only recording.mp4: frame recovery "
-                    "(data/preprocessing.py) is not ported yet")
             raise FileNotFoundError(
                 f"no frames found under {self.img_path} (expected image_%05d.png)")
 
@@ -318,6 +422,18 @@ class Dataset:
         if model is None:
             return None
         return sky_mask(model, self.get_frame(i), dev).cpu().numpy()
+
+    def validate_sky_segment(self, sky_mask: np.ndarray,
+                             depth: np.ndarray) -> Tuple[float, float]:
+        """(TPR, FPR) of a sky mask against the depth rule: sky is where the
+        depth exceeds 0.8 of its maximum. Host tensors, like the reference's
+        host call."""
+        from mav_detection_tpu_torch.ops.image.metrics import calculate_tpr_fpr
+
+        sky_gt = (depth > 0.8 * np.max(depth)).astype(np.uint8) * 255
+        tpr, fpr = calculate_tpr_fpr(torch.from_numpy(sky_gt),
+                                     torch.from_numpy(sky_mask.astype(np.uint8) * 255))
+        return float(tpr), float(fpr)
 
     def get_depth(self, i: int) -> Optional[np.ndarray]:
         path = f"{self.depth_path}/image_{i:05d}.pfm"

@@ -11,9 +11,8 @@ IMU state. A forward-flight scene entirely in memory:
 * depth: far sky band + ground falloff (the depth > 0.8*max sky-GT rule);
 * per-frame IMU state (omega, dt), GT FoE, YOLO annotations.
 
-``materialize()`` writes it in the reference directory layout, without the
-``optical-flow-vis`` colour images (``ops/image/visualize.py`` is not ported
-yet).
+``materialize()`` writes it in the reference directory layout, the
+``optical-flow-vis`` colour images included.
 """
 from __future__ import annotations
 
@@ -254,15 +253,17 @@ class SyntheticDataset(Dataset):
     def materialize(self, base_path: str) -> str:
         """Write the sequence to disk in the reference directory layout."""
         from mav_detection_tpu_torch.core.flo import write_flow
+        from mav_detection_tpu_torch.ops.image.visualize import flow_to_color
 
         seq = os.path.join(base_path, self.sequence)
         img_p = os.path.join(seq, "images")
         seg_p = os.path.join(seq, "segmentations")
         dep_p = os.path.join(seq, "depths")
         flo_p = os.path.join(seq, "optical-flow")
+        vis_p = os.path.join(seq, "optical-flow-vis")
         ann_p = os.path.join(seq, "annotation")
         state_p = os.path.join(seq, "states")
-        for d in (img_p, seg_p, dep_p, flo_p, ann_p, state_p,
+        for d in (img_p, seg_p, dep_p, flo_p, vis_p, ann_p, state_p,
                   os.path.join(seq, "results")):
             create_if_not_exists(d)
 
@@ -286,6 +287,8 @@ class SyntheticDataset(Dataset):
                 json.dump(state, f)
             if i < self.N - 1:
                 write_flow(os.path.join(flo_p, f"image_{i:05d}.flo"), self.flows[i])
+                dsmod.imwrite(os.path.join(vis_p, f"image_{i:05d}.png"),
+                              flow_to_color(self.flows[i]))
         self.seq_path = seq
         self.results_path = os.path.join(seq, "results")
         self.result_imgs_path = os.path.join(seq, "result-images")

@@ -1,8 +1,34 @@
-"""Threshold-based bounding box (``mav_detection_tpu.ops.image.boxes.
-get_simple_bounding_box_device``), batched over a leading frame axis."""
+"""Threshold-based bounding boxes (``mav_detection_tpu.ops.image.boxes``):
+the host versions (numpy, copies of the reference's) and the device box,
+batched over a leading frame axis."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from mav_detection_tpu_torch.core.rectangle import Rectangle
+
+
+def get_simple_bounding_box(img: np.ndarray) -> Rectangle:
+    """Fit a box around pixels with intensity > 0.1 * max (host/numpy)."""
+    img = np.asarray(img)
+    threshold = 0.1 * np.max(img) if img.size else 0.0
+    mask = img > threshold
+    if mask.ndim > 2:
+        mask = mask.any(axis=tuple(range(2, mask.ndim)))
+    rows = np.flatnonzero(mask.any(axis=1))
+    cols = np.flatnonzero(mask.any(axis=0))
+    if rows.size == 0 or cols.size == 0:
+        return Rectangle.from_points((-1, -1), (-1, -1))
+    return Rectangle.from_points(
+        (int(cols[0]), int(rows[0])), (int(cols[-1]), int(rows[-1]))
+    )
+
+
+def box_array_to_rectangle(box: np.ndarray) -> Rectangle:
+    """Convert a device [sx, sy, ex, ey] array back into a Rectangle."""
+    sx, sy, ex, ey = [int(v) for v in np.asarray(box)]
+    return Rectangle.from_points((sx, sy), (ex, ey))
 
 
 def get_simple_bounding_box_device(img: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,14 @@ def _tpr_fpr(gt_img: torch.Tensor, img: torch.Tensor) -> Tuple[torch.Tensor, tor
     return true_positives / positives, false_positives / negatives
 
 
+def calculate_tpr_fpr(gt_img: torch.Tensor, img: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tpr, fpr) of one (h, w) image pair, as two 0-d float32 tensors
+    (``mav_detection_tpu.ops.image.metrics.calculate_tpr_fpr``)."""
+    tpr, fpr = _tpr_fpr(gt_img[None], img[None])
+    return tpr[0], fpr[0]
+
+
 def tpr_fpr_counts(gt_img: torch.Tensor, img: torch.Tensor,
                    frame_weight: torch.Tensor) -> torch.Tensor:
     """Per-batch [tp, fp, pos, neg] counts (float32, shape (4,)) with a

@@ -138,9 +138,10 @@ class Processor:
             raise NotImplementedError(
                 "multi-device frame batches (parallel/mesh.py) are not "
                 "ported yet; use one device")
-        self.dataset = config.get_dataset()
-        # the SkyUNet of frames without a precomputed sky mask runs here too
-        self.dataset.device = self.device
+        # the SkyUNet of frames without a precomputed sky mask runs here too,
+        # and a SimDataset's GT flow is synthesised here
+        self.dataset = config.get_dataset(device=self.device)
+        self.dataset.device = self.device   # also for a dataset made elsewhere
         self.batch_size = max(1, config.batch_size)
         self.detection_results: Dict[int, FrameResult] = {}
         self._stage_host_seconds = 0.0
@@ -527,6 +528,10 @@ class Processor:
             seg = np.asarray(ds.get_segmentation(i))
             inputs["segs"][t] = seg[..., 0] if seg.ndim == 3 else seg
             inputs["skys"][t] = np.asarray(ds.get_sky_segmentation(i), bool)
+            # a dataset without depths (MIDGARD, VisDrone, the experiment
+            # recordings) keeps the ones plane, as both batch engines do; the
+            # reference's scan engine stores a NaN plane there, which makes
+            # its sky_tpr / sky_fpr NaN (a divergence by design)
             depth = ds.get_depth(i)
             if depth is not None:
                 inputs["depths"][t] = np.asarray(depth, np.float32)

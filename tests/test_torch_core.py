@@ -148,11 +148,18 @@ class TestSyntheticDataset:
                     == [(r.topleft, r.size) for r in j.get_annotation(i)])
         assert dataclasses.asdict(TParams(**kw)) == dataclasses.asdict(JParams(**kw))
 
-    def test_make_dataset(self):
+    def test_make_dataset(self, tmp_path, monkeypatch):
+        """The synthetic fixture and a MIDGARD sequence construct; a value
+        that is no DatasetType raises the reference's ValueError."""
         ds = make_dataset(tconfig.DatasetType.SYNTHETIC)
         assert ds.N == TParams().n_frames
-        with pytest.raises(NotImplementedError, match="MIDGARD"):
-            make_dataset(tconfig.DatasetType.MIDGARD)
+        TSynth(sequence="countryside-natural/north-narrow",
+               params=TParams(**SMALL), materialize_to=str(tmp_path))
+        monkeypatch.setenv("MIDGARD_PATH", str(tmp_path))
+        mg = make_dataset(tconfig.DatasetType.MIDGARD, device="cpu")
+        assert type(mg).__name__ == "MidgardDataset" and mg.N == SMALL["n_frames"]
+        with pytest.raises(ValueError, match="Invalid dataset type"):
+            make_dataset(99)
 
     def test_materialize_layout(self, tmp_path):
         pytest.importorskip("imageio")
@@ -165,6 +172,14 @@ class TestSyntheticDataset:
             jdataset.read_pfm(str(seq / "depths" / "image_00000.pfm")), t.depth)
         np.testing.assert_array_equal(tdataset.imread(str(seq / "images" / "image_00002.png")),
                                       t.frames[2])
+        # the flow colour images, as the reference writes them
+        vis = sorted((seq / "optical-flow-vis").glob("image_*.png"))
+        assert len(vis) == t.N - 1
+        j = JSynth(params=JParams(**SMALL), materialize_to=str(tmp_path / "jax"))
+        for p in vis:
+            np.testing.assert_array_equal(
+                tdataset.imread(str(p)),
+                jdataset.imread(str(tmp_path / "jax" / j.sequence / "optical-flow-vis" / p.name)))
         assert t.results_path == str(seq / "results")
 
 

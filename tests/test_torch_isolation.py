@@ -46,7 +46,22 @@ NEW_MODULES = [
     "mav_detection_tpu_torch.models.layers",
     "mav_detection_tpu_torch.models.sky_segmentation",
     "mav_detection_tpu_torch.models.raft",
+    "mav_detection_tpu_torch.data.preprocessing",
+    "mav_detection_tpu_torch.data.midgard",
+    "mav_detection_tpu_torch.data.vis_drone",
+    "mav_detection_tpu_torch.data.experiment",
+    "mav_detection_tpu_torch.data.airsim_flow",
+    "mav_detection_tpu_torch.data.sim_data",
+    "mav_detection_tpu_torch.sim.client",
+    "mav_detection_tpu_torch.sim.control",
+    "mav_detection_tpu_torch.sim.sim_config",
+    "mav_detection_tpu_torch.cli.collect",
 ]
+
+
+# an imageio or PIL import: the port reads and writes PNGs with its own codec
+_NO_IMAGE_LIBS = re.compile(r"^\s*(?:import|from)\s+(?:imageio|PIL)(?:[.\s,]|$)",
+                            re.MULTILINE)
 
 
 def _sources():
@@ -86,6 +101,30 @@ def test_source_has_no_forbidden_import(path):
 def test_source_imports_neither_flax_nor_msgpack(path):
     text = path.read_text()
     assert not _NO_FLAX.findall(text), f"{path}: {_NO_FLAX.findall(text)}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_neither_imageio_nor_pil(path):
+    text = path.read_text()
+    assert not _NO_IMAGE_LIBS.findall(text), f"{path}: {_NO_IMAGE_LIBS.findall(text)}"
+
+
+def test_image_lib_pattern_catches_and_spares():
+    assert _NO_IMAGE_LIBS.search("import imageio.v3 as iio")
+    assert _NO_IMAGE_LIBS.search("    from PIL import Image")
+    assert not _NO_IMAGE_LIBS.search("# what imageio returns")
+    assert not _NO_IMAGE_LIBS.search("import PILlow_like")
+
+
+def test_png_unfilter_builds_under_build_native():
+    """runtime/native/png.cpp builds with g++ into build/native/, keyed by a
+    hash of its source and flags, nothing beside the source."""
+    from mav_detection_tpu_torch import _build
+
+    path = _build.build(["png"])["png"]
+    assert path.exists() and path.parent == REPO / "build" / "native"
+    assert path.name.startswith("libpng-") and path == _build._target(_build.SOURCES["png"])
+    assert not list((PKG / "runtime").rglob("*.so"))
 
 
 def test_no_flax_pattern_catches_and_spares():
@@ -245,3 +284,50 @@ def test_checkpoints_load_with_flax_and_msgpack_barred():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_raft, n_sky = (int(v) for v in proc.stdout.split())
     assert n_raft > 1_000_000 and n_sky > 100_000
+
+
+def test_dataset_device_defaults_to_the_card_and_raises_without_one(tmp_path, monkeypatch):
+    """A SimDataset synthesises its GT flow on ``Dataset.device``, the card
+    unless the caller passes another; a MIDGARD sequence without HRNet masks
+    runs its SkyUNet there."""
+    _no_card()
+    from mav_detection_tpu_torch.data import MidgardDataset, SimDataset
+    from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
+    from mav_detection_tpu_torch.sim import MockSimClient, SimDataCollector
+
+    collection = {
+        "orientations": ["north"], "locations": {"field": {"x": 0.0, "y": 0.0, "z": -2.0}},
+        "orbit_speed": [2.0], "heights": {"low": 3.0}, "radii": [15.0],
+        "global_speed": {"default": {"lin_x": 1.2, "sin_y": 0.0, "sin_z": 0.0}},
+        "modes": ["foe_demo"], "collision_angles": [0.0]}
+    col = SimDataCollector(MockSimClient(image_hw=(24, 32)), collection,
+                           root_data_dir=str(tmp_path / "sim"), max_iterations=2)
+    col.run()
+    monkeypatch.setenv("SIMDATA_PATH", str(tmp_path / "sim"))
+    seq = os.path.relpath(col.get_base_dir(col.configs[0]), tmp_path / "sim")
+    with pytest.raises(RuntimeError, match="cuda"):
+        SimDataset(sequence=seq)
+    assert SimDataset(sequence=seq, device="cpu").N == 2
+
+    SyntheticDataset(sequence="countryside-natural/north-narrow",
+                     params=SyntheticParams(height=24, width=32, n_frames=2),
+                     materialize_to=str(tmp_path / "mg"))
+    monkeypatch.setenv("MIDGARD_PATH", str(tmp_path / "mg"))
+    mg = MidgardDataset()
+    assert mg.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        mg.get_sky_segmentation(0)
+
+
+def test_cli_default_dataset_runs_on_the_card_and_raises_without_one(tmp_path, monkeypatch):
+    """The bare CLI (MIDGARD, PRECOMPUTED) defaults to the card."""
+    _no_card()
+    from mav_detection_tpu_torch.cli.main import main
+    from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
+
+    SyntheticDataset(sequence="countryside-natural/north-narrow",
+                     params=SyntheticParams(height=24, width=32, n_frames=2),
+                     materialize_to=str(tmp_path))
+    monkeypatch.setenv("MIDGARD_PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--headless"])

@@ -248,7 +248,7 @@ def _disk_processor(tmp, flow_source, batch=2):
     on disk; the in-memory getters are removed, so the files are what is
     read."""
     cfg = RunConfig(dataset="synthetic", flow_source=flow_source, batch_size=batch)
-    cfg.get_dataset = lambda: SyntheticDataset(
+    cfg.get_dataset = lambda **_: SyntheticDataset(
         params=SyntheticParams(**SMALL), materialize_to=str(tmp))
     proc = Processor(cfg, device="cpu")
     proc.save_images = False
@@ -299,7 +299,7 @@ def test_in_memory_dataset_arms_no_prefetcher(monkeypatch):
     monkeypatch.setattr(native, "FloPrefetcher",
                         lambda *a, **k: made.append(1))
     cfg = RunConfig(dataset="synthetic", flow_source="PRECOMPUTED", batch_size=2)
-    cfg.get_dataset = lambda: SyntheticDataset(params=SyntheticParams(**SMALL))
+    cfg.get_dataset = lambda **_: SyntheticDataset(params=SyntheticParams(**SMALL))
     proc = Processor(cfg, device="cpu")
     assert len(proc.run_detection_foe()) == SMALL["n_frames"] - 1 and not made
 

@@ -29,7 +29,7 @@ from mav_detection_tpu_torch.cli.main import main as cli_main
 from mav_detection_tpu_torch.core.config import FlowSource, RunConfig
 from mav_detection_tpu_torch.core.frame_result import FrameResult
 from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
-from mav_detection_tpu_torch.data.dataset import imread
+from mav_detection_tpu_torch.data.dataset import imread, imwrite
 from mav_detection_tpu_torch.pipeline.processor import Processor, _edge_pad_batch
 
 # Tiny shapes: one intra-op thread, so that test workers running side by side
@@ -60,7 +60,7 @@ def jax_batch_samples(n_pairs, batch, n_samples, h, w):
 
 def run_jax(flow_source, farneback=None, seq=SMALL):
     cfg = JRunConfig(dataset="synthetic", flow_source=flow_source, batch_size=BATCH)
-    cfg.get_dataset = lambda: JSynth(params=JParams(**seq))
+    cfg.get_dataset = lambda **_: JSynth(params=JParams(**seq))
     proc = JProcessor(cfg)
     proc.save_images = False
     if farneback is not None:
@@ -71,7 +71,7 @@ def run_jax(flow_source, farneback=None, seq=SMALL):
 def port_processor(flow_source, seq=SMALL, **cfg_kw):
     cfg = RunConfig(dataset="synthetic", flow_source=flow_source,
                     batch_size=BATCH, **cfg_kw)
-    cfg.get_dataset = lambda: SyntheticDataset(params=SyntheticParams(**seq))
+    cfg.get_dataset = lambda **_: SyntheticDataset(params=SyntheticParams(**seq))
     return Processor(cfg, device="cpu")
 
 
@@ -183,14 +183,69 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--dataset", "midgard"], ["--engine", "spatial"], ["--validate"],
+    ["--host-index", "0"], ["--engine", "spatial"], ["--validate"],
     ["--num-hosts", "2"], ["--prepare-dataset"], ["--run-all"],
     ["--engine", "chunked"], ["--data-to-yolo"], ["--undistort"],
-    ["--sequence", "x"], ["--devices", "2"]])
+    ["--dataset", "midgard", "--validate"], ["--devices", "2"]])
 def test_cli_unported_flags_raise(argv):
     base = ["--dataset", "synthetic", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli_main(base + argv)
+
+
+def _dataset_layout(name, root):
+    """Env var and sequence of a 4-frame sequence of dataset ``name`` written
+    under ``root``: the synthetic frames in MIDGARD / VisDrone / experiment
+    layout (the latter with a GPS / IMU CSV pair), or a mock collection."""
+    if name == "simulation":
+        from mav_detection_tpu_torch.sim import MockSimClient, SimDataCollector
+
+        collection = {
+            "orientations": ["north"], "locations": {"field": {"x": 0.0, "y": 0.0, "z": -2.0}},
+            "orbit_speed": [2.0], "heights": {"low": 3.0}, "radii": [15.0],
+            "global_speed": {"default": {"lin_x": 1.2, "sin_y": 0.0, "sin_z": 0.0}},
+            "modes": ["collision"], "collision_angles": [10.0]}
+        col = SimDataCollector(MockSimClient(image_hw=(48, 64)), collection,
+                               root_data_dir=str(root), max_iterations=4)
+        col.run()
+        return "SIMDATA_PATH", os.path.relpath(col.get_base_dir(col.configs[0]), root)
+    env, img_dir = {
+        "midgard": ("MIDGARD_PATH", "countryside-natural/north-narrow/images"),
+        "vis_drone": ("VIS_DRONE_PATH", "sequences/uav0000244_01440_v"),
+        "experiment": ("EXPERIMENT_PATH", "moving-sample/images")}[name]
+    os.makedirs(root / img_dir)
+    for i, frame in enumerate(SyntheticDataset(params=SyntheticParams(
+            **dict(SMALL, n_frames=4))).frames):
+        imwrite(str(root / img_dir / f"image_{i:05d}.png"), frame)
+    if name == "experiment":
+        os.makedirs(root / "moving-sample" / "states")
+        t = 1.6e9 + np.arange(0.0, 320.0, 0.1)
+        for log in ("vn_gps_log.csv", "vn_imu_log.csv"):
+            data = np.zeros((t.size, 9))
+            data[:, 2], data[:, 6:9] = t, 0.01
+            np.savetxt(root / "moving-sample" / "states" / log, data, delimiter=",",
+                       header=",".join("c" * 9), comments="")
+    return env, ""
+
+
+@pytest.mark.parametrize("dataset", ["midgard", "simulation", "vis_drone", "experiment"])
+def test_cli_dataset_runs_on_cpu(dataset, tmp_path, monkeypatch):
+    """``--dataset`` of each reader with the CLI's other defaults
+    (PRECOMPUTED, which falls back to Farneback without .flo files; the batch
+    engine; sky masks from the SkyUNet): one finite-FoE FrameResult JSON per
+    pair in the sequence's results/."""
+    env, seq = _dataset_layout(dataset, tmp_path)
+    monkeypatch.setenv(env, str(tmp_path))
+    argv = ["--dataset", dataset, "--headless", "--device", "cpu",
+            "--batch-size", "2", "--foe-samples", "200"]
+    cli_main(argv + (["--sequence", seq] if seq else []))
+    results = sorted(tmp_path.rglob("results/image_*.json"))
+    assert len(results) == 3
+    for r in results:
+        fr = FrameResult.from_json_file(str(r))
+        assert np.isfinite(fr.foe_dense).all()
+    logging.getLogger("main").setLevel(logging.INFO)
+    logging.getLogger("mav_detection_tpu_torch").setLevel(logging.NOTSET)
 
 
 def test_cli_engine_scan_runs_on_cpu(tmp_path, monkeypatch):
@@ -217,7 +272,7 @@ def test_ground_truth_json_fields_match():
 def test_ground_truth_reads_flo_files_from_disk(tmp_path):
     """A materialised sequence serves GROUND_TRUTH from optical-flow/*.flo."""
     cfg = RunConfig(dataset="synthetic", flow_source="GROUND_TRUTH", batch_size=BATCH)
-    cfg.get_dataset = lambda: SyntheticDataset(
+    cfg.get_dataset = lambda **_: SyntheticDataset(
         params=SyntheticParams(**SMALL), materialize_to=str(tmp_path))
     proc = Processor(cfg, device="cpu")
     proc.dataset.gt_of_path = os.path.join(proc.dataset.seq_path, "optical-flow")
@@ -260,7 +315,7 @@ IMAGE_DIRS = ("result-images", "derotated", "phi", "processed")
 def _materialised(cls, params_cls, cfg_cls, tmp, **cfg_kw):
     cfg = cfg_cls(dataset="synthetic", flow_source="PRECOMPUTED",
                   batch_size=BATCH, **cfg_kw)
-    cfg.get_dataset = lambda: cls(params=params_cls(**SMALL),
+    cfg.get_dataset = lambda **_: cls(params=params_cls(**SMALL),
                                   materialize_to=str(tmp))
     return cfg
 
@@ -398,7 +453,7 @@ def _homography_cfg(cfg_cls, ds_cls, params_cls, tmp, **kw):
     cfg = cfg_cls(dataset="synthetic", mode="FLOW_FOE_CLUSTERING",
                   algorithm="HOMOGRAPHY", flow_source="GROUND_TRUTH",
                   headless=True, **kw)
-    cfg.get_dataset = lambda: ds_cls(params=params_cls(**HOMOG),
+    cfg.get_dataset = lambda **_: ds_cls(params=params_cls(**HOMOG),
                                      materialize_to=str(tmp))
     return cfg
 
@@ -568,7 +623,7 @@ def test_cli_accepts_the_new_flags(argv, n_mosaics, tmp_path, monkeypatch):
 
     monkeypatch.setattr(
         cfgmod.RunConfig, "get_dataset",
-        lambda self: SyntheticDataset(params=SyntheticParams(
+        lambda self, **_: SyntheticDataset(params=SyntheticParams(
             **dict(HOMOG, n_frames=4)), materialize_to=str(tmp_path)))
     cli_main(["--dataset", "synthetic", "--device", "cpu", "--headless", *argv])
     seq = tmp_path / "synthetic" / "forward-flight"

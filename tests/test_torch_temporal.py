@@ -82,7 +82,7 @@ def jax_scan_samples(T, n_samples, h, w, key=None):
 def port_processor(params, engine="scan", **cfg_kw):
     cfg_kw.setdefault("flow_source", "FARNEBACK")
     cfg = RunConfig(dataset="synthetic", engine=engine, batch_size=2, **cfg_kw)
-    cfg.get_dataset = lambda: SyntheticDataset(params=SyntheticParams(**params))
+    cfg.get_dataset = lambda **_: SyntheticDataset(params=SyntheticParams(**params))
     return Processor(cfg, device="cpu")
 
 
@@ -258,7 +258,7 @@ class TestHostLooks:
 def _jax_scan_processor(farneback):
     cfg = JRunConfig(logger=logging.getLogger("t"), dataset="synthetic",
                      flow_source="FARNEBACK", engine="scan", headless=True)
-    cfg.get_dataset = lambda: JSynth(params=JParams(**SMALL))
+    cfg.get_dataset = lambda **_: JSynth(params=JParams(**SMALL))
     proc = JProcessor(cfg)
     proc._farneback = farneback
     return proc
@@ -408,7 +408,7 @@ def test_cli_engine_scan_on_cpu(extra, tmp_path, monkeypatch):
 
     monkeypatch.setattr(
         cfgmod.RunConfig, "get_dataset",
-        lambda self: SyntheticDataset(params=SyntheticParams(**SMALL),
+        lambda self, **_: SyntheticDataset(params=SyntheticParams(**SMALL),
                                       materialize_to=str(tmp_path)))
     cli_main(["--dataset", "synthetic", "--flow-source", "FARNEBACK", "--engine",
               "scan", "--headless", "--device", "cpu", "--foe-samples", "200", *extra])
