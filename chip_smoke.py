@@ -98,8 +98,25 @@ Phases, each printing one line (plus its seconds):
                SimDataset synthesising GT flow on the card (card against CPU
                within 0.05 px), the FoE loop at batch 4 on GROUND_TRUTH and
                FARNEBACK flow (the kernel at S=16): frames/s, median FoE
-               error, finite in-frame FoE.
-Then the nets and datasets JSON line, the kernels JSON line, the nvidia-smi
+               error, finite in-frame FoE. Each CLI run ends in the
+               Validator (mode FLOW_UV: TinyYOLO on the imagery of the GT
+               flow); its launches and seconds are counted apart.
+ 15. yolo    — TinyYOLO and what stands on it: the four shipped
+               checkpoints read and converted, with the time of each; raw
+               predictions and decoded boxes card against CPU at 240x320 and
+               752x480 (fp32 and bf16); mean IoU and detection rate per mode
+               on two fixtures against the JAX package's numbers
+               (YOLO_JAX); forward and decode+NMS device time at 752x480
+               b=8 (CUDA graph and events) beside their bounds, device
+               activities per call, host looks per batch; the REST server
+               in-process (12 frames per npz request: answers equal
+               engine.predict, 4 concurrent posts, non-npz 400, requests/s);
+               the CLI's bare defaults on a MIDGARD-layout copy without
+               optical-flow/ (detection, then validation with the fused
+               kernel's launches counted apart), the remote branch against
+               the port's server (equal IoU stats), and --prepare-dataset in
+               FLOW_FOE_YOLO mode.
+Then the nets, datasets and yolo JSON line, the kernels JSON line, the nvidia-smi
 line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line and
 exits non-zero; so does a machine without a card, or a directory without
@@ -160,6 +177,38 @@ SKY_TPR_MIN, SKY_FPR_MAX = 0.9, 0.05
 RAFT_CARD_CPU_TOL_PX = {"fp32": 0.02, "bf16": 0.5}
 SKY_CARD_CPU_TOL = {"fp32": 1e-3, "bf16": 0.25}     # logits
 SKY_MASK_AGREEMENT = 0.995
+
+# yolo phase gates. The JAX package's mean IoU and detection rate per fixture
+# and mode with the shipped per-mode checkpoints, on the CPU:
+#     JAX_PLATFORMS=cpu python tests/yolo_reference_numbers.py
+# (scored as mav_detection_tpu.cli.train.eval_yolo scores them; "holdout" is
+# eval_yolo's fixture, "product" the 24-frame default SyntheticDataset). The
+# card's mean IoU must lie within YOLO_IOU_TOL of it and its rate within one
+# frame. docs/PERF_TPU.md's TPU-era figures are context, not gates.
+YOLO_JAX = {
+    "holdout FLOW_UV": (0.92667045147838, 1.0),
+    "holdout FLOW_RADIAL": (0.8345997480097799, 0.9166666666666666),
+    "holdout FLOW_FOE_YOLO": (0.9191497349503889, 1.0),
+    "product FLOW_UV": (0.8108844140926488, 0.875),
+    "product FLOW_RADIAL": (0.9266057277189753, 1.0),
+    "product FLOW_FOE_YOLO": (0.8001393938594671, 0.875),
+}
+YOLO_FIXTURES = {
+    "holdout": dict(seed=779, n_frames=12, drone_radius=11, drone_start=(240.0, 70.0),
+                    drone_velocity=(-4.0, 3.0)),
+    "product": {},
+}
+YOLO_IOU_TOL = 0.05
+# TinyYOLO card against the port's CPU: raw predictions (logits), fp32 (TF32
+# off) and the product bf16, whose 8-bit mantissa is 0.125 wide at the
+# logits' largest magnitudes (~25) and which cuDNN and oneDNN round at other
+# points (measured 0.56-0.63 logits at 240x320 and 752x480 on the H100);
+# decoded boxes: kept boxes per frame may differ by YOLO_KEPT_DIFF, and each
+# card box overlaps its best CPU box by at least YOLO_MATCHED_IOU
+YOLO_CARD_CPU_TOL = {"fp32": 1e-3, "bf16": 1.0}
+YOLO_KEPT_DIFF = {"fp32": 0, "bf16": 1}
+YOLO_MATCHED_IOU = {"fp32": 0.99, "bf16": 0.9}
+YOLO_NAMES = ("yolo", "yolo_flow_uv", "yolo_flow_radial", "yolo_flow_foe_yolo")
 
 
 def say(msg: str) -> None:
@@ -1852,16 +1901,22 @@ def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
         return real_infer(self, i)
 
     def cli(tag, argv, n_pairs):
-        """One CLI run, launch counter zeroed just before and read just
-        after; returns (frames/s, launches, results)."""
+        """One CLI run, launch counter zeroed just before; the detection's
+        wall time and launches are read when the Validator starts (which
+        the CLI runs after it, in mode FLOW_UV with TinyYOLO), the
+        validation's after it. Returns (frames/s, launches, wall s) of the
+        detection."""
         sky_calls.clear()
         fi.reset_launch_counts()
         t0 = time.perf_counter()
-        cli_main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = fi.LAUNCHES[k]
+        with _ValidationSplit() as split:
+            cli_main(argv)
+        val = split.runs[-1]
+        wall = val["started"] - t0
+        launches = val["launches_before"]
         out["launches"][tag] = launches
+        out["launches"][f"{tag} validation"] = val["launches"]
+        out.setdefault("validation_s", {})[tag] = val["s"]
         return n_pairs / wall, launches, wall
 
     try:
@@ -2096,6 +2151,428 @@ def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
     return out
 
 
+class _ValidationSplit:
+    """Patches ``Validator.run_validation`` to note the fused kernel's launch
+    count when validation starts (so a CLI run's launches split into
+    detection and validation), its seconds and the stats it returns."""
+
+    def __enter__(self):
+        from mav_detection_tpu_torch.eval import validator as tv
+        from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+
+        self.runs = []
+        self._real = real = tv.Validator.run_validation
+        runs = self.runs
+
+        def run(v):
+            import torch
+
+            torch.cuda.synchronize()
+            start = fi.LAUNCHES["farneback_iterate_fused"]
+            t0 = time.perf_counter()
+            stats = real(v)
+            torch.cuda.synchronize()
+            runs.append({"launches_before": start, "stats": stats, "started": t0,
+                         "s": time.perf_counter() - t0,
+                         "launches": fi.LAUNCHES["farneback_iterate_fused"] - start,
+                         "figures_skipped": v._plots_skipped})
+            return stats
+
+        tv.Validator.run_validation = run
+        return self
+
+    def __exit__(self, *exc):
+        from mav_detection_tpu_torch.eval import validator as tv
+
+        tv.Validator.run_validation = self._real
+        return False
+
+
+def _yolo_score(dev, model_of, fixture, mode):
+    """(mean best IoU, detection rate) of TinyYOLO on ``dev`` over a
+    fixture's mode imagery (GT flow), as the JAX numbers were scored."""
+    from mav_detection_tpu_torch.core.rectangle import Rectangle
+    from mav_detection_tpu_torch.models.yolo import boxes_to_host, detect_boxes
+    from mav_detection_tpu_torch.pipeline.mode_imagery import mode_image_host
+
+    ious = []
+    for i in range(fixture.N):
+        j = min(i, fixture.N - 2)
+        img = mode_image_host(fixture.get_frame(i), np.asarray(fixture.flows[j], np.float32),
+                              mode, seed=i, device=dev)
+        b = boxes_to_host(detect_boxes(model_of(mode), img))
+        gt = fixture.get_annotation(i)[0]
+        best = 0.0
+        for k in range(len(b.valid)):
+            if b.valid[k]:
+                x, y, bw, bh = (float(v) for v in b.xywh[k])
+                best = max(best, Rectangle.calculate_iou_safe(
+                    Rectangle((x - bw / 2, y - bh / 2), (bw, bh)), gt))
+        ious.append(best)
+    ious = np.asarray(ious)
+    return float(ious.mean()), float((ious > 0.25).mean())
+
+
+def _box_iou(a, b) -> float:
+    """IoU of two center-format boxes."""
+    ax1, ay1, ax2, ay2 = a[0] - a[2] / 2, a[1] - a[3] / 2, a[0] + a[2] / 2, a[1] + a[3] / 2
+    bx1, by1, bx2, by2 = b[0] - b[2] / 2, b[1] - b[3] / 2, b[0] + b[2] / 2, b[1] + b[3] / 2
+    inter = max(0.0, min(ax2, bx2) - max(ax1, bx1)) * max(0.0, min(ay2, by2) - max(ay1, by1))
+    return float(inter / max(a[2] * a[3] + b[2] * b[3] - inter, 1e-9))
+
+
+def _count_launches(fn) -> int:
+    """Device activities (kernels, copies, fills) of one call of ``fn``
+    from torch.profiler's CUDA events; None where the profiler cannot trace
+    the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages() if "CUDA" in str(e.device_type))
+    except Exception as e:  # CUPTI may be unavailable to the profiler
+        say(f"[yolo]   torch.profiler could not count launches: {e!r}")
+        return None
+    return n or None
+
+
+def _host_looks(fn) -> int:
+    """Synchronising calls ``fn`` makes (set_sync_debug_mode warnings)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(c.message) for c in caught)
+
+
+def _post_npz(url: str, data: bytes):
+    import urllib.error
+    import urllib.request
+
+    from mav_detection_tpu_torch.eval.validator import multipart_body
+
+    body, ctype = multipart_body("video", "frames.npz", data)
+    req = urllib.request.Request(f"{url}/predict_video", data=body, method="POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
+               server=(480, 752, 12), cli=(480, 752, 12)) -> dict:
+    """TinyYOLO and what stands on it: load, card against CPU, quality
+    against the JAX numbers, device times beside their bounds, the REST
+    server, and the CLI's defaults ending in validation."""
+    import hashlib
+    import io
+    import shutil
+    import threading
+    import urllib.request
+
+    import torch
+
+    from mav_detection_tpu_torch import convert
+    from mav_detection_tpu_torch.cli.main import main as cli_main
+    from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
+    from mav_detection_tpu_torch.models import checkpoint, pretrained
+    from mav_detection_tpu_torch.models import yolo as ty
+    from mav_detection_tpu_torch.ops.flow import farneback as fb
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.ops.image.visualize import flow_to_color
+    from mav_detection_tpu_torch.serve import _decode_media, _encode_annotated, create_server
+
+    k = "farneback_iterate_fused"
+    out = {"launches": {}}
+    checks = Checks("yolo")
+    here = os.path.dirname(os.path.abspath(__file__))
+    if os.environ.get("MAV_CHECKPOINT_PATH"):
+        raise AssertionError("yolo: MAV_CHECKPOINT_PATH is set; the shipped "
+                             "checkpoints must be read")
+
+    # ---- load: the four shipped files through the port's reader
+    load = {}
+    for name in YOLO_NAMES:
+        path = pretrained.checkpoint_path(name)
+        if os.path.dirname(path) != os.path.join(here, "checkpoints") or not os.path.isfile(path):
+            raise AssertionError(f"yolo: {name} checkpoint at {path}")
+        t0 = time.perf_counter()
+        raw = checkpoint.load_msgpack(path)
+        t1 = time.perf_counter()
+        sd = convert.yolo_state_dict_from_flax(raw)
+        t2 = time.perf_counter()
+        load[name] = {"bytes": os.path.getsize(path), "read_s": t1 - t0,
+                      "convert_s": t2 - t1, "tensors": len(sd),
+                      "parameters": int(sum(v.numel() for v in sd.values()))}
+    out["load"] = load
+    pretrained.clear_cache()
+
+    def model_of(mode, d=dev):
+        m = pretrained.load_yolo(mode, d)
+        if m is None:
+            raise AssertionError(f"yolo: no model for {mode} on {d}")
+        return m
+
+    # ---- card against CPU: FLOW_UV imagery and the raw frame, batch of 2
+    card_cpu = {}
+    for h, w in sizes:
+        fx = SyntheticDataset(params=SyntheticParams(height=h, width=w, n_frames=2))
+        imgs = np.stack([flow_to_color(fx.flows[0]), fx.get_frame(0)])
+        for kind, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            raws, boxes = [], []
+            for d in (dev, "cpu"):
+                with torch.no_grad():
+                    r = model_of("FLOW_UV", d)(ty.pad_to_stride(torch.as_tensor(imgs).to(d)),
+                                               dtype)
+                raws.append(_np(r))
+                boxes.append(ty.boxes_to_host(ty.decode_predictions(r)))
+            err = float(np.abs(raws[0] - raws[1]).max())
+            checks.add(f"raw predictions {kind} {w}x{h}", err, YOLO_CARD_CPU_TOL[kind],
+                       "max |card - cpu| logits")
+            kept_diff, matched = 0, 1.0
+            for j in range(len(imgs)):
+                bc, bp = (b.xywh[j][b.valid[j]] for b in boxes)
+                kept_diff = max(kept_diff, abs(len(bc) - len(bp)))
+                for box in bc:
+                    matched = min(matched, max((_box_iou(box, q) for q in bp), default=0.0))
+            checks.add(f"kept boxes {kind} {w}x{h}", kept_diff, YOLO_KEPT_DIFF[kind],
+                       "max |card - cpu| per frame")
+            checks.add(f"matched box IoU {kind} {w}x{h}", matched, YOLO_MATCHED_IOU[kind],
+                       "min IoU", at_least=True)
+            card_cpu[f"{w}x{h} {kind}"] = {
+                "max_abs_err_logits": err, "kept_diff": kept_diff, "min_matched_iou": matched,
+                "kept": [int(b.valid.sum()) for b in boxes]}
+    out["card_vs_cpu"] = card_cpu
+
+    # ---- quality against the JAX package's numbers
+    quality = {}
+    for fx_name, kw in YOLO_FIXTURES.items():
+        fixture = SyntheticDataset(params=SyntheticParams(**kw))
+        for mode in ("FLOW_UV", "FLOW_RADIAL", "FLOW_FOE_YOLO"):
+            key = f"{fx_name} {mode}"
+            iou, rate = _yolo_score(dev, model_of, fixture, mode)
+            j_iou, j_rate = YOLO_JAX[key]
+            checks.add(f"IoU {key}", abs(iou - j_iou), YOLO_IOU_TOL, f"|card {iou:.5f} - jax|")
+            checks.add(f"detection rate {key}", abs(rate - j_rate), 1.0 / fixture.N + 1e-9,
+                       f"|card {rate:.4f} - jax|")
+            quality[key] = {"iou": iou, "rate": rate, "jax_iou": j_iou, "jax_rate": j_rate}
+    out["quality"] = quality
+
+    # ---- device time at 752x480 b=8, beside the bounds
+    h, w, b = time_size
+    fx = SyntheticDataset(params=SyntheticParams(height=h, width=w, n_frames=b + 1))
+    imgs = np.stack([flow_to_color(fx.flows[i]) for i in range(b)])
+    x = torch.as_tensor(imgs).to(dev)
+    model = model_of("FLOW_UV")
+    dt = torch.bfloat16
+    with torch.no_grad():
+        fwd = lambda: model(x, dt)  # noqa: E731
+        raw = fwd()
+        dec = lambda: ty.decode_predictions(raw)  # noqa: E731
+        boxes = dec()
+        fl = _conv_flops(model, fwd)
+        weights = _nbytes(*model.parameters())
+        fwd_bound, fwd_by = _bound(_nbytes(x, raw) + weights, fl["fp32"], fl["bf16"])
+        gh, gw = raw.shape[1:3]
+        kk = min(64, gh * gw * 3)
+        # decode: ~12 fp32 operations per raw value, the k x k IoU matrix
+        # (~20 each) and the k masked steps over (b, k)
+        dec_ops = 12.0 * raw.numel() + 20.0 * b * kk * kk + 6.0 * b * kk * kk
+        dec_bound, dec_by = _bound(_nbytes(raw, *boxes), dec_ops, 0.0)
+        fwd_graph, fwd_timer = _device_ms(fwd, 5)
+        dec_graph, dec_timer = _device_ms(dec, 5)
+        timing = {
+            "size": f"{w}x{h}", "batch": b,
+            "forward": {"ms": fwd_graph, "timer": fwd_timer, "events_ms": time_ms(fwd, 10),
+                        "bound_ms": fwd_bound, "bound_by": fwd_by,
+                        "gflop_bf16": fl["bf16"] / 1e9, "gflop_fp32": fl["fp32"] / 1e9,
+                        "launches": _count_launches(fwd)},
+            "decode_nms": {"ms": dec_graph, "timer": dec_timer, "events_ms": time_ms(dec, 10),
+                           "bound_ms": dec_bound, "bound_by": dec_by,
+                           "launches": _count_launches(dec)},
+            "detect_batch_wall_ms": wall_ms(lambda: ty.batch_box_strings(model, imgs, b), 5),
+            "host_looks_per_batch": _host_looks(lambda: ty.batch_box_strings(model, imgs, b)),
+        }
+    out["timing"] = timing
+
+    # ---- the REST server, in-process
+    sh, sw, sn = server
+    fx = SyntheticDataset(params=SyntheticParams(height=sh, width=sw, n_frames=sn))
+    frames = np.stack(fx.frames[:sn])
+    buf = io.BytesIO()
+    np.savez(buf, frames=frames)
+    media = buf.getvalue()
+    srv = create_server(port=0, device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://{srv.server_address[0]}:{srv.server_address[1]}"
+    try:
+        engine = srv.engine
+        direct = engine.predict(frames)
+        status, _ = _post_npz(url, media)
+        with urllib.request.urlopen(
+                f"{url}/predict_video_boxes?hash={hashlib.sha1(media).hexdigest()}") as r:
+            served = json.loads(r.read())
+        if status != 200 or served != direct:
+            raise AssertionError(f"yolo server: HTTP {status}, boxes equal {served == direct}")
+        results = [None] * 4
+        ts = [threading.Thread(target=lambda i=i: results.__setitem__(i, _post_npz(url, media)))
+              for i in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        if [r[0] for r in results] != [200] * 4 or len({r[1] for r in results}) != 1:
+            raise AssertionError(f"yolo server: concurrent posts {[r and r[0] for r in results]}")
+        bad, _ = _post_npz(url, b"\x00\x00\x00\x18ftypmp42" + bytes(64))
+        if bad != 400:
+            raise AssertionError(f"yolo server: non-npz media answered {bad}")
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _post_npz(url, media)
+        req_s = (time.perf_counter() - t0) / reps
+        t0 = time.perf_counter()
+        got, _ = _decode_media(media)
+        t1 = time.perf_counter()
+        boxes_s = engine.predict(got)
+        t2 = time.perf_counter()
+        _encode_annotated(got, boxes_s)
+        t3 = time.perf_counter()
+        out["server"] = {
+            "size": f"{sw}x{sh}", "frames": sn, "media_bytes": len(media),
+            "requests_per_s": 1.0 / req_s, "ms_per_frame": req_s * 1e3 / sn,
+            "decode_ms": (t1 - t0) * 1e3, "infer_ms": (t2 - t1) * 1e3,
+            "annotate_ms": (t3 - t2) * 1e3,
+            "boxes": sum(len(v) for v in direct.values())}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+    # ---- the CLI's defaults: detection then validation, on the card
+    ch, cw, cn = cli
+    cwd = os.getcwd()
+    env_keys = ("MIDGARD_PATH", "YOLO_INFERENCE_HOST", "YOLOv4_PATH", "MAVTPU_NN_MEDIA")
+    env_before = {v: os.environ.get(v) for v in env_keys}
+    per_batch = _per_batch_launches(fb.tuned_flow_params(ch, cw), ch, cw)
+    n_pairs = cn - 1
+    want = per_batch * -(-n_pairs // 8)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "midgard")
+            SyntheticDataset(sequence=MIDGARD_SEQ, params=SyntheticParams(
+                height=ch, width=cw, n_frames=cn), materialize_to=root)
+            seq = os.path.join(root, MIDGARD_SEQ)
+            # a MIDGARD recording has neither GT flow nor results yet
+            shutil.rmtree(os.path.join(seq, "optical-flow"))
+            shutil.rmtree(os.path.join(seq, "results"))
+            with open(os.path.join(tmp, "settings.json"), "w") as f:
+                json.dump({"train_sequences": [MIDGARD_SEQ], "validation_sequences": []}, f)
+            os.chdir(tmp)
+            os.environ["MIDGARD_PATH"] = root
+            for v in env_keys[1:]:
+                os.environ.pop(v, None)
+            cli_out = {}
+            with _ValidationSplit() as split:
+                fi.reset_launch_counts()
+                t0 = time.perf_counter()
+                cli_main(["--headless"])
+                torch.cuda.synchronize()
+                cli_out["wall_s"] = time.perf_counter() - t0
+                val = split.runs[-1]
+                cli_out["detection_launches"] = val["launches_before"]
+                cli_out["validation_launches"] = val["launches"]
+                cli_out["validation_s"] = val["s"]
+                cli_out["figures"] = "skipped (no matplotlib)" if val["figures_skipped"] \
+                    else "written"
+                local = val["stats"]
+                if (val["launches_before"], val["launches"]) != (want, want):
+                    raise AssertionError(
+                        f"yolo cli: launches {val['launches_before']} in detection, "
+                        f"{val['launches']} in validation, expected {want} each")
+                for key in ("iou_mean", "iou_std", "detection_rate"):
+                    if local.get(key) is None or not np.isfinite(local[key]):
+                        raise AssertionError(f"yolo cli: {key} {local.get(key)}")
+                if not os.path.isfile(os.path.join(seq, "validation.npy")):
+                    raise AssertionError("yolo cli: no validation.npy")
+                cache = glob.glob(os.path.join(seq, "bounding-boxes", "*-FLOW_UV.json"))
+                if len(cache) != 1:
+                    raise AssertionError(f"yolo cli: box cache {cache}")
+                _read_results("yolo cli", os.path.join(seq, "results"), n_pairs,
+                              NAN_WITHOUT_GT_FOE)
+                cli_out["stats"] = local
+
+                # the remote branch against the in-process port server
+                srv = create_server(port=0, mode="FLOW_UV", device=dev)
+                thread = threading.Thread(target=srv.serve_forever, daemon=True)
+                thread.start()
+                try:
+                    os.environ["YOLO_INFERENCE_HOST"] = \
+                        f"http://{srv.server_address[0]}:{srv.server_address[1]}"
+                    fi.reset_launch_counts()
+                    cli_main(["--headless", "--validate"])
+                    torch.cuda.synchronize()
+                finally:
+                    os.environ.pop("YOLO_INFERENCE_HOST", None)
+                    srv.shutdown()
+                    srv.server_close()
+                remote = split.runs[-1]
+                for key in ("iou_mean", "iou_std", "detection_rate"):
+                    if remote["stats"][key] != local[key]:
+                        raise AssertionError(f"yolo remote: {key} {remote['stats'][key]} "
+                                             f"against local {local[key]}")
+                if not os.path.isfile(os.path.join(seq, "nn-input-flow_uv.npz")):
+                    raise AssertionError("yolo remote: no nn-input npz")
+                cli_out["remote_validation_s"] = remote["s"]
+                cli_out["remote_validation_launches"] = remote["launches"]
+
+            # --prepare-dataset in FLOW_FOE_YOLO mode
+            os.environ["YOLOv4_PATH"] = os.path.join(tmp, "yolo")
+            fi.reset_launch_counts()
+            t0 = time.perf_counter()
+            cli_main(["--headless", "--prepare-dataset", "--mode", "FLOW_FOE_YOLO"])
+            torch.cuda.synchronize()
+            cli_out["convert_s"] = time.perf_counter() - t0
+            cli_out["convert_launches"] = fi.LAUNCHES[k]
+            imgs_out = sorted(glob.glob(os.path.join(tmp, "yolo", "dataset", "images", "*.png")))
+            anns_out = glob.glob(os.path.join(tmp, "yolo", "dataset", "labels", "yolo", "*.txt"))
+            if len(imgs_out) != cn - 2 or len(anns_out) != cn - 2:
+                raise AssertionError(f"yolo convert: {len(imgs_out)} images, "
+                                     f"{len(anns_out)} labels")
+            if cli_out["convert_launches"] != per_batch * (cn - 2):
+                raise AssertionError(f"yolo convert: {cli_out['convert_launches']} launches")
+            from mav_detection_tpu_torch.data.dataset import imread
+
+            if imread(imgs_out[0]).shape != (ch, cw, 3):
+                raise AssertionError("yolo convert: image shape")
+    finally:
+        os.chdir(cwd)
+        for v, val in env_before.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+    out["cli"] = cli_out
+    out["launches"] = {"detection": cli_out["detection_launches"],
+                       "validation": cli_out["validation_launches"],
+                       "remote_validation": cli_out["remote_validation_launches"],
+                       "convert": cli_out["convert_launches"]}
+    out["checks"] = checks.finish()
+    return out
+
 def main() -> int:
     import torch
 
@@ -2321,8 +2798,49 @@ def main() -> int:
             f"{lp['frames_per_s']:.2f} frames/s on {smi}, median |FoE - GT FoE| "
             f"{lp['median_foe_err_px']:.2f} px, FoE in frame {lp['foe_in_frame']} of "
             f"{lp['pairs']}, launches {lp['launches']}")
-    say(f"[datasets] {dsets['checks']} checks within tolerance "
-        f"({times['datasets']:.1f} s)")
+    say(f"[datasets] {dsets['checks']} checks within tolerance; the CLI runs' "
+        f"validation (FLOW_UV, TinyYOLO, GT flow from optical-flow/) s "
+        f"{json.dumps(dsets['validation_s'])} ({times['datasets']:.1f} s)")
+
+    t0 = time.perf_counter()
+    yo = phase_yolo(dev)
+    times["yolo"] = time.perf_counter() - t0
+    for name, ld in yo["load"].items():
+        say(f"[yolo] {name}.msgpack ({ld['bytes']} bytes) read in {ld['read_s']:.3f} s, "
+            f"converted in {ld['convert_s']:.3f} s: {ld['tensors']} tensors, "
+            f"{ld['parameters']} parameters")
+    say(f"[yolo] card vs CPU on {smi}: {json.dumps(yo['card_vs_cpu'])}")
+    say(f"[yolo] mean IoU / detection rate on the card against the JAX package's "
+        f"(gate {YOLO_IOU_TOL} / one frame) on {smi}: {json.dumps(yo['quality'])}")
+    tm = yo["timing"]
+    for stage in ("forward", "decode_nms"):
+        st = tm[stage]
+        say(f"[yolo] TinyYOLO {stage} {tm['size']} b={tm['batch']} bf16 on {smi}: "
+            f"{st['ms']:.4f} ms ({st['timer']}), {st['events_ms']:.4f} ms eager (events), "
+            f"bound {st['bound_ms']:.5f} ms ({st['bound_by']}), share of bound "
+            f"{st['bound_ms'] / st['ms']:.4f}, device activities per call "
+            f"{st['launches'] if st['launches'] is not None else 'not measured'}"
+            + (f", {st['gflop_bf16']:.3f} GFLOP bf16 + {st['gflop_fp32']:.4f} fp32"
+               if stage == "forward" else ""))
+    say(f"[yolo] detect + box strings per batch of {tm['batch']} (upload, forward, "
+        f"decode, one pull, formatting), host clock: {tm['detect_batch_wall_ms']:.3f} ms; "
+        f"host looks per batch {tm['host_looks_per_batch']} on {smi}")
+    sv = yo["server"]
+    say(f"[yolo] server, {sv['frames']} frames {sv['size']} per request ({sv['media_bytes']} "
+        f"bytes npz) on {smi}: {sv['requests_per_s']:.3f} requests/s, "
+        f"{sv['ms_per_frame']:.3f} ms per frame; in-process decode {sv['decode_ms']:.2f} ms, "
+        f"infer {sv['infer_ms']:.2f} ms, annotate {sv['annotate_ms']:.2f} ms; answers equal "
+        f"engine.predict, 4 concurrent posts equal, non-npz 400")
+    cl = yo["cli"]
+    say(f"[yolo] CLI defaults on the MIDGARD-layout copy without optical-flow/, {smi}: "
+        f"{cl['wall_s']:.2f} s, validation {cl['validation_s']:.2f} s (figures "
+        f"{cl['figures']}); farneback_iterate_fused launches {cl['detection_launches']} in "
+        f"detection, {cl['validation_launches']} in validation; stats "
+        f"{json.dumps(cl['stats'])}; remote branch (YOLO_INFERENCE_HOST, the port's server) "
+        f"{cl['remote_validation_s']:.2f} s, {cl['remote_validation_launches']} launches, "
+        f"IoU stats equal; --prepare-dataset FLOW_FOE_YOLO {cl['convert_s']:.2f} s, "
+        f"{cl['convert_launches']} launches")
+    say(f"[yolo] {yo['checks']} checks within tolerance ({times['yolo']:.1f} s)")
     say(f"[phases] seconds {json.dumps(times)}")
 
     k = "farneback_iterate_fused"
@@ -2345,6 +2863,10 @@ def main() -> int:
         "launches_scan_1920x1024": scan["1920x1024"]["launches"][k],
         "launches_entry": ent["launches"][k],
         "launches_datasets": dsets["launches"],
+        "launches_validator": yo["launches"]["validation"],
+        "launches_validator_remote": yo["launches"]["remote_validation"],
+        "launches_convert": yo["launches"]["convert"],
+        "launches_yolo_cli_detection": yo["launches"]["detection"],
         "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
         "per_batch": {f"{size} b={tb}": {
             key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
@@ -2385,6 +2907,8 @@ def main() -> int:
     say(json.dumps({"nets": {k: nets[k] for k in ("load", "sky", "raft", "stages")},
                     "datasets": {key: dsets[key] for key in (
                         "midgard", "midgard_card_vs_cpu", "png", "sim")},
+                    "yolo": {key: yo[key] for key in (
+                        "load", "card_vs_cpu", "quality", "timing", "server", "cli")},
                     "nets_loops": [{k: lp[k] for k in (
                         "size", "frames_per_s", "device_ms_per_batch",
                         "flow_device_ms_per_batch", "wall_ms_per_batch",

@@ -7,12 +7,15 @@ kernel of the reference rewritten by hand as CUDA C++ for ``sm_90a``
 
 Layering (bottom-up):
   core/      FrameResult, Rectangle, .flo codec, typed run config
-  data/      dataset contract + the procedural synthetic sequence
+  data/      dataset contract, the readers and the synthetic sequence
   ops/       device compute: Farneback flow (CUDA iterate kernels),
              geometry (derotation, FoE, thresholds), image metrics
-  pipeline/  the fused detection step and the batch frame engine
+  models/    the learned nets: SkyUNet, RAFT, TinyYOLO
+  pipeline/  the fused detection step, the frame engines, NN mode imagery
+  eval/      the Validator
+  serve.py   the TinyYOLO REST inference server
   utils/     device resolution, per-stage tracing
-  cli/       main.py-compatible command line (the ported flag subset)
+  cli/       main.py-compatible command line, the server, the collector
 
 Entry points run on the card (``device="cuda"``) and raise when none is
 present; tests pass ``device="cpu"``, where every kernel wrapper takes its

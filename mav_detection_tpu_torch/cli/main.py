@@ -1,19 +1,31 @@
 """Command-line entry point of the port.
 
 The parser knows the reference's flag surface (``mav_detection_tpu.cli.
-main``) plus ``--device``; the port runs the batch and scan engines on every
-dataset (the FoE detection loop, or on the batch engine the homography
-branch with ``--algorithm HOMOGRAPHY``), and every flag or value outside the
-``PORTED`` table raises "not yet ported" instead of being ignored.
+main``) plus ``--device``; every flag or value outside the ``PORTED`` table
+raises "not yet ported" instead of being ignored. ``execute`` runs the
+reference's branches: detection then validation (the Validator; in the NN
+modes TinyYOLO over the mode imagery), validation alone with ``--validate``
+in an NN mode, or one of the conversions (``--prepare-dataset``,
+``--data-to-yolo``, ``--undistort``). ``--run-all`` validates every
+validation sequence of ``settings.json``, sharded over hosts by
+``--num-hosts`` / ``--host-index`` (or ``MAV_NUM_HOSTS`` /
+``MAV_HOST_INDEX``).
 
 The bare defaults run the FoE loop over a MIDGARD sequence (``MIDGARD_PATH``,
 sequence ``countryside-natural/north-narrow`` unless ``--sequence`` names
 another) on PRECOMPUTED flow, which falls back to Farneback on the card where
-the sequence has no ``.flo`` files. Simulation sequences come from the
-collector (``cli/collect.py``).
+the sequence has no ``.flo`` files, then validate in mode FLOW_UV: TinyYOLO
+on the flow imagery of every frame, on the card. Simulation sequences come
+from the collector (``cli/collect.py``).
 
 Usage:
     MIDGARD_PATH=<dir> python -m mav_detection_tpu_torch.cli.main --headless
+    MIDGARD_PATH=<dir> python -m mav_detection_tpu_torch.cli.main --headless \
+        --validate --mode FLOW_FOE_YOLO
+    MIDGARD_PATH=<dir> YOLOv4_PATH=<dir> python -m \
+        mav_detection_tpu_torch.cli.main --prepare-dataset --mode FLOW_FOE_YOLO
+    MIDGARD_PATH=<dir> python -m mav_detection_tpu_torch.cli.main --data-to-yolo
+    python -m mav_detection_tpu_torch.cli.main --run-all --headless
     python -m mav_detection_tpu_torch.cli.collect --collection foe-demo \
         --mock --image-size 1024x1920 --data-dir <dir> --max-iterations 8
     SIMDATA_PATH=<dir> python -m mav_detection_tpu_torch.cli.main \
@@ -36,15 +48,21 @@ Usage:
 written there. The FrameResult JSON lands in the sequence's ``results/``
 directory and the debug images (FoE branch: ``result-images/``,
 ``derotated/``, ``phi/``, ``processed/``, ``video.npz``; homography branch:
-the ``processed/`` mosaics) beside it.
+the ``processed/`` mosaics) beside it; the Validator writes
+``validation.npy``, the box cache ``bounding-boxes/`` and, where matplotlib
+can be imported, its figures.
 """
 from __future__ import annotations
 
 import argparse
 import logging
-from typing import List, Optional
+import os
+from typing import List, Optional, Union
 
-from mav_detection_tpu_torch.core.config import RunConfig
+import torch
+
+from mav_detection_tpu_torch.core.config import Mode, RunConfig
+from mav_detection_tpu_torch.eval.validator import Validator
 from mav_detection_tpu_torch.pipeline.processor import Processor
 
 # flags the port runs, and the values it accepts where it restricts them
@@ -62,6 +80,13 @@ PORTED = {
     "foe_samples": None,
     "headless": None,
     "device": None,
+    "validate": None,
+    "prepare_dataset": None,
+    "data_to_yolo": None,
+    "undistort": None,
+    "run_all": None,
+    "num_hosts": None,
+    "host_index": None,
 }
 
 
@@ -133,25 +158,70 @@ def check_ported(args: argparse.Namespace,
                 f"--{name.replace('_', '-')} is not yet ported")
 
 
+def execute(config: RunConfig, device: Union[str, torch.device] = "cuda") -> None:
+    """The reference's ``execute``: validation alone with ``--validate`` in
+    an NN mode, else a conversion, else detection then validation."""
+    config.logger.info(f"Starting: {config}")
+    if config.validate and config.uses_nn_for_detection():
+        Validator(config, device=device).run_validation()
+        return
+    processor = Processor(config, device=device)
+    try:
+        if config.prepare_dataset:
+            processor.convert(config.mode)
+        elif config.data_to_yolo:
+            processor.annotations_to_yolo()
+        elif config.undistort:
+            processor.undistort()
+        else:
+            results = processor.run_detection()
+            config.logger.info(f"{len(results)} frame results")
+            Validator(config, device=device).run_validation()
+    finally:
+        processor.release()
+
+
+def run_all(logger: logging.Logger, args: argparse.Namespace) -> None:
+    """Validation sweep over the validation sequences of ``settings.json``;
+    each host takes ``sequences[host_index::num_hosts]``."""
+    num_hosts = args.num_hosts or int(os.environ.get("MAV_NUM_HOSTS", "1"))
+    host_index = (args.host_index if args.host_index is not None
+                  else int(os.environ.get("MAV_HOST_INDEX", "0")))
+    settings = RunConfig(logger=logger).settings
+    sequences = list(settings.get("validation_sequences", []))
+    mine = sequences[host_index::max(num_hosts, 1)]
+    if num_hosts > 1:
+        logger.info(f"run-all host {host_index}/{num_hosts}: "
+                    f"{len(mine)}/{len(sequences)} sequences")
+    for sequence in mine:
+        config = RunConfig(
+            logger=logger, dataset=args.dataset or "MIDGARD",
+            sequence=sequence, mode=str(Mode.FLOW_FOE_CLUSTERING),
+            debug=True, validate=True, headless=args.headless,
+            flow_source=args.flow_source, batch_size=args.batch_size,
+            devices=args.devices, engine=args.engine.lower(),
+            foe_samples=args.foe_samples, use_sparse_of=args.use_sparse_of)
+        execute(config, args.device)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
     check_ported(args, parser)
     logger = get_logger(args.debug)
+    if args.run_all:
+        run_all(logger, args)
+        return
     config = RunConfig(
         logger=logger, dataset=args.dataset, sequence=args.sequence,
         mode=args.mode,
         algorithm=args.algorithm, flow_source=args.flow_source,
         debug=args.debug, batch_size=args.batch_size,
         foe_samples=args.foe_samples, use_sparse_of=args.use_sparse_of,
-        engine=args.engine.lower(), headless=args.headless)
-    logger.info(f"Starting: {config}")
-    processor = Processor(config, device=args.device)
-    try:
-        results = processor.run_detection()
-        logger.info(f"{len(results)} frame results")
-    finally:
-        processor.release()
+        engine=args.engine.lower(), headless=args.headless,
+        prepare_dataset=args.prepare_dataset, validate=args.validate,
+        data_to_yolo=args.data_to_yolo, undistort=args.undistort)
+    execute(config, args.device)
 
 
 if __name__ == "__main__":

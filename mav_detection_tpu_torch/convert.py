@@ -12,12 +12,12 @@ dicts of numpy arrays (``{k: np.asarray(v) for k, v in state._asdict()
 
 The learned nets' weights cross as the raw Flax param tree (nested dicts of
 numpy arrays: what ``models/checkpoint.py`` reads, and what
-``flax.serialization.msgpack_restore`` returns): ``raft_state_dict_from_flax``
-and ``sky_state_dict_from_flax`` give each model's ``state_dict``. Conv
-``kernel`` HWIO becomes ``weight`` OIHW, GroupNorm ``scale`` becomes
-``weight``, and Flax's automatic names map to the port's module names by the
-tables below. A key left over on either side raises. TinyYOLO's weights come
-with its slice.
+``flax.serialization.msgpack_restore`` returns): ``raft_state_dict_from_flax``,
+``sky_state_dict_from_flax`` and ``yolo_state_dict_from_flax`` give each
+model's ``state_dict``. Conv ``kernel`` HWIO becomes ``weight`` OIHW,
+GroupNorm ``scale`` becomes ``weight``, and Flax's automatic names map to the
+port's module names by the tables below. A key left over on either side
+raises.
 """
 from __future__ import annotations
 
@@ -149,6 +149,17 @@ SKY_TABLE = {"ConvBlock_0": ("down1", _BLOCK), "ConvBlock_1": ("down2", _BLOCK),
              "ConvBlock_4": ("up3", _BLOCK), "ConvBlock_5": ("up2", _BLOCK),
              "ConvBlock_6": ("up1", _BLOCK), "Conv_0": ("head", None)}
 
+# TinyYOLO numbers its convs and norms across its four stages: stage s holds
+# Conv_{2s}, GroupNorm_{2s} (the stride-2 conv and its norm) and Conv_{2s+1},
+# GroupNorm_{2s+1}; Conv_8 is the 1x1 head
+YOLO_TABLE = {"Conv_8": ("head", None)}
+for _s in range(4):
+    YOLO_TABLE.update({
+        f"Conv_{2 * _s}": (f"stage{_s + 1}.down", None),
+        f"GroupNorm_{2 * _s}": (f"stage{_s + 1}.norm1", None),
+        f"Conv_{2 * _s + 1}": (f"stage{_s + 1}.conv", None),
+        f"GroupNorm_{2 * _s + 1}": (f"stage{_s + 1}.norm2", None)})
+
 
 def _leaf(name: str, arr: np.ndarray) -> "tuple[str, torch.Tensor]":
     arr = np.asarray(arr, np.float32)
@@ -215,3 +226,12 @@ def sky_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     with torch.device("meta"):
         model = SkyUNet()
     return _state_dict_from_flax(tree, SKY_TABLE, model)
+
+
+def yolo_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``models.yolo.TinyYOLO`` state_dict of a TinyYOLO param tree."""
+    from mav_detection_tpu_torch.models.yolo import TinyYOLO
+
+    with torch.device("meta"):
+        model = TinyYOLO()
+    return _state_dict_from_flax(tree, YOLO_TABLE, model)

@@ -133,5 +133,38 @@ def resolve_yolo_checkpoint(mode: Optional[str] = None) -> str:
     return checkpoint_path("yolo")
 
 
+def load_yolo_params(mode: Optional[str] = None) -> Optional[Dict[str, torch.Tensor]]:
+    """TinyYOLO weights for a detection mode as the port's ``state_dict``,
+    falling back (with a WARNING) to the RGB-trained weights when no
+    per-mode checkpoint is shipped; None when neither file exists."""
+    from mav_detection_tpu_torch.convert import yolo_state_dict_from_flax
+
+    name = yolo_checkpoint_name(mode)
+    path = checkpoint_path(name)
+    if not os.path.exists(path):
+        if name != "yolo":
+            logger.warning(
+                f"no per-mode YOLO checkpoint {path}; falling back to the "
+                "RGB-trained weights (the JAX package trains mode weights "
+                f"with `python -m mav_detection_tpu.cli.train --model yolo "
+                f"--yolo-mode {mode}`)")
+            return load_yolo_params(None)
+        return None
+    return _load_state_dict(name, yolo_state_dict_from_flax)
+
+
+def load_yolo(mode: Optional[str] = None,
+              device: Union[str, torch.device] = "cuda"):
+    """The TinyYOLO of a detection mode on ``device``, or None. Cached per
+    device under the name of the checkpoint it was read from, so the RGB
+    fallback and a per-mode file never share an entry."""
+    from mav_detection_tpu_torch.models.yolo import TinyYOLO
+    from mav_detection_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    name = os.path.splitext(os.path.basename(resolve_yolo_checkpoint(mode)))[0]
+    return _model_on(name, dev, TinyYOLO, lambda: load_yolo_params(mode))
+
+
 def clear_cache() -> None:
     _CACHE.clear()

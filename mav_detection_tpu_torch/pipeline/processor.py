@@ -33,7 +33,13 @@ on a padded tail's real lanes only); staging with pinned-memory uploads of
 B+1 unique frames per full batch (gray, or for RAFT the frames as they
 come); ``.flo`` files through the native in-order prefetcher (numpy where
 its library cannot be built, said once in the log); static-shape tail
-padding; one scalar pull per batch. Not ported yet, each raising rather than
+padding; one scalar pull per batch.
+
+Conversions: ``annotations_to_yolo`` (``--data-to-yolo``), ``convert``
+(``--prepare-dataset``: mode imagery through ``pipeline/mode_imagery.py``)
+and ``undistort`` (the ``UNDISTORT_PATH`` passthrough).
+
+Not ported yet, each raising rather than
 skipping: the spatial engine, multi-device meshes (and with them the chunked
 engine, which exists only across devices), and the ``cv2.VideoWriter`` mp4
 fallback (the port has no OpenCV).
@@ -52,7 +58,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from mav_detection_tpu_torch.core.config import Algorithm, FlowSource, RunConfig
+from mav_detection_tpu_torch.core.config import Algorithm, FlowSource, Mode, RunConfig
 from mav_detection_tpu_torch.core.flo import read_flow_batch
 from mav_detection_tpu_torch.core.frame_result import FrameResult
 from mav_detection_tpu_torch.core.rectangle import Rectangle
@@ -827,6 +833,102 @@ class Processor:
                 return
             frames[n] = f
         np.savez_compressed(out_path, frames=frames)
+
+    # ----------------------------------------------- dataset conversion
+    def annotation_to_yolo(self, rects) -> str:
+        return "".join(r.to_yolo(self.dataset.resolution) for r in rects)
+
+    def annotations_to_yolo(self) -> None:
+        """MIDGARD csv -> YOLO txt annotations of every configured
+        sequence (``--data-to-yolo``)."""
+        midgard = os.environ["MIDGARD_PATH"]
+        for sequence in self.config.get_all_sequences():
+            ann_dir = f"{midgard}/{sequence}/annotation"
+            self.logger.info(f"converting annotations: {sequence}")
+            for old in glob.glob(f"{ann_dir}/*.txt"):
+                os.remove(old)
+            for src in sorted(glob.glob(f"{ann_dir}/*.csv")):
+                dst = src.replace("annot_", "image_").replace("csv", "txt")
+                rows = np.atleast_2d(np.genfromtxt(src, delimiter=","))
+                lines = []
+                for row in rows:
+                    if row.size < 5 or not np.isfinite(row[1:5]).all():
+                        continue
+                    # MIDGARD csv: frame, x, y, w, h in pixels
+                    rect = Rectangle((row[1], row[2]), (row[3], row[4]))
+                    lines.append(rect.to_yolo(self.dataset.resolution))
+                with open(dst, "w") as f:
+                    f.writelines(lines)
+
+    def convert(self, mode: Mode) -> None:
+        """YOLO training-set export (``--prepare-dataset``): per train
+        sequence, the mode imagery of each frame (``mode_image_host``, the
+        Validator's inference transform) and a copy of its annotation, under
+        ``$YOLOv4_PATH/dataset``. The flow comes from the sequence being
+        exported: the dataset is re-created per sequence."""
+        from mav_detection_tpu_torch.data import make_dataset
+        from mav_detection_tpu_torch.pipeline.mode_imagery import mode_image_host
+
+        dest = os.environ["YOLOv4_PATH"] + "/dataset"
+        img_dest = f"{dest}/images"
+        ann_dest = f"{dest}/labels/yolo"
+        for d in (img_dest, ann_dest):
+            create_if_not_exists(d)
+            for name in os.listdir(d):
+                p = os.path.join(d, name)
+                shutil.rmtree(p) if os.path.isdir(p) else os.unlink(p)
+
+        out_idx = 0
+        orig_dataset = self.dataset
+        try:
+            for sequence in self.config.settings.get("train_sequences", []):
+                self.logger.info(f"preparing sequence {sequence}")
+                base = os.environ["MIDGARD_PATH"]
+                imgs = sorted(glob.glob(f"{base}/{sequence}/images/image_*.png"))
+                anns = sorted(glob.glob(f"{base}/{sequence}/annotation/*.txt"))
+                if len(imgs) != len(anns):
+                    raise ValueError(
+                        f"input sizes do not match: {len(imgs)} images, "
+                        f"{len(anns)} annotations")
+                self.dataset = make_dataset(self.config.get_dataset_type(),
+                                            self.config.logger, sequence,
+                                            device=self.device)
+                for i, (img_src, ann_src) in enumerate(zip(imgs, anns)):
+                    if mode != Mode.APPEARANCE_RGB and i >= len(imgs) - 2:
+                        continue  # last frames have no flow pair
+                    dst_img = f"{img_dest}/{out_idx:06d}.png"
+                    if mode == Mode.APPEARANCE_RGB:
+                        shutil.copy2(img_src, dst_img)
+                    else:
+                        flow = self._flow_batch([i])[0].cpu().numpy()
+                        frame = np.asarray(self.dataset.get_frame(i))
+                        imwrite(dst_img, mode_image_host(frame, flow, mode.name,
+                                                         seed=i, device=self.device))
+                    shutil.copy2(ann_src, f"{ann_dest}/{out_idx:06d}.txt")
+                    out_idx += 1
+        finally:
+            self.dataset = orig_dataset
+
+    def undistort(self) -> None:
+        """External undistortion tool passthrough (``--undistort``,
+        ``UNDISTORT_PATH``)."""
+        exe = os.environ.get("UNDISTORT_PATH")
+        if not exe:
+            self.logger.warning("UNDISTORT_PATH not set; skipping undistort")
+            return
+        base = os.environ["MIDGARD_PATH"]
+        for sequence in self.config.get_all_sequences():
+            cal = glob.glob(f"{base}/{sequence}/info/calibration/*.txt")
+            if not cal:
+                continue
+            out_dir = f"{base}/{sequence}/undistorted"
+            create_if_not_exists(out_dir)
+            for img in sorted(glob.glob(f"{base}/{sequence}/images/image_*.png")):
+                out = f"{out_dir}/{os.path.basename(img)}"
+                if os.path.exists(out):
+                    continue
+                with open(os.devnull, "w") as devnull:
+                    subprocess.call([exe, "--run", cal[0], img, out], stdout=devnull)
 
     def release(self) -> None:
         self._close_flo_prefetcher()

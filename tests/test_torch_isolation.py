@@ -56,7 +56,18 @@ NEW_MODULES = [
     "mav_detection_tpu_torch.sim.control",
     "mav_detection_tpu_torch.sim.sim_config",
     "mav_detection_tpu_torch.cli.collect",
+    "mav_detection_tpu_torch.models.yolo",
+    "mav_detection_tpu_torch.pipeline.mode_imagery",
+    "mav_detection_tpu_torch.eval.validator",
+    "mav_detection_tpu_torch.serve",
+    "mav_detection_tpu_torch.cli.serve",
 ]
+
+
+# a module-level import of requests or matplotlib: a CUDA host need not
+# have either; the Validator imports matplotlib lazily and speaks HTTP with urllib
+_NO_TOP_LEVEL_CLIENT_LIBS = re.compile(
+    r"^(?:import|from)\s+(?:requests|matplotlib)(?:[.\s,]|$)", re.MULTILINE)
 
 
 # an imageio or PIL import: the port reads and writes PNGs with its own codec
@@ -331,3 +342,61 @@ def test_cli_default_dataset_runs_on_the_card_and_raises_without_one(tmp_path, m
     monkeypatch.setenv("MIDGARD_PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--headless"])
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_neither_requests_nor_matplotlib_at_module_level(path):
+    text = path.read_text()
+    found = _NO_TOP_LEVEL_CLIENT_LIBS.findall(text)
+    assert not found, f"{path}: {found}"
+
+
+def test_client_lib_pattern_catches_and_spares():
+    assert _NO_TOP_LEVEL_CLIENT_LIBS.search("import requests")
+    assert _NO_TOP_LEVEL_CLIENT_LIBS.search("import matplotlib.pyplot as plt")
+    assert _NO_TOP_LEVEL_CLIENT_LIBS.search("from matplotlib import cm")
+    assert not _NO_TOP_LEVEL_CLIENT_LIBS.search("        import matplotlib")
+    assert not _NO_TOP_LEVEL_CLIENT_LIBS.search("# requests go through urllib")
+
+
+def test_every_module_imports_with_requests_and_matplotlib_barred():
+    """A fresh interpreter with requests and matplotlib unimportable imports
+    every module of the port and chip_smoke.py, and runs the Validator's
+    figure step (skipped, with its warning)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for m in ('requests', 'matplotlib'): sys.modules[m] = None\n"
+        "import mav_detection_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from mav_detection_tpu_torch.core.config import RunConfig\n"
+        "from mav_detection_tpu_torch.eval.validator import Validator\n"
+        "assert Validator(RunConfig(dataset='synthetic'), device='cpu')._plt() is None\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "matplotlib cannot be imported" in proc.stderr
+
+
+def test_yolo_entry_points_raise_without_card(tmp_path, monkeypatch):
+    """TinyYOLO, the Validator, the server and the CLI's validation run on
+    the card by default."""
+    _no_card()
+    from mav_detection_tpu_torch.cli.main import main
+    from mav_detection_tpu_torch.core.config import RunConfig
+    from mav_detection_tpu_torch.eval.validator import Validator
+    from mav_detection_tpu_torch.models import pretrained
+    from mav_detection_tpu_torch.serve import create_server
+
+    for call in (lambda: pretrained.load_yolo("FLOW_UV"),
+                 lambda: Validator(RunConfig(dataset="synthetic")),
+                 lambda: create_server(port=0)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    monkeypatch.chdir(tmp_path)
+    for argv in (["--validate"], ["--prepare-dataset"], ["--data-to-yolo"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--dataset", "synthetic", "--headless", *argv])

@@ -174,6 +174,7 @@ def test_scan_engine_is_ported_and_chunked_needs_devices():
 
 
 def test_cli_runs_on_cpu(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("SYNTHETIC_PATH", str(tmp_path))
     cli_main(["--dataset", "synthetic", "--flow-source", "FARNEBACK",
               "--headless", "--device", "cpu", "--batch-size", "8",
@@ -183,10 +184,7 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--host-index", "0"], ["--engine", "spatial"], ["--validate"],
-    ["--num-hosts", "2"], ["--prepare-dataset"], ["--run-all"],
-    ["--engine", "chunked"], ["--data-to-yolo"], ["--undistort"],
-    ["--dataset", "midgard", "--validate"], ["--devices", "2"]])
+    ["--engine", "spatial"], ["--engine", "chunked"], ["--devices", "2"]])
 def test_cli_unported_flags_raise(argv):
     base = ["--dataset", "synthetic", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -234,6 +232,7 @@ def test_cli_dataset_runs_on_cpu(dataset, tmp_path, monkeypatch):
     (PRECOMPUTED, which falls back to Farneback without .flo files; the batch
     engine; sky masks from the SkyUNet): one finite-FoE FrameResult JSON per
     pair in the sequence's results/."""
+    monkeypatch.chdir(tmp_path)
     env, seq = _dataset_layout(dataset, tmp_path)
     monkeypatch.setenv(env, str(tmp_path))
     argv = ["--dataset", dataset, "--headless", "--device", "cpu",
@@ -249,6 +248,7 @@ def test_cli_dataset_runs_on_cpu(dataset, tmp_path, monkeypatch):
 
 
 def test_cli_engine_scan_runs_on_cpu(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("SYNTHETIC_PATH", str(tmp_path))
     cli_main(["--dataset", "synthetic", "--flow-source", "FARNEBACK", "--engine",
               "SCAN", "--headless", "--device", "cpu", "--foe-samples", "200"])
@@ -619,6 +619,7 @@ def test_sparse_correspondences_fall_back_without_tracks():
 def test_cli_accepts_the_new_flags(argv, n_mosaics, tmp_path, monkeypatch):
     """The newly ported flags run end to end on a short sequence (the
     dataset factory is swapped for a 4-frame one)."""
+    monkeypatch.chdir(tmp_path)
     from mav_detection_tpu_torch.core import config as cfgmod
 
     monkeypatch.setattr(
@@ -740,6 +741,7 @@ def test_raft_homography_branch_runs(tmp_path):
 
 
 def test_cli_accepts_raft_on_cpu(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     import mav_detection_tpu_torch.data as data_mod
 
     monkeypatch.setenv("SYNTHETIC_PATH", str(tmp_path))
@@ -749,3 +751,274 @@ def test_cli_accepts_raft_on_cpu(tmp_path, monkeypatch):
               "--device", "cpu", "--batch-size", "2", "--foe-samples", "200"])
     results = sorted(tmp_path.rglob("results/image_*.json"))
     assert len(results) == RAFT_SEQ["n_frames"] - 1
+
+
+# ----------------------------------------- conversions and the CLI's execute
+@pytest.mark.parametrize("mode", ["FLOW_RADIAL", "FLOW_FOE_YOLO", "APPEARANCE_RGB"])
+def test_convert_uses_per_sequence_flow_and_mode_imagery(mode, tmp_path, monkeypatch):
+    """--prepare-dataset (tests/test_pipeline.py's convert case, on the
+    port): the images go through the shared mode transform, and the flow
+    comes from the sequence being exported (the dataset is re-created per
+    sequence through ``make_dataset``, which regenerates the same content);
+    APPEARANCE_RGB copies the frames."""
+    from mav_detection_tpu_torch.core.config import Mode
+    from mav_detection_tpu_torch.pipeline.mode_imagery import mode_image_host
+
+    ds = SyntheticDataset(materialize_to=str(tmp_path))
+    monkeypatch.setenv("MIDGARD_PATH", str(tmp_path))
+    monkeypatch.setenv("YOLOv4_PATH", str(tmp_path / "yolo"))
+    monkeypatch.setenv("SYNTHETIC_PATH", str(tmp_path))
+    os.makedirs(tmp_path / "yolo" / "dataset" / "images")
+    (tmp_path / "yolo" / "dataset" / "images" / "stale.png").write_bytes(b"x")
+
+    cfg = RunConfig(dataset="synthetic", mode=mode, flow_source="GROUND_TRUTH",
+                    headless=True)
+    cfg.settings = {"train_sequences": [ds.sequence]}
+    proc = Processor(cfg, device="cpu")
+    proc.convert(Mode[mode])
+
+    imgs = sorted(glob.glob(f"{tmp_path}/yolo/dataset/images/*.png"))
+    anns = sorted(glob.glob(f"{tmp_path}/yolo/dataset/labels/yolo/*.txt"))
+    n = ds.N if mode == "APPEARANCE_RGB" else ds.N - 2   # last pair has no flow
+    assert len(imgs) == len(anns) == n
+    assert os.path.basename(imgs[0]) == "000000.png"
+    expected = mode_image_host(np.asarray(ds.get_frame(0)),
+                               np.asarray(ds.get_gt_of(0), np.float32), mode,
+                               seed=0, device="cpu")
+    np.testing.assert_array_equal(imread(imgs[0]), np.asarray(expected, np.uint8))
+    with open(anns[3]) as f, open(f"{ds.seq_path}/annotation/image_00003.txt") as g:
+        assert f.read() == g.read()
+    assert proc.dataset is not None and proc.dataset.N == ds.N
+
+
+def test_convert_refuses_unequal_inputs(tmp_path, monkeypatch):
+    from mav_detection_tpu_torch.core.config import Mode
+
+    ds = SyntheticDataset(params=SyntheticParams(**SMALL), materialize_to=str(tmp_path))
+    os.remove(f"{ds.seq_path}/annotation/image_00002.txt")
+    monkeypatch.setenv("MIDGARD_PATH", str(tmp_path))
+    monkeypatch.setenv("YOLOv4_PATH", str(tmp_path / "yolo"))
+    cfg = RunConfig(dataset="synthetic", mode="FLOW_UV", flow_source="GROUND_TRUTH")
+    cfg.settings = {"train_sequences": [ds.sequence]}
+    cfg.get_dataset = lambda **_: SyntheticDataset(params=SyntheticParams(**SMALL))
+    with pytest.raises(ValueError, match="input sizes do not match"):
+        Processor(cfg, device="cpu").convert(Mode.FLOW_UV)
+
+
+def _midgard_with_csv(root):
+    """A 4-frame MIDGARD-layout sequence with MIDGARD csv annotations: one
+    box, a row with a NaN, an empty file, two boxes."""
+    _dataset_layout("midgard", root)
+    seq = "countryside-natural/north-narrow"
+    ann = root / seq / "annotation"
+    os.makedirs(ann)
+    rows = ["0,10.5,12.25,8,6\n", "1,nan,3,4,5\n2,30,20,11.5,9\n", "",
+            "3,1,2,3,4\n3,40.75,22,6,6.5\n"]
+    for i, text in enumerate(rows):
+        (ann / f"annot_{i:05d}.csv").write_text(text)
+    (ann / "image_00009.txt").write_text("stale")
+    return seq, ann
+
+
+def test_annotations_to_yolo_matches_jax(tmp_path, monkeypatch):
+    """--data-to-yolo: the MIDGARD csv files become the YOLO .txt files the
+    JAX Processor writes, byte for byte; stale .txt files go first."""
+    from mav_detection_tpu.pipeline.processor import Processor as JProc
+
+    out = {}
+    for tag in ("jax", "port"):
+        root = tmp_path / tag
+        seq, ann = _midgard_with_csv(root)
+        monkeypatch.setenv("MIDGARD_PATH", str(root))
+        if tag == "jax":
+            cfg = JRunConfig(dataset="midgard", flow_source="GROUND_TRUTH")
+            cfg.settings = {"train_sequences": [seq], "validation_sequences": []}
+            JProc(cfg).annotations_to_yolo()
+        else:
+            cfg = RunConfig(dataset="midgard", flow_source="GROUND_TRUTH")
+            cfg.settings = {"train_sequences": [seq], "validation_sequences": []}
+            Processor(cfg, device="cpu").annotations_to_yolo()
+        out[tag] = {p.name: p.read_text() for p in sorted(ann.glob("*.txt"))}
+    assert out["port"] == out["jax"]
+    assert sorted(out["port"]) == [f"image_{i:05d}.txt" for i in range(4)]
+    assert out["port"]["image_00002.txt"] == ""
+    assert len(out["port"]["image_00003.txt"].splitlines()) == 2
+
+
+def test_undistort_passthrough(tmp_path, monkeypatch, caplog):
+    """--undistort: without UNDISTORT_PATH a warning and nothing else; with
+    it the tool runs once per frame (``--run <calibration> <in> <out>``)
+    into undistorted/, skipping frames already done."""
+    seq, _ = _midgard_with_csv(tmp_path)
+    monkeypatch.setenv("MIDGARD_PATH", str(tmp_path))
+    cfg = RunConfig(dataset="midgard", flow_source="GROUND_TRUTH")
+    cfg.settings = {"train_sequences": [], "validation_sequences": [seq]}
+    proc = Processor(cfg, device="cpu")
+    monkeypatch.delenv("UNDISTORT_PATH", raising=False)
+    with caplog.at_level(logging.WARNING):
+        proc.undistort()
+    assert "UNDISTORT_PATH not set" in caplog.text
+    assert not (tmp_path / seq / "undistorted").exists()
+
+    cal = tmp_path / seq / "info" / "calibration"
+    os.makedirs(cal)
+    (cal / "cam.txt").write_text("k")
+    tool = tmp_path / "undistort.sh"
+    log = tmp_path / "calls.txt"
+    tool.write_text(f'#!/bin/sh\necho "$1 $2" >> {log}\ncp "$3" "$4"\n')
+    tool.chmod(0o755)
+    monkeypatch.setenv("UNDISTORT_PATH", str(tool))
+    (tmp_path / seq / "undistorted").mkdir()
+    (tmp_path / seq / "undistorted" / "image_00001.png").write_bytes(b"done")
+    proc.undistort()
+    out = sorted(p.name for p in (tmp_path / seq / "undistorted").iterdir())
+    assert out == [f"image_{i:05d}.png" for i in range(4)]
+    calls = log.read_text().splitlines()
+    assert calls == [f"--run {cal / 'cam.txt'}"] * 3
+
+
+class _Recorder:
+    """Stand-ins for the CLI's Processor and Validator that record calls."""
+
+    def __init__(self):
+        self.calls = []
+        rec = self
+
+        class P:
+            def __init__(self, config, device="cuda"):
+                rec.calls.append(("Processor", config.mode.name, str(device)))
+
+            def run_detection(self):
+                rec.calls.append("run_detection")
+                return {}
+
+            def convert(self, mode):
+                rec.calls.append(("convert", mode.name))
+
+            def annotations_to_yolo(self):
+                rec.calls.append("annotations_to_yolo")
+
+            def undistort(self):
+                rec.calls.append("undistort")
+
+            def release(self):
+                rec.calls.append("release")
+
+        class V:
+            def __init__(self, config, device="cuda"):
+                self.config = config
+
+            def run_validation(self):
+                rec.calls.append(("validate", self.config.mode.name))
+                return {}
+
+        self.P, self.V = P, V
+
+
+@pytest.mark.parametrize("argv,calls", [
+    ([], [("Processor", "FLOW_UV", "cpu"), "run_detection", ("validate", "FLOW_UV"),
+          "release"]),
+    (["--validate"], [("validate", "FLOW_UV")]),
+    (["--validate", "--mode", "FLOW_FOE_YOLO"], [("validate", "FLOW_FOE_YOLO")]),
+    (["--validate", "--mode", "FLOW_FOE_CLUSTERING"],
+     [("Processor", "FLOW_FOE_CLUSTERING", "cpu"), "run_detection",
+      ("validate", "FLOW_FOE_CLUSTERING"), "release"]),
+    (["--prepare-dataset", "--mode", "FLOW_FOE_YOLO"],
+     [("Processor", "FLOW_FOE_YOLO", "cpu"), ("convert", "FLOW_FOE_YOLO"), "release"]),
+    (["--data-to-yolo"], [("Processor", "FLOW_UV", "cpu"), "annotations_to_yolo", "release"]),
+    (["--undistort"], [("Processor", "FLOW_UV", "cpu"), "undistort", "release"])],
+    ids=["defaults", "validate-nn", "validate-foe-yolo", "validate-clustering",
+         "prepare-dataset", "data-to-yolo", "undistort"])
+def test_cli_execute_branches(argv, calls, monkeypatch):
+    """``execute`` takes the reference's branches: detection then
+    validation; validation alone with --validate in an NN mode; a
+    conversion instead of detection."""
+    from mav_detection_tpu_torch.cli import main as cli
+
+    rec = _Recorder()
+    monkeypatch.setattr(cli, "Processor", rec.P)
+    monkeypatch.setattr(cli, "Validator", rec.V)
+    cli_main(["--device", "cpu", "--headless", *argv])
+    assert rec.calls == calls
+
+
+@pytest.mark.parametrize("argv,env,mine", [
+    (["--num-hosts", "2", "--host-index", "1"], {}, ["b", "d"]),
+    ([], {"MAV_NUM_HOSTS": "3", "MAV_HOST_INDEX": "0"}, ["a", "d"]),
+    ([], {}, ["a", "b", "c", "d", "e"])], ids=["flags", "env", "one-host"])
+def test_cli_run_all_shards_the_validation_sequences(argv, env, mine, tmp_path, monkeypatch):
+    """--run-all validates each of this host's validation sequences with the
+    reference's configuration (FLOW_FOE_CLUSTERING, debug, validate)."""
+    from mav_detection_tpu_torch.cli import main as cli
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "settings.json").write_text(json.dumps(
+        {"validation_sequences": ["a", "b", "c", "d", "e"]}))
+    for k in ("MAV_NUM_HOSTS", "MAV_HOST_INDEX"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    seen = []
+    monkeypatch.setattr(cli, "execute", lambda config, device: seen.append((config, device)))
+    cli_main(["--run-all", "--device", "cpu", "--flow-source", "GROUND_TRUTH", *argv])
+    assert [c.sequence for c, _ in seen] == mine
+    for config, device in seen:
+        assert device == "cpu" and config.validate and config.debug
+        assert config.mode.name == "FLOW_FOE_CLUSTERING"
+        assert config.dataset == "midgard" and config.flow_source == FlowSource.GROUND_TRUTH
+
+
+def test_cli_writes_the_reference_validation_outputs(tmp_path, monkeypatch):
+    """--device cpu on a short synthetic sequence, mode FLOW_UV, GT flow:
+    the port's CLI writes what the reference's ``execute`` writes (the
+    FrameResult JSON, validation.npy, the box cache under the same name,
+    ious.png and the figures) and returns NN IoU stats within 0.05 of the JAX
+    ones; the FoE
+    statistics are computed on both sides."""
+    from mav_detection_tpu.cli import main as jcli
+    from mav_detection_tpu.eval.validator import Validator as JV
+
+    from mav_detection_tpu_torch.cli import main as cli
+    from mav_detection_tpu_torch.core import config as cfgmod
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("YOLO_INFERENCE_HOST", raising=False)
+    seq = dict(SMALL, height=64, width=96, n_frames=5, drone_radius=8,
+               drone_start=(20.0, 30.0))
+    stats = {}
+
+    def capture(tag, real):
+        def run(self):
+            stats[tag] = real(self)
+            return stats[tag]
+        return run
+
+    monkeypatch.setattr(JV, "run_validation", capture("jax", JV.run_validation))
+    monkeypatch.setattr(cli.Validator, "run_validation",
+                        capture("port", cli.Validator.run_validation))
+    jcfg = JRunConfig(dataset="synthetic", mode="FLOW_UV", flow_source="GROUND_TRUTH",
+                      headless=True, batch_size=2)
+    jcfg.get_dataset = lambda **_: JSynth(params=JParams(**seq),
+                                          materialize_to=str(tmp_path / "jax"))
+    jcli.execute(jcfg)
+    monkeypatch.setattr(cfgmod.RunConfig, "get_dataset", lambda self, **_: SyntheticDataset(
+        params=SyntheticParams(**seq), materialize_to=str(tmp_path / "port")))
+    cli_main(["--dataset", "synthetic", "--flow-source", "GROUND_TRUTH", "--headless",
+              "--device", "cpu", "--batch-size", "2"])
+    files = {}
+    for tag in ("jax", "port"):
+        root = tmp_path / tag / "synthetic" / "forward-flight"
+        files[tag] = (sorted(p.name for p in root.iterdir() if p.is_file()),
+                      sorted(p.name for p in (root / "bounding-boxes").iterdir()),
+                      len(list((root / "results").glob("image_*.json"))))
+    assert files["port"][1:] == files["jax"][1:]
+    # processed.mp4 is the reference's cv2.VideoWriter fallback, which the
+    # port does not have
+    assert set(files["jax"][0]) - {"processed.mp4"} <= set(files["port"][0])
+    assert {"validation.npy", "ious.png"} <= set(files["port"][0])
+    assert abs(stats["port"]["iou_mean"] - stats["jax"]["iou_mean"]) <= 0.05
+    assert stats["port"]["detection_rate"] == stats["jax"]["detection_rate"]
+    assert set(stats["port"]) == set(stats["jax"])
+    assert stats["port"]["foe_mean"] is not None
+    logging.getLogger("main").setLevel(logging.INFO)
+    logging.getLogger("mav_detection_tpu_torch").setLevel(logging.NOTSET)

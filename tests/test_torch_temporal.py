@@ -404,6 +404,7 @@ def test_scan_engine_defaults_to_the_card():
 def test_cli_engine_scan_on_cpu(extra, tmp_path, monkeypatch):
     """``--engine scan --device cpu`` writes one FrameResult per transition
     (the dataset factory is swapped for a short sequence)."""
+    monkeypatch.chdir(tmp_path)
     from mav_detection_tpu_torch.core import config as cfgmod
 
     monkeypatch.setattr(
