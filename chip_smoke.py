@@ -116,8 +116,30 @@ Phases, each printing one line (plus its seconds):
                kernel's launches counted apart), the remote branch against
                the port's server (equal IoU stats), and --prepare-dataset in
                FLOW_FOE_YOLO mode.
-Then the nets, datasets and yolo JSON line, the kernels JSON line, the nvidia-smi
-line, and as the last line
+ 16. train   — training on the card (cli/train.py; no hand kernel, the
+               trainers run none in the reference either): one update of
+               each trainer's loss and optimizer chain from the shipped
+               weights, card against CPU on the same scene draws (RAFT fp32
+               and bf16 at 160x128 b=8, SkyUNet and TinyYOLO bf16 at 320x240
+               b=8); train_raft, train_sky and train_yolo (APPEARANCE_RGB,
+               FLOW_UV) resumed from the shipped weights for 2 chunks of 10
+               steps with their selectors into a temporary
+               MAV_CHECKPOINT_PATH: ms per step, steps/s, share of the bound
+               (3x the forward's convolution FLOPs), max_memory_allocated,
+               host looks inside and per chunk, one more step under the
+               profiler (its device ops and idle share), the weights written
+               and read back equal; the evals of the shipped checkpoints
+               against the JAX package's numbers
+               (tests/train_reference_numbers.py, TRAIN_EVAL_TOL); the CLI
+               `--model all --steps 20 --chunk 10` in a subprocess, its
+               three files read back; checkpoints/ byte-unchanged (sha256).
+ 17. tools   — trace_to around one 752x480 b=8 main-path batch (the ten
+               device ops that take the most time; the fused kernel's
+               launches counted); foe_angular_error_map card against CPU;
+               run_demo on the mock client; the figures' numbers with
+               matplotlib barred (nothing written).
+Then the nets, datasets, yolo, train and tools JSON line, the kernels JSON
+line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line and
 exits non-zero; so does a machine without a card, or a directory without
 the package.
@@ -2573,6 +2595,553 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
     out["checks"] = checks.finish()
     return out
 
+
+# ---------------------------------------------------------------- training
+# phase train gates. The JAX package's evals of the shipped checkpoints on
+# the CPU, tests/train_reference_numbers.py (NUMBERS): the card's must lie
+# within these distances of them
+TRAIN_EVAL_TOL = {"eval_raft": (0.01, 0.05),          # EPE, drone EPE (px)
+                  "eval_raft_detection": (0.02, 0.02),  # TPR with RAFT, GT flow
+                  "eval_sky": (0.005, 0.005),          # net TPR, FPR
+                  "eval_yolo": 0.005,                  # mean IoU per mode
+                  "shift_ladder_epe": 0.02}            # px
+# one update card against CPU from the shipped weights on the same draws,
+# at the peak learning rate (the trainers' first update runs at 0): the
+# loss, relative; the parameters, as the median and largest difference in
+# units of one step of the learning rate. Adam divides each gradient by its
+# own magnitude, so where a gradient is rounding noise (a conv bias followed
+# by GroupNorm has a gradient of exactly 0) the update is noise of up to a
+# step either way; fp32 (TF32 off) rounds at 1e-7, the product bf16 at 8
+# bits of mantissa in cuDNN and oneDNN at other points
+# (bf16: TinyYOLO's logits differ by up to 0.63 between cuDNN and oneDNN
+# (phase yolo), and its loss is 100x a mean BCE over them: measured 0.023)
+TRAIN_CARD_CPU_LOSS_RTOL = {"fp32": 1e-4, "bf16": 5e-2}
+TRAIN_CARD_CPU_MEDIAN_STEPS = {"fp32": 1e-3, "bf16": 0.2}
+TRAIN_CARD_CPU_MAX_STEPS = 2.5
+TRAIN_SIZES = {"raft": (128, 160), "sky": (240, 320), "yolo": (240, 320)}
+TRAIN_PEAK_LR = {"raft": 2.5e-4, "sky": 1e-3, "yolo": 1e-3}
+
+
+def _sha256_dir(d: str) -> dict:
+    import hashlib
+
+    out = {}
+    for p in sorted(glob.glob(os.path.join(d, "*"))):
+        with open(p, "rb") as f:
+            out[os.path.basename(p)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _train_model(net: str, dev, params):
+    """A port net of ``net`` holding ``params`` (a state_dict), on ``dev``."""
+    from mav_detection_tpu_torch.models.raft import RAFT
+    from mav_detection_tpu_torch.models.sky_segmentation import SkyUNet
+    from mav_detection_tpu_torch.models.yolo import TinyYOLO
+
+    model = {"raft": RAFT, "sky": SkyUNet, "yolo": TinyYOLO}[net]()
+    model.load_state_dict(params)
+    return model.to(dev)
+
+
+def _batch_loss(net: str, model, sc, dtype, mode="APPEARANCE_RGB"):
+    """The trainer's loss of one batch (cli/train.py), in ``dtype``."""
+    from mav_detection_tpu_torch.cli import train as tt
+    from mav_detection_tpu_torch.models.raft import RAFTConfig
+
+    if net == "raft":
+        return tt.raft_batch_loss(model, sc, 8, config=RAFTConfig(dtype=dtype))
+    if net == "sky":
+        return tt.sky_batch_loss(model, sc, dtype)
+    return tt.yolo_batch_loss(model, sc, mode, dtype)
+
+
+def _one_update(net: str, dev, params, draws, dtype):
+    """One update of the trainer's loss and optimizer chain at the peak
+    learning rate -> (loss, parameters after it on the CPU)."""
+    import torch
+
+    from mav_detection_tpu_torch.data.synthgen import generate_batch
+    from mav_detection_tpu_torch.models import optim
+
+    model = _train_model(net, dev, params)
+    lr = TRAIN_PEAK_LR[net]
+    opt = optim.TrainOptimizer(model.parameters(), lambda c: lr,
+                               weight_decay=1e-5 if net == "raft" else None)
+    b, h, w = draws.ground_noise.shape
+    sc = generate_batch(b, h, w, draws=draws, device=dev)
+    opt.zero_grad()
+    loss = _batch_loss(net, model, sc, dtype)
+    loss.backward()
+    opt.step()
+    return float(loss), {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _train_flops(net: str, dev, params, draws, dtype) -> dict:
+    """Convolution FLOPs of one forward of the trainer's loss (fp32 and
+    bf16 by layer dtype); a step is counted as 3x them."""
+    import torch
+
+    from mav_detection_tpu_torch.data.synthgen import generate_batch
+
+    model = _train_model(net, dev, params)
+    b, h, w = draws.ground_noise.shape
+    sc = generate_batch(b, h, w, draws=draws, device=dev)
+    with torch.no_grad():
+        return _conv_flops(model, lambda: _batch_loss(net, model, sc, dtype))
+
+
+class _ChunkMeter:
+    """Patches ``cli.train._scan_chunks`` for one trainer call: each chunk
+    is timed on the host clock between synchronisations, the synchronising
+    calls inside it are counted, and those of the whole chunk loop outside the
+    selector and the checkpoint writer (the one pull of each chunk's
+    losses) are counted apart."""
+
+    def __enter__(self):
+        import traceback
+        import warnings
+
+        import torch
+
+        from mav_detection_tpu_torch.cli import train as tt
+
+        self.chunks, self.selector_calls, self.outer_looks = [], 0, None
+        self._real = real = tt._scan_chunks
+        meter = self
+
+        def syncs(caught):
+            return [f"{os.path.basename(c.filename)}:{c.lineno}" for c in caught
+                    if "synchroniz" in str(c.message)]
+
+        def inner_looks(fn):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn()
+            return out, len(syncs(caught))
+
+        def scan(run_chunk, params, opt_state, key, steps, chunk, label, selector=None,
+                 select_every=1, save_best_to="", to_tree=None):
+            def timed(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, looks = inner_looks(lambda: run_chunk(*a))
+                torch.cuda.synchronize()
+                meter.chunks.append({"steps": a[3], "ms": (time.perf_counter() - t0) * 1e3,
+                                     "looks": looks})
+                return out
+
+            def sel(p):
+                meter.selector_calls += 1
+                return inner_looks(lambda: selector(p))[0]
+
+            def tree(sd):
+                return inner_looks(lambda: to_tree(sd))[0]
+
+            result = [None]
+
+            def drive():
+                result[0] = real(timed, params, opt_state, key, steps, chunk, label,
+                                 selector=sel if selector is not None else None,
+                                 select_every=select_every, save_best_to=save_best_to,
+                                 to_tree=tree if to_tree is not None else None)
+
+            sites = []
+
+            def record(message, category, filename, lineno, *a, **k):
+                if "synchroniz" in str(message):
+                    # the innermost frames that made the call; the first
+                    # set_sync_debug_mode("warn") of a process warns once
+                    # itself, which is no call of the trainer's
+                    stack = traceback.extract_stack()[:-2]
+                    if stack and stack[-1].name == "set_sync_debug_mode":
+                        return
+                    sites.append(" < ".join(
+                        f"{os.path.basename(f.filename)}:{f.lineno}:{f.name}"
+                        for f in stack[::-1][:4]))
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = record
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    drive()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            meter.outer_sites = sites
+            meter.outer_looks = len(sites)
+            return result[0]
+
+        tt._scan_chunks = scan
+        return self
+
+    def __exit__(self, *exc):
+        from mav_detection_tpu_torch.cli import train as tt
+
+        tt._scan_chunks = self._real
+        return False
+
+
+def _device_ops(prof, n: int = 10):
+    """(device ms, activities, the ``n`` device activities that take the
+    most time) of a torch.profiler capture: kernels, copies and fills on the
+    card, by name, their own time. User annotations on the device timeline
+    (``Optimizer.step#AdamW.step``) span kernels counted already and are
+    left out."""
+    avgs = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)
+            and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+    total = sum(e.self_device_time_total for e in avgs)
+    top = sorted(avgs, key=lambda e: e.self_device_time_total, reverse=True)[:n]
+    return total / 1e3, sum(e.count for e in avgs), [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
+                          "share": e.self_device_time_total / max(total, 1e-9),
+                          "calls": e.count} for e in top]
+
+
+def phase_train(dev, sizes=None, batch: int = 8, steps: int = 20, chunk: int = 10,
+                cli_steps: int = 20) -> dict:
+    """Training on the card: one update card against CPU per net; a short
+    resumed run of each trainer with its selector (ms per step, share of
+    bound, peak memory, host looks per chunk); the evals of the shipped
+    checkpoints against the JAX package's numbers; the CLI in a subprocess
+    into a temporary MAV_CHECKPOINT_PATH, with checkpoints/ unchanged."""
+    import importlib.util
+
+    import torch
+
+    from mav_detection_tpu_torch import convert
+    from mav_detection_tpu_torch.cli import train as tt
+    from mav_detection_tpu_torch.data.synthgen import draw_scenes, generate_batch
+    from mav_detection_tpu_torch.models import checkpoint, optim, pretrained
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.utils.tracing import trace_to
+
+    sizes = sizes or TRAIN_SIZES
+    here = os.path.dirname(os.path.abspath(__file__))
+    if os.environ.get("MAV_CHECKPOINT_PATH"):
+        raise AssertionError("train: MAV_CHECKPOINT_PATH is set; the shipped "
+                             "checkpoints must be read")
+    spec = importlib.util.spec_from_file_location(
+        "train_reference_numbers", os.path.join(here, "tests", "train_reference_numbers.py"))
+    ref_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref_mod)
+    REF = ref_mod.NUMBERS
+    ckpt_dir = os.path.join(here, "checkpoints")
+    sha_before = _sha256_dir(ckpt_dir)
+    checks = Checks("train")
+    out = {"card_vs_cpu": {}, "runs": {}, "evals": {}}
+    shipped = {"raft": pretrained.load_raft_params(), "sky": pretrained.load_sky_params(),
+               "yolo": pretrained.load_yolo_params(),
+               "yolo FLOW_UV": pretrained.load_yolo_params("FLOW_UV")}
+
+    # ---- 1. one update card against CPU on the same draws
+    for net, dts in (("raft", ("fp32", "bf16")), ("sky", ("bf16",)), ("yolo", ("bf16",))):
+        h, w = sizes[net]
+        draws = draw_scenes(batch, h, w, generator=torch.Generator().manual_seed(11))
+        for dt in dts:
+            dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+            lc, pc = _one_update(net, dev, shipped[net], draws, dtype)
+            lh, ph = _one_update(net, torch.device("cpu"), shipped[net], draws, dtype)
+            diff = torch.cat([(pc[k] - ph[k]).abs().flatten() for k in ph])
+            steps_of = diff / TRAIN_PEAK_LR[net]
+            r = {"loss_card": lc, "loss_cpu": lh, "loss_rel_diff": abs(lc - lh) / abs(lh),
+                 "max_param_diff": float(diff.max()),
+                 "median_param_diff_steps": float(steps_of.median()),
+                 "max_param_diff_steps": float(steps_of.max())}
+            out["card_vs_cpu"][f"{net} {dt} {w}x{h} b={batch}"] = r
+            say(f"[train]   one update {net} {dt}: {json.dumps(r)}")
+            checks.add(f"{net} {dt} loss", r["loss_rel_diff"], TRAIN_CARD_CPU_LOSS_RTOL[dt],
+                       "relative difference")
+            checks.add(f"{net} {dt} parameters", r["median_param_diff_steps"],
+                       TRAIN_CARD_CPU_MEDIAN_STEPS[dt], "median difference in lr steps")
+            checks.add(f"{net} {dt} parameters", r["max_param_diff_steps"],
+                       TRAIN_CARD_CPU_MAX_STEPS, "largest difference in lr steps")
+
+    # ---- 2. a short resumed run of each trainer with its selector
+    tmp = tempfile.mkdtemp(prefix="mav_train_")
+    os.environ["MAV_CHECKPOINT_PATH"] = tmp
+    pretrained.clear_cache()
+    fi.reset_launch_counts()
+    try:
+        for tag, fn, kw, net, name in (
+                ("raft", tt.train_raft, {}, "raft", "raft"),
+                ("sky", tt.train_sky, {}, "sky", "sky"),
+                ("yolo APPEARANCE_RGB", tt.train_yolo, {"mode": "APPEARANCE_RGB"}, "yolo",
+                 "yolo"),
+                ("yolo FLOW_UV", tt.train_yolo, {"mode": "FLOW_UV"}, "yolo",
+                 "yolo_flow_uv")):
+            h, w = sizes[net]
+            init = shipped[tag if tag == "yolo FLOW_UV" else net]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _ChunkMeter() as meter:
+                model, losses = fn(steps=steps, batch=batch, hw=(h, w), chunk=chunk,
+                                   init_params=init, device=dev,
+                                   save_best_to=pretrained.checkpoint_path(name), **kw)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            # the trained weights written as the CLI writes them, read back
+            # through the port's reader: the same outputs as in memory
+            to_tree = {"raft": convert.flax_from_raft_state_dict,
+                       "sky": convert.flax_from_sky_state_dict,
+                       "yolo": convert.flax_from_yolo_state_dict}[net]
+            path = os.path.join(tmp, f"{name}.final.msgpack")
+            checkpoint.save_msgpack(path, to_tree(model.state_dict()))
+            back = _train_model(net, dev, {
+                "raft": convert.raft_state_dict_from_flax, "sky": convert.sky_state_dict_from_flax,
+                "yolo": convert.yolo_state_dict_from_flax}[net](checkpoint.load_msgpack(path)))
+            probe = draw_scenes(2, h, w, generator=torch.Generator().manual_seed(5))
+            sc = generate_batch(2, h, w, draws=probe, device=dev)
+            mode = kw.get("mode", "APPEARANCE_RGB")
+            with torch.no_grad():
+                same = float((_batch_loss(net, model, sc, torch.float32, mode)
+                              - _batch_loss(net, back, sc, torch.float32, mode)).abs())
+            checks.add(f"{tag} written and read back", same, 0.0,
+                       "loss difference from the in-memory net")
+            if not np.isfinite(losses).all() or len(losses) != steps:
+                raise AssertionError(f"train {tag}: losses {losses}")
+            timed = meter.chunks[1:] or meter.chunks
+            ms_step = sum(c["ms"] for c in timed) / sum(c["steps"] for c in timed)
+            fl = _train_flops(net, dev, init,
+                              draw_scenes(batch, h, w, generator=torch.Generator().manual_seed(1)),
+                              torch.bfloat16)
+            params_bytes = sum(p.numel() * 4 for p in model.parameters())
+            # a step reads and writes the parameters, both Adam moments and
+            # the gradients once each, and reads the scene draws
+            nbytes = 8 * params_bytes + 4 * batch * (4 * h * w + 40)
+            bound_ms, bound_by = _bound(nbytes, 3 * fl["fp32"], 3 * fl["bf16"])
+            n_chunks = len(meter.chunks)
+            r = {"size": f"{w}x{h}", "batch": batch, "steps": steps, "chunk": chunk,
+                 "ms_per_step": ms_step, "steps_per_s": 1e3 / ms_step,
+                 "chunk_ms": [c["ms"] for c in meter.chunks],
+                 "wall_s_with_selection": wall, "selector_calls": meter.selector_calls,
+                 "bound_ms_per_step": bound_ms, "bound_by": bound_by,
+                 "share_of_bound": bound_ms / ms_step,
+                 "gflop_per_step_bf16": 3 * fl["bf16"] / 1e9,
+                 "gflop_per_step_fp32": 3 * fl["fp32"] / 1e9,
+                 "max_memory_allocated_bytes": peak,
+                 "host_looks_in_chunks": [c["looks"] for c in meter.chunks],
+                 "host_looks_per_chunk": meter.outer_looks / n_chunks,
+                 "host_look_sites": meter.outer_sites,
+                 "first_loss": float(losses[0]), "last_loss": float(losses[-1])}
+            # one more step of the trained net under the profiler: the
+            # device ops that take the most time, and the idle share
+            opt = optim.TrainOptimizer(model.parameters(), lambda c: TRAIN_PEAK_LR[net],
+                                       weight_decay=1e-5 if net == "raft" else None)
+            sc1 = generate_batch(batch, h, w, draws=draw_scenes(
+                batch, h, w, generator=torch.Generator().manual_seed(2)), device=dev)
+
+            def one_step():
+                opt.zero_grad()
+                _batch_loss(net, model, sc1, torch.bfloat16, mode).backward()
+                opt.step()
+
+            one_step()
+            torch.cuda.synchronize()
+            with trace_to(os.path.join(tmp, "trace_" + name)) as prof:
+                t1 = time.perf_counter()
+                one_step()
+                torch.cuda.synchronize()
+                step_wall = (time.perf_counter() - t1) * 1e3
+            dms, activities, top = _device_ops(prof, 6)
+            r["traced_step"] = {"wall_ms": step_wall, "device_ms": dms,
+                                "device_idle_share": 1.0 - dms / step_wall,
+                                "device_activities": activities, "top_device_ops": top}
+            out["runs"][tag] = r
+            say(f"[train]   {tag}: {json.dumps(r)}")
+            checks.add(f"{tag} host looks inside each chunk after the first",
+                       float(max(r["host_looks_in_chunks"][1:] or [0])), 0.0, "looks")
+            checks.add(f"{tag} host looks per chunk outside the selector",
+                       r["host_looks_per_chunk"], 1.0, "looks")
+        out["launches_train"] = dict(fi.LAUNCHES)
+    finally:
+        os.environ.pop("MAV_CHECKPOINT_PATH", None)
+        pretrained.clear_cache()
+
+    # ---- 3. the evals of the shipped checkpoints on the card
+    raft = pretrained.load_raft(dev)
+    ev = {"eval_raft": list(tt.eval_raft(raft)),
+          "eval_raft_detection": list(tt.eval_raft_detection(raft)),
+          "shift_ladder_epe": tt.shift_ladder_epe(raft),
+          "eval_sky": list(tt.eval_sky(pretrained.load_sky(dev))),
+          "eval_yolo": {m: list(tt.eval_yolo(pretrained.load_yolo(m, dev), mode=m))
+                        for m in ("APPEARANCE_RGB", "FLOW_UV", "FLOW_RADIAL",
+                                  "FLOW_FOE_YOLO")}}
+    out["evals"] = {"card": ev, "jax_cpu": REF}
+    for key in ("eval_raft", "eval_raft_detection"):
+        for i, tol in enumerate(TRAIN_EVAL_TOL[key]):
+            checks.add(f"{key}[{i}]", abs(ev[key][i] - REF[key][i]), tol,
+                       f"|card - JAX| (card {ev[key][i]:.5f}, JAX {REF[key][i]:.5f})")
+    for i, tol in enumerate(TRAIN_EVAL_TOL["eval_sky"]):
+        checks.add(f"eval_sky[{i}]", abs(ev["eval_sky"][i] - REF["eval_sky"][i]), tol,
+                   f"|card - JAX| (card {ev['eval_sky'][i]:.5f})")
+    for m, (iou, _) in ev["eval_yolo"].items():
+        checks.add(f"eval_yolo {m} IoU", abs(iou - REF["eval_yolo"][m][0]),
+                   TRAIN_EVAL_TOL["eval_yolo"],
+                   f"|card - JAX| (card {iou:.5f}, JAX {REF['eval_yolo'][m][0]:.5f})")
+    checks.add("shift_ladder_epe", abs(ev["shift_ladder_epe"] - REF["shift_ladder_epe"]),
+               TRAIN_EVAL_TOL["shift_ladder_epe"],
+               f"|card - JAX| px (card {ev['shift_ladder_epe']:.5f})")
+
+    # ---- 4. the CLI in a subprocess into a temporary checkpoint root
+    with tempfile.TemporaryDirectory(prefix="mav_cli_train_") as root:
+        env = dict(os.environ, MAV_CHECKPOINT_PATH=root)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mav_detection_tpu_torch.cli.train", "--model", "all",
+             "--steps", str(cli_steps), "--chunk", str(chunk)],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        written = sorted(os.listdir(root))
+        if written != ["raft.msgpack", "sky.msgpack", "yolo.msgpack"]:
+            raise AssertionError(f"train CLI wrote {written}")
+        os.environ["MAV_CHECKPOINT_PATH"] = root
+        pretrained.clear_cache()
+        try:
+            sc_probe = draw_scenes(2, 128, 160, generator=torch.Generator().manual_seed(9))
+            sc = generate_batch(2, 128, 160, draws=sc_probe, device=dev)
+            finite = []
+            for net, model in (("raft", pretrained.load_raft(dev)),
+                               ("sky", pretrained.load_sky(dev)),
+                               ("yolo", pretrained.load_yolo(None, dev))):
+                with torch.no_grad():
+                    finite.append(bool(torch.isfinite(_batch_loss(net, model, sc,
+                                                                  torch.float32))))
+        finally:
+            os.environ.pop("MAV_CHECKPOINT_PATH", None)
+            pretrained.clear_cache()
+        if not all(finite):
+            raise AssertionError(f"train CLI: non-finite losses of the written nets {finite}")
+        logs = [ln for ln in proc.stderr.splitlines() if "[raft]" in ln or "[sky]" in ln
+                or "[yolo" in ln]
+        out["cli"] = {"s": cli_s, "written": written, "log": logs[-8:]}
+    sha_after = _sha256_dir(ckpt_dir)
+    if sha_after != sha_before:
+        raise AssertionError("train: checkpoints/ changed during the phase")
+    out["checkpoints_sha256_unchanged"] = len(sha_after)
+    out["checks"] = checks.finish()
+    return out
+
+
+def phase_tools(dev, size=(480, 752), batch: int = 8) -> dict:
+    """trace_to around one main-path batch (the ten device ops that take
+    the most time), foe_angular_error_map card against CPU, run_demo on the
+    mock client, and the figures' numbers with matplotlib absent."""
+    import builtins
+
+    import torch
+
+    from mav_detection_tpu_torch.cli.demo import run_demo
+    from mav_detection_tpu_torch.core.config import FlowSource, RunConfig
+    from mav_detection_tpu_torch.data.dataset import png_decode
+    from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
+    from mav_detection_tpu_torch.eval import figures
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.pipeline.processor import Processor
+    from mav_detection_tpu_torch.sim.client import MockSimClient, Vector3
+    from mav_detection_tpu_torch.utils.tracing import trace_to
+
+    out = {}
+    checks = Checks("tools")
+    h, w = size
+    cfg = RunConfig(dataset="synthetic", flow_source="FARNEBACK", batch_size=batch,
+                    headless=True)
+    sp = SyntheticParams(height=h, width=w, n_frames=batch + 1)
+    cfg.get_dataset = lambda **_: SyntheticDataset(params=sp)
+    proc = Processor(cfg, device=dev)
+    proc.save_images = False
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = proc.dataset
+        ds.seq_path = tmp
+        ds.results_path = os.path.join(tmp, "results")
+        proc.run_detection_foe()                       # warm-up
+        torch.cuda.synchronize()
+        proc.detection_results = {}
+        fi.reset_launch_counts()
+        with trace_to(os.path.join(tmp, "trace")) as prof:
+            proc.run_detection_foe()
+        launches = dict(fi.LAUNCHES)
+        traces = glob.glob(os.path.join(tmp, "trace", "trace_*.json"))
+        trace_bytes = os.path.getsize(traces[0]) if len(traces) == 1 else 0
+    if trace_bytes == 0:
+        raise AssertionError(f"tools: trace files {traces}")
+
+    device_ms, activities, top = _device_ops(prof)
+    out["trace"] = {"size": f"{w}x{h}", "batch": batch, "trace_bytes": trace_bytes,
+                    "launches": launches, "device_ms": device_ms,
+                    "device_activities": activities, "top_device_ops": top}
+    checks.add("fused kernel launches in the traced batch", float(
+        launches["farneback_iterate_fused"]), 1.0, "launches", at_least=True)
+
+    # foe_angular_error_map card against CPU
+    fds = SyntheticDataset(params=SyntheticParams(height=240, width=320, n_frames=9,
+                                                  expansion=0.035, foe=(190.0, 110.0)))
+    card = figures.foe_angular_error_map(fds, n_frames=8, device=dev)
+    cpu = figures.foe_angular_error_map(fds, n_frames=8, device="cpu")
+    err = float(np.abs(card - cpu).max())
+    out["foe_angular_error_map"] = {"max_abs_diff_deg": err,
+                                    "median_deg": float(np.median(card)),
+                                    "ms": wall_ms(lambda: figures.foe_angular_error_map(
+                                        fds, n_frames=8, device=dev), 3)}
+    checks.add("foe_angular_error_map card vs CPU", err, 0.02, "max |card - CPU| deg")
+
+    # run_demo on the mock client
+    with tempfile.TemporaryDirectory() as tmp:
+        client = MockSimClient(image_hw=(256, 384))
+        client.set_pose("Drone1", Vector3(0.0, 0.0, -30.0), 0.0)
+        t0 = time.perf_counter()
+        vis = run_demo(client, out_path=os.path.join(tmp, "test.png"))
+        demo_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "test.png"), "rb") as f:
+            back = png_decode(f.read())[..., ::-1]
+    if not np.array_equal(back, vis) or vis.std() <= 1.0:
+        raise AssertionError("tools: the demo PNG does not decode to its image")
+    out["demo"] = {"size": "384x256", "s": demo_s, "std": float(vis.std())}
+
+    # the figures' numbers with matplotlib absent
+    real_import = builtins.__import__
+
+    def no_matplotlib(name, *a, **kw):
+        if name == "matplotlib" or name.startswith("matplotlib."):
+            raise ImportError("matplotlib barred for this check")
+        return real_import(name, *a, **kw)
+
+    builtins.__import__ = no_matplotlib
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            rcfg = RunConfig(dataset="synthetic", mode="FLOW_FOE_CLUSTERING",
+                             flow_source="GROUND_TRUTH", headless=True)
+            fp = SyntheticParams(height=120, width=160, n_frames=8, expansion=0.035,
+                                 foe=(95.0, 55.0))
+            rcfg.get_dataset = lambda **_: SyntheticDataset(params=fp, materialize_to=tmp)
+            rproc = Processor(rcfg, device=dev)
+            rproc.run_detection()
+            res = rproc.dataset.results_path
+            odir = os.path.join(tmp, "figs")
+            nums = {"tpr_fpr_vs_flow": {k: v.tolist() for k, v in figures.tpr_fpr_vs_flow(
+                        {"v1": res}, out_dir=odir).items()},
+                    "foe_error_histograms": figures.foe_error_histograms(
+                        {"run": res}, out_dir=odir),
+                    "tpr_surface_3d_shape": list(figures.tpr_surface_3d(
+                        {1.0: res, 3.0: res}, out_dir=odir)["tpr"].shape),
+                    "published": figures.foe_error_published_comparison(
+                        {"center": res}, out_dir=odir)}
+            rad = figures.radial_error_histogram(SyntheticDataset(params=fp), n_frames=3,
+                                                 out_path=os.path.join(odir, "r.png"))
+            nums["radial_error_pairs"] = int(rad["mag"].size)
+            figs_written = sorted(os.listdir(odir)) if os.path.isdir(odir) else []
+    finally:
+        builtins.__import__ = real_import
+    if figs_written:
+        raise AssertionError(f"tools: figures written without matplotlib: {figs_written}")
+    out["figures"] = nums
+    out["checks"] = checks.finish()
+    if not top:
+        raise AssertionError("tools: the trace holds no device time")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2841,6 +3410,47 @@ def main() -> int:
         f"IoU stats equal; --prepare-dataset FLOW_FOE_YOLO {cl['convert_s']:.2f} s, "
         f"{cl['convert_launches']} launches")
     say(f"[yolo] {yo['checks']} checks within tolerance ({times['yolo']:.1f} s)")
+
+    t0 = time.perf_counter()
+    tr = phase_train(dev)
+    times["train"] = time.perf_counter() - t0
+    for tag, r in tr["card_vs_cpu"].items():
+        say(f"[train] one update card vs CPU {tag} on {smi}: {json.dumps(r)}")
+    for tag, r in tr["runs"].items():
+        say(f"[train] {tag} {r['size']} b={r['batch']}, {r['steps']} steps in chunks of "
+            f"{r['chunk']} from the shipped weights, with selection, on {smi}: "
+            f"{r['ms_per_step']:.3f} ms per step ({r['steps_per_s']:.2f} steps/s), "
+            f"bound {r['bound_ms_per_step']:.4f} ms ({r['bound_by']}: "
+            f"{r['gflop_per_step_bf16']:.2f} GFLOP bf16 + {r['gflop_per_step_fp32']:.3f} "
+            f"fp32), share of bound {r['share_of_bound']:.4f}; max_memory_allocated "
+            f"{r['max_memory_allocated_bytes']} bytes; host looks inside chunks "
+            f"{r['host_looks_in_chunks']}, per chunk outside the selector "
+            f"{r['host_looks_per_chunk']:.2f}; {r['selector_calls']} selector calls, "
+            f"{r['wall_s_with_selection']:.2f} s with selection; loss "
+            f"{r['first_loss']:.4f} -> {r['last_loss']:.4f}")
+    ev = tr["evals"]
+    say(f"[train] evals of the shipped checkpoints on {smi}: card {json.dumps(ev['card'])}; "
+        f"JAX on the CPU {json.dumps(ev['jax_cpu'])}")
+    say(f"[train] CLI --model all --steps 20 --chunk 10 in {tr['cli']['s']:.1f} s: wrote "
+        f"{tr['cli']['written']}, read back by the port's reader, finite; "
+        f"{tr['checkpoints_sha256_unchanged']} files under checkpoints/ unchanged "
+        f"(sha256); fused kernel launches in training {json.dumps(tr['launches_train'])}")
+    for ln in tr["cli"]["log"]:
+        say(f"[train]   {ln}")
+    say(f"[train] {tr['checks']} checks within tolerance ({times['train']:.1f} s)")
+
+    t0 = time.perf_counter()
+    tools = phase_tools(dev)
+    times["tools"] = time.perf_counter() - t0
+    trc = tools["trace"]
+    say(f"[tools] trace_to around one {trc['size']} b={trc['batch']} main-path batch on "
+        f"{smi}: {trc['trace_bytes']} bytes of Chrome trace, {trc['device_ms']:.3f} ms on "
+        f"the card, launches {json.dumps(trc['launches'])}; top device ops:")
+    for op in trc["top_device_ops"]:
+        say(f"[tools]   {op['device_ms']:.4f} ms ({op['share']:.3f}) x{op['calls']} {op['name']}")
+    say(f"[tools] foe_angular_error_map: {json.dumps(tools['foe_angular_error_map'])}; "
+        f"run_demo on the mock: {json.dumps(tools['demo'])}; figures without matplotlib: "
+        f"{json.dumps(tools['figures'])} ({times['tools']:.1f} s)")
     say(f"[phases] seconds {json.dumps(times)}")
 
     k = "farneback_iterate_fused"
@@ -2867,6 +3477,8 @@ def main() -> int:
         "launches_validator_remote": yo["launches"]["remote_validation"],
         "launches_convert": yo["launches"]["convert"],
         "launches_yolo_cli_detection": yo["launches"]["detection"],
+        "launches_train": tr["launches_train"][k],
+        "launches_tools_trace": trc["launches"][k],
         "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
         "per_batch": {f"{size} b={tb}": {
             key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
@@ -2909,6 +3521,9 @@ def main() -> int:
                         "midgard", "midgard_card_vs_cpu", "png", "sim")},
                     "yolo": {key: yo[key] for key in (
                         "load", "card_vs_cpu", "quality", "timing", "server", "cli")},
+                    "train": {key: tr[key] for key in ("card_vs_cpu", "runs", "evals")},
+                    "tools": {"trace": trc, "foe_angular_error_map":
+                              tools["foe_angular_error_map"], "demo": tools["demo"]},
                     "nets_loops": [{k: lp[k] for k in (
                         "size", "frames_per_s", "device_ms_per_batch",
                         "flow_device_ms_per_batch", "wall_ms_per_batch",

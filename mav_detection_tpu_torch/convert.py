@@ -17,7 +17,10 @@ numpy arrays: what ``models/checkpoint.py`` reads, and what
 model's ``state_dict``. Conv ``kernel`` HWIO becomes ``weight`` OIHW,
 GroupNorm ``scale`` becomes ``weight``, and Flax's automatic names map to the
 port's module names by the tables below. A key left over on either side
-raises.
+raises. ``flax_from_raft_state_dict``, ``flax_from_sky_state_dict`` and
+``flax_from_yolo_state_dict`` go back by the same tables: a net the port
+trained becomes the ``{"params": ...}`` tree the JAX package reads (RAFT in
+the post-hoist layout).
 """
 from __future__ import annotations
 
@@ -207,14 +210,16 @@ def _state_dict_from_flax(tree: Mapping[str, Any], table: dict,
     return out
 
 
-def raft_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def raft_state_dict_from_flax(tree: Mapping[str, Any],
+                              config=None) -> Dict[str, torch.Tensor]:
     """The ``models.raft.RAFT`` state_dict of a RAFT param tree in the
     post-hoist layout (``pretrained._migrate_raft_state`` moves older
-    checkpoints there)."""
-    from mav_detection_tpu_torch.models.raft import RAFT
+    checkpoints there); ``config`` (a ``RAFTConfig``, the default when None)
+    gives the architecture the shapes are checked against."""
+    from mav_detection_tpu_torch.models.raft import RAFT, RAFTConfig
 
     with torch.device("meta"):
-        model = RAFT()
+        model = RAFT(config or RAFTConfig())
     return _state_dict_from_flax(tree, RAFT_TABLE, model)
 
 
@@ -235,3 +240,59 @@ def yolo_state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor
     with torch.device("meta"):
         model = TinyYOLO()
     return _state_dict_from_flax(tree, YOLO_TABLE, model)
+
+
+# ------------------------------------------ port weights back to Flax trees
+def _flax_leaves(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, np.ndarray]:
+    def np32(t: torch.Tensor) -> np.ndarray:
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    w = sd[prefix + "weight"]
+    out = {"bias": np32(sd[prefix + "bias"])}
+    if w.ndim == 4:                            # OIHW -> HWIO
+        out["kernel"] = np.ascontiguousarray(np32(w).transpose(2, 3, 1, 0))
+    else:
+        out["scale"] = np32(w)
+    return out
+
+
+def _unmap_tree(sd: Mapping[str, torch.Tensor], table: dict, prefix: str,
+                used: set) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for flax_key, (port, children) in sorted(table.items()):
+        p = prefix + (port + "." if port else "")
+        if children is None:
+            if p + "weight" not in sd:         # e.g. a block without ``down``
+                continue
+            tree[flax_key] = _flax_leaves(sd, p)
+            used.update({p + "weight", p + "bias"})
+        else:
+            sub = _unmap_tree(sd, children, p, used)
+            if sub:
+                tree[flax_key] = sub
+    return tree
+
+
+def _flax_from_state_dict(sd: Mapping[str, torch.Tensor], table: dict) -> Dict[str, Any]:
+    used: set = set()
+    tree = _unmap_tree(sd, table, "", used)
+    extra = sorted(set(sd) - used)
+    if extra:
+        raise ValueError(f"state_dict keys with no Flax counterpart: {extra}")
+    return {"params": tree}
+
+
+def flax_from_raft_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The Flax RAFT param tree (post-hoist layout) of a ``models.raft.RAFT``
+    state_dict: the inverse of ``raft_state_dict_from_flax``."""
+    return _flax_from_state_dict(sd, RAFT_TABLE)
+
+
+def flax_from_sky_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The Flax SkyUNet param tree of a port state_dict."""
+    return _flax_from_state_dict(sd, SKY_TABLE)
+
+
+def flax_from_yolo_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The Flax TinyYOLO param tree of a port state_dict."""
+    return _flax_from_state_dict(sd, YOLO_TABLE)

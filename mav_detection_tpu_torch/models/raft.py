@@ -1,4 +1,5 @@
-"""RAFT-style optical flow, inference (``mav_detection_tpu.models.raft``).
+"""RAFT-style optical flow (``mav_detection_tpu.models.raft``): inference,
+and the training loss and step.
 
 Teed & Deng 2020 (arXiv:2003.12039): feature and context encoders at 1/8
 resolution, a 4-level correlation pyramid, and a ConvGRU update operator
@@ -384,15 +385,19 @@ class RAFT(nn.Module):
         return cfg
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int,
-                config: Optional[RAFTConfig] = None) -> torch.Tensor:
+                config: Optional[RAFTConfig] = None,
+                upsample_all: bool = False) -> torch.Tensor:
         """(b, 3, H, W) fp32 images in [0, 255], H and W multiples of 8 ->
-        (b, 2, H, W) flow from image1 to image2."""
+        (b, 2, H, W) flow from image1 to image2; with ``upsample_all`` (the
+        training sequence loss) the upsampled prediction of every iteration,
+        (iters, b, 2, H, W)."""
         cfg = self._config(config)
         b = image1.shape[0]
         x1 = image1.to(torch.float32) / 127.5 - 1.0
         x2 = image2.to(torch.float32) / 127.5 - 1.0
         feats = self.fnet(torch.cat([x1, x2]), cfg.dtype)
-        return self.refine(feats[:b], feats[b:], self.cnet(x1, cfg.dtype), iters, cfg)
+        return self.refine(feats[:b], feats[b:], self.cnet(x1, cfg.dtype), iters, cfg,
+                           upsample_all)
 
     def video(self, frames: torch.Tensor, iters: int,
               config: Optional[RAFTConfig] = None) -> torch.Tensor:
@@ -419,19 +424,30 @@ class RAFT(nn.Module):
         return lambda flow: lookup_corr_volumes(vols, shapes, flow, r)
 
     def refine(self, f1: torch.Tensor, f2: torch.Tensor, cnet_out: torch.Tensor,
-               iters: int, cfg: RAFTConfig) -> torch.Tensor:
+               iters: int, cfg: RAFTConfig, upsample_all: bool = False) -> torch.Tensor:
+        """The GRU refinement and the convex upsample: of the final state,
+        or (``upsample_all``) of every iteration's, with the same mask-head
+        weights. The flow is not detached between iterations: training
+        differentiates through every lookup, as the reference does."""
         dt = cfg.dtype
         hidden = torch.tanh(cnet_out[:, :cfg.hidden_dim])
         context = F.relu(cnet_out[:, cfg.hidden_dim:])
         lookup = self.correlation(f1, f2, cfg)
         b, _, h8, w8 = f1.shape
         flow = torch.zeros((b, 2, h8, w8), dtype=torch.float32, device=f1.device)
+        hiddens, flows = [], []
         for _ in range(iters):
             hidden, dflow = self.update(hidden, context, lookup(flow), flow, dt)
             flow = flow + dflow
+            if upsample_all:
+                hiddens.append(hidden)
+                flows.append(flow)
+        if upsample_all:
+            hidden, flow = torch.cat(hiddens), torch.cat(flows)
         mask = self.mask_head(F.relu(self.mask_hidden(hidden, dt)).to(torch.float32),
                               torch.float32)
-        return convex_upsample(flow, mask)
+        up = convex_upsample(flow, mask)
+        return up.reshape(iters, b, *up.shape[1:]) if upsample_all else up
 
 
 # --------------------------------------------------------------- interface
@@ -500,6 +516,16 @@ def _default_params(device: Device = "cpu",
     model = model.to(device)
     if generator is None:
         _RAFT_CACHE[key] = model
+    return model
+
+
+def create_raft(generator: Optional[torch.Generator] = None,
+                config: RAFTConfig = RAFTConfig()) -> RAFT:
+    """A RAFT of ``config``'s architecture with Flax's default initialisers
+    drawn from ``generator`` (seed 0 when none is given), on the CPU."""
+    model = RAFT(config)
+    init_params(model, generator if generator is not None
+                else torch.Generator().manual_seed(0))
     return model
 
 
@@ -738,3 +764,45 @@ def raft_flow_video_tuned(frames, model: Optional[RAFT] = None,
     return _run_scaled(
         lambda tt: raft_flow_video_auto(frames, model, tt.iters, tt.config, dev,
                                         n_real), (h, w), t)
+
+
+# ---------------------------------------------------------------- training
+def raft_loss(model: RAFT, img1: torch.Tensor, img2: torch.Tensor,
+              flow_gt: torch.Tensor, gamma: float = 0.8, iters: int = 12,
+              pixel_weight: Optional[torch.Tensor] = None,
+              config: Optional[RAFTConfig] = None) -> torch.Tensor:
+    """The reference's sequence L1 loss (RAFT eq. 7) of each example:
+    (b, H, W, 3) images in [0, 255] (H, W multiples of 8), (b, H, W, 2) GT
+    flow, optional (b, H, W) pixel weights -> (b,) losses. The prediction of
+    iteration i of n weighs ``gamma ** (n - 1 - i)``; with ``pixel_weight``
+    each iteration's L1 is the weighted mean over pixels and both flow
+    components. Runs in ``config``'s dtype (the model's own by default)."""
+    preds = model(img1.permute(0, 3, 1, 2), img2.permute(0, 3, 1, 2), iters,
+                  config, upsample_all=True)                    # (n, b, 2, H, W)
+    n = preds.shape[0]
+    weights = gamma ** torch.arange(n - 1, -1, -1, dtype=torch.float32,
+                                    device=preds.device)
+    err = torch.abs(preds - flow_gt.permute(0, 3, 1, 2)[None])
+    if pixel_weight is not None:
+        w = pixel_weight[None, :, None].to(torch.float32)
+        per_iter = (torch.sum(err * w, dim=(2, 3, 4))
+                    / (torch.sum(w, dim=(2, 3, 4)) * err.shape[2]))
+    else:
+        per_iter = torch.mean(err, dim=(2, 3, 4))
+    return torch.sum(weights[:, None] * per_iter, dim=0)
+
+
+def make_train_step(model: RAFT, optimizer, iters: int = 12,
+                    config: Optional[RAFTConfig] = None):
+    """A (img1, img2, flow_gt) -> loss step: the mean of the per-example
+    losses, its gradient, one update of ``optimizer`` (a
+    ``models.optim.TrainOptimizer``). The loss stays on the device."""
+
+    def train_step(img1, img2, flow_gt):
+        optimizer.zero_grad()
+        loss = raft_loss(model, img1, img2, flow_gt, iters=iters, config=config).mean()
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return train_step

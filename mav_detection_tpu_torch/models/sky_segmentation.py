@@ -10,14 +10,14 @@ uint8): the checkpoint was trained on that.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mav_detection_tpu_torch.models.layers import Conv, GroupNorm
+from mav_detection_tpu_torch.models.layers import Conv, GroupNorm, init_params
 from mav_detection_tpu_torch.utils.device import resolve_device
 
 
@@ -93,3 +93,28 @@ def sky_mask(model: SkyUNet, image: Union[np.ndarray, torch.Tensor],
     img = torch.as_tensor(np.asarray(image) if not isinstance(image, torch.Tensor)
                           else image).to(dev)
     return sky_logits(model, img[None], dtype)[0] > 0.0
+
+
+def create_sky_model(generator: Optional[torch.Generator] = None) -> SkyUNet:
+    """A SkyUNet with Flax's default initialisers drawn from ``generator``
+    (seed 0 when none is given), on the CPU."""
+    model = SkyUNet()
+    init_params(model, generator if generator is not None
+                else torch.Generator().manual_seed(0))
+    return model
+
+
+def sky_loss(model: SkyUNet, images: torch.Tensor, mask_gt: torch.Tensor,
+             dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The reference's balanced sigmoid cross-entropy of each example:
+    (b, h, w, 3) images in [0, 255] (h, w multiples of 8) and (b, h, w) sky
+    masks -> (b,) losses. Positives and negatives each weigh 1 / their
+    count (at least 1)."""
+    logits = model(images.permute(0, 3, 1, 2), dtype)
+    labels = mask_gt.to(torch.float32)
+    per_px = (torch.clamp(logits, min=0) - logits * labels
+              + torch.log1p(torch.exp(-torch.abs(logits))))
+    pos = torch.clamp(labels.sum(dim=(1, 2), keepdim=True), min=1.0)
+    neg = torch.clamp((1 - labels).sum(dim=(1, 2), keepdim=True), min=1.0)
+    w = labels / pos + (1 - labels) / neg
+    return torch.sum(per_px * w, dim=(1, 2))

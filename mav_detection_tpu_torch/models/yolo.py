@@ -227,3 +227,43 @@ def batch_box_strings(model: TinyYOLO, frames: np.ndarray, batch: int = 8,
         out.extend(box_strings(Boxes(*(a[j] for a in boxes)))
                    for j in range(len(chunk) - pad))
     return out
+
+
+def yolo_loss(model: TinyYOLO, images: torch.Tensor, target_xywh: torch.Tensor,
+              stride: int = STRIDE, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The reference's single-target loss of each example: (b, h, w, 3)
+    images (multiples of 16) and (b, 4) center boxes in px -> (b,) losses.
+    Objectness BCE over every anchor of every cell (x100) with one positive,
+    the cell of the box center (``clip(c / stride, 0, g - 1 - 1e-3)``,
+    truncated to int32) at the anchor of the nearest area, plus the squared
+    errors of that prediction's offsets and log sizes."""
+    raw = model(images, dtype)
+    b, gh, gw = raw.shape[:3]
+    na = ANCHORS.shape[0]
+    p = raw.reshape(b, gh, gw, na, 5)
+    t = target_xywh.to(torch.float32)
+    cx, cy, bw, bh = t[:, 0], t[:, 1], t[:, 2], t[:, 3]
+    gx = torch.clamp(cx / stride, 0, gw - 1 - 1e-3)
+    gy = torch.clamp(cy / stride, 0, gh - 1 - 1e-3)
+    ci = gx.to(torch.int32).long()
+    cj = gy.to(torch.int32).long()
+    anchors = _anchors_on(raw.device)
+    a = torch.argmin(torch.abs(anchors[None, :, 0] * anchors[None, :, 1]
+                               - (bw * bh)[:, None]), dim=1)
+    # the target cell and anchor as one flat index: scatter and gather, so
+    # neither the forward nor the backward waits for the host
+    flat = ((cj * gw + ci) * na + a)[:, None]                     # (b, 1)
+    obj_target = torch.zeros((b, gh * gw * na), device=raw.device).scatter_(
+        1, flat, 1.0).reshape(b, gh, gw, na)
+    logit = p[..., 0]
+    obj_loss = torch.mean(torch.clamp(logit, min=0) - logit * obj_target
+                          + torch.log1p(torch.exp(-torch.abs(logit))), dim=(1, 2, 3))
+    pred = torch.gather(p.reshape(b, gh * gw * na, 5), 1,
+                        flat[..., None].expand(b, 1, 5))[:, 0]   # (b, 5)
+    tx, ty = gx - ci, gy - cj
+    anc = anchors[a]
+    coord = ((torch.sigmoid(pred[:, 1]) - tx) ** 2
+             + (torch.sigmoid(pred[:, 2]) - ty) ** 2
+             + (pred[:, 3] - torch.log(torch.clamp(bw / anc[:, 0], min=1e-4))) ** 2
+             + (pred[:, 4] - torch.log(torch.clamp(bh / anc[:, 1], min=1e-4))) ** 2)
+    return obj_loss * 100.0 + coord

@@ -197,11 +197,23 @@ def colorwheel_image(diameter: int = 250) -> np.ndarray:
 
 
 # ----------------------------------------------------------- device (torch)
+_WHEEL_ON: dict = {}
+
+
+def _wheel_on(dev: torch.device) -> torch.Tensor:
+    """The colorwheel / 255 on ``dev``, copied once per device (a copy from
+    the host in every call would make each training step wait for it)."""
+    key = str(dev)
+    if key not in _WHEEL_ON:
+        _WHEEL_ON[key] = torch.as_tensor(_COLORWHEEL, dtype=torch.float32,
+                                         device=dev) / 255.0
+    return _WHEEL_ON[key]
+
+
 def _wheel_color(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Interpolated colorwheel color (..., 3) RGB in [0, 1] of the direction
     of (u, v)."""
-    wheel = torch.as_tensor(_COLORWHEEL, dtype=torch.float32,
-                            device=u.device) / 255.0          # (ncols, 3) RGB
+    wheel = _wheel_on(u.device)                               # (ncols, 3) RGB
     ncols = wheel.shape[0]
     a = torch.atan2(-v, -u) / np.pi
     fk = (a + 1.0) / 2.0 * (ncols - 1)

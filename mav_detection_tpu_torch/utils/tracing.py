@@ -1,5 +1,5 @@
-"""Per-stage host wall-clock tracing (``mav_detection_tpu.utils.tracing``'s
-``Tracer`` and ``stage``; the profiler capture is not ported yet).
+"""Per-stage host wall-clock tracing and a device trace capture
+(``mav_detection_tpu.utils.tracing``: ``Tracer``, ``stage``, ``trace_to``).
 
 Device work is asynchronous: a stage that only enqueues kernels records the
 enqueue time, and the stage that first synchronizes (the batch's host pull)
@@ -11,13 +11,17 @@ Usage::
     with tracer.stage("flow"):
         flow = farneback_flow_batch(...)
     print(tracer.summary())
+
+    with trace_to("/tmp/torch-trace"):   # torch.profiler capture, Chrome trace
+        run()
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 
 class Tracer:
@@ -63,3 +67,28 @@ def stage(name: str):
 
 def global_summary() -> str:
     return _GLOBAL.summary()
+
+
+@contextlib.contextmanager
+def trace_to(log_dir: Optional[str]) -> Iterator[object]:
+    """Capture a ``torch.profiler`` trace around the block (CPU activity,
+    and the card's kernels and copies where CUDA is available) and write it
+    as a Chrome trace JSON, ``trace_<pid>_<ns>.json``, under ``log_dir``.
+    Yields the profiler (its ``key_averages()`` and ``events()``); a None or
+    empty ``log_dir`` makes this a no-op that yields None."""
+    if not log_dir:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

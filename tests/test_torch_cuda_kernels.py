@@ -159,3 +159,70 @@ def test_sky_mask_on_card_matches_cpu(dev):
     card = ts.sky_mask(pretrained.load_sky(dev), frame, dev).cpu().numpy()
     cpu = ts.sky_mask(pretrained.load_sky("cpu"), frame, "cpu").numpy()
     assert (card == cpu).mean() >= 0.995
+
+
+def test_generate_batch_on_card_matches_cpu(dev):
+    """The scene generator (banded fp32 matmuls, gathers) on the same draws."""
+    from mav_detection_tpu_torch.data import synthgen as sg
+
+    draws = sg.draw_scenes(4, 96, 128, pan_max=6.0, generator=torch.Generator().manual_seed(0))
+    card = sg.generate_batch(4, 96, 128, pan_max=6.0, draws=draws, device=dev)
+    cpu = sg.generate_batch(4, 96, 128, pan_max=6.0, draws=draws, device="cpu")
+    for f in sg.SynthScene._fields:
+        a, b = getattr(card, f).cpu(), getattr(cpu, f)
+        if b.dtype == torch.bool:
+            assert torch.equal(a, b), f
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()), msg=f)
+
+
+def _one_update(net, dev, dtype, draws, lr=1e-3):
+    """One step of a trainer's loss and optimizer from the shipped weights
+    at learning rate ``lr`` (the trainers' own first step runs at 0)."""
+    from mav_detection_tpu_torch.cli import train as tt
+    from mav_detection_tpu_torch.data.synthgen import generate_batch
+    from mav_detection_tpu_torch.models import optim, pretrained
+    from mav_detection_tpu_torch.models.raft import RAFT, RAFTConfig
+    from mav_detection_tpu_torch.models.sky_segmentation import SkyUNet
+    from mav_detection_tpu_torch.models.yolo import TinyYOLO
+
+    build, params = {"raft": (RAFT, pretrained.load_raft_params),
+                     "sky": (SkyUNet, pretrained.load_sky_params),
+                     "yolo": (TinyYOLO, pretrained.load_yolo_params)}[net]
+    model = build()
+    model.load_state_dict(params())
+    model = model.to(dev)
+    opt = optim.TrainOptimizer(model.parameters(), lambda c: lr,
+                               weight_decay=1e-5 if net == "raft" else None)
+    b, h, w = draws.ground_noise.shape
+    sc = generate_batch(b, h, w, draws=draws, device=dev)
+    opt.zero_grad()
+    if net == "raft":
+        loss = tt.raft_batch_loss(model, sc, 4, config=RAFTConfig(dtype=dtype))
+    elif net == "sky":
+        loss = tt.sky_batch_loss(model, sc, dtype)
+    else:
+        loss = tt.yolo_batch_loss(model, sc, "FLOW_UV", dtype)
+    loss.backward()
+    opt.step()
+    return float(loss), {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize("net,dtype,loss_rtol,median_steps", [
+    ("raft", torch.float32, 1e-4, 1e-3), ("raft", torch.bfloat16, 2e-2, 0.2),
+    ("sky", torch.float32, 1e-4, 1e-3), ("sky", torch.bfloat16, 2e-2, 0.2),
+    ("yolo", torch.float32, 1e-4, 1e-3), ("yolo", torch.bfloat16, 2e-2, 0.2)])
+def test_train_step_on_card_matches_cpu(dev, net, dtype, loss_rtol, median_steps):
+    """One update of each trainer card against CPU on the same draws: the
+    loss within ``loss_rtol``; the parameters, in units of one step of the
+    learning rate, with a median difference within ``median_steps`` (Adam
+    normalises each gradient, so where one is rounding noise the update is
+    too; bf16 rounds the activations to 8 bits)."""
+    from mav_detection_tpu_torch.data.synthgen import draw_scenes
+
+    draws = draw_scenes(2, 64, 96, generator=torch.Generator().manual_seed(3))
+    lc, pc = _one_update(net, dev, dtype, draws)
+    lh, ph = _one_update(net, "cpu", dtype, draws)
+    assert lc == pytest.approx(lh, rel=loss_rtol)
+    diff = torch.cat([(pc[k] - ph[k]).abs().flatten() for k in ph]) / 1e-3
+    assert float(diff.median()) < median_steps

@@ -20,8 +20,9 @@ _FORBIDDEN = re.compile(
     re.MULTILINE)
 
 
-# a Flax or msgpack import: the port reads the checkpoints with its own code
-_NO_FLAX = re.compile(r"^\s*(?:import|from)\s+(?:flax|msgpack)(?:[.\s,]|$)",
+# a Flax, msgpack, optax or orbax import: the port reads and writes the
+# checkpoints with its own code and has its own optimizer chains
+_NO_FLAX = re.compile(r"^\s*(?:import|from)\s+(?:flax|msgpack|optax|orbax)(?:[.\s,]|$)",
                       re.MULTILINE)
 
 
@@ -61,6 +62,12 @@ NEW_MODULES = [
     "mav_detection_tpu_torch.eval.validator",
     "mav_detection_tpu_torch.serve",
     "mav_detection_tpu_torch.cli.serve",
+    "mav_detection_tpu_torch.data.synthgen",
+    "mav_detection_tpu_torch.models.optim",
+    "mav_detection_tpu_torch.cli.train",
+    "mav_detection_tpu_torch.cli.demo",
+    "mav_detection_tpu_torch.cli.video",
+    "mav_detection_tpu_torch.eval.figures",
 ]
 
 
@@ -91,7 +98,7 @@ def test_import_every_module_without_jax_or_cv2():
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'mav_detection_tpu', 'cv2', 'flax',\n"
-        "              'msgpack'))\n"
+        "              'msgpack', 'optax', 'orbax'))\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n") % (NEW_MODULES,)
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -143,6 +150,8 @@ def test_no_flax_pattern_catches_and_spares():
     assert _NO_FLAX.search("  import msgpack")
     assert not _NO_FLAX.search("# flax writes a msgpack map")
     assert not _NO_FLAX.search("import flaxen")
+    assert _NO_FLAX.search("import optax")
+    assert _NO_FLAX.search("    import orbax.checkpoint as ocp")
 
 
 def test_forbidden_pattern_catches_and_spares():
