@@ -3,6 +3,8 @@
 one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi 4     # four cards: phase ``multi`` at world
+                                        # size 4, then dryrun_multichip(4)
 
 Phases, each printing one line (plus its seconds):
   1. device  — the card's name and power limit (nvidia-smi); fails without a
@@ -138,7 +140,20 @@ Phases, each printing one line (plus its seconds):
                launches counted); foe_angular_error_map card against CPU;
                run_demo on the mock client; the figures' numbers with
                matplotlib barred (nothing written).
-Then the nets, datasets, yolo, train and tools JSON line, the kernels JSON
+ 18. multi   — the multi-device paths at world size 1 with NCCL, in one
+               spawned rank (parallel/mesh.launch), each warmed up once and
+               then timed with the launch counters zeroed: the data-parallel
+               FoE loop (752x480, b=8, 12 frames) against the one-card
+               loop's FrameResults and its pooled TPR/FPR; spatial
+               Farneback at 1920x1024 against the unsharded separable
+               solver (1e-3 px), beside the batched fused solver's b=1
+               latency; the chunked engine on the 12-frame sequence against
+               the scan engine; one data-parallel RAFT training chunk
+               (160x128, b=8) against the one-card chunk (the reference's
+               rtol 2e-2 / atol 1e-3). Frames/s, ms per pair, transition
+               and step on the host clock; the fused kernel's launches on
+               each path (none on spatial: tensor-code separable warp).
+Then the nets, datasets, yolo, train, tools and multi JSON line, the kernels JSON
 line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line and
 exits non-zero; so does a machine without a card, or a directory without
@@ -3142,9 +3157,420 @@ def phase_tools(dev, size=(480, 752), batch: int = 8) -> dict:
     return out
 
 
-def main() -> int:
+# ------------------------------------------------------------------- multi
+MULTI_SIZES = {
+    "loop": (480, 752, 12, 8),          # h, w, frames, batch
+    "spatial": (1024, 1920),
+    "chunked": (480, 752, 12),          # h, w, frames
+    "train": (128, 160, 8, 5),          # h, w, batch, steps in the chunk
+}
+MULTI_FOE_TOL_PX = 1e-3          # data parallel / chunked against one card
+MULTI_RATE_TOL = 1e-5
+SPATIAL_TOL_PX = 1e-3            # the reference's gate against unsharded
+TRAIN_DP_RTOL, TRAIN_DP_ATOL = 2e-2, 1e-3   # the reference's data-parallel gate
+# The chunk's warmup runs step 0 at rate 0, so 5 steps move a weight by about
+# 6e-4 in all, below TRAIN_DP_ATOL. So the parameter change (final minus
+# initial) is held too, as the norm of its difference from the one-card
+# change over that change's norm, and the losses from step 2 on (the first
+# taken after a real update) within a relative limit. The limits are set from
+# sound runs on the card and a planted control run in every call: one card
+# trained on the first half of each step's draws, what rank 0 of two trains
+# on when the gradients are not all-reduced, which must fail the change gate.
+TRAIN_DP_CHANGE_TOL = 0.1
+TRAIN_DP_LOSS_RTOL = 3e-3
+
+
+def _sync(dev) -> None:
     import torch
 
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _multi_processor(dev, ds, mesh=None, **cfg_kw):
+    """A Processor over the synthetic sequence ``ds``, throughput run (JSON
+    only, into no directory), as ``mesh``'s rank when given."""
+    import logging
+
+    from mav_detection_tpu_torch.core.config import RunConfig
+    from mav_detection_tpu_torch.pipeline.processor import Processor
+
+    cfg = RunConfig(logger=logging.getLogger("chip_smoke.multi"), dataset="synthetic",
+                    flow_source="FARNEBACK", headless=True, **cfg_kw)
+    proc = Processor(cfg, device=dev, mesh=mesh, dataset=ds)
+    proc.save_images = False
+    return proc
+
+
+def _run(fn, dev):
+    """(what ``fn`` returns, host-clock s, fused launches) of one
+    synchronised call, the launch counters zeroed just before it."""
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+
+    _sync(dev)
+    fi.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0, dict(fi.LAUNCHES)
+
+
+def _turns(mesh, one, sharded) -> dict:
+    """One card against the sharded path in one process, in turns: each
+    warmed up once, then one card, sharded, sharded, one card (rank 0 alone
+    runs the one-card calls; the other ranks wait at the next collective).
+    The last sharded call's result and launches, each path's mean seconds,
+    and (rank 0) the one-card result, and that of its first timed call."""
+    dev, lead = mesh.device, mesh.rank == 0
+    if lead:
+        one()
+    sharded()
+    runs = {"one": [], "sharded": []}
+    for tag in ("one", "sharded", "sharded", "one"):
+        if tag == "sharded" or lead:
+            runs[tag].append(_run(one if tag == "one" else sharded, dev))
+    got, _, launches = runs["sharded"][-1]
+    out = {"result": got, "s": float(np.mean([r[1] for r in runs["sharded"]])),
+           "launches": launches}
+    if lead:
+        out.update(one_result=runs["one"][-1][0], one_launches=runs["one"][-1][2],
+                   one_s=float(np.mean([r[1] for r in runs["one"]])),
+                   one_first_result=runs["one"][0][0])
+    return out
+
+
+def _frame_dicts(proc):
+    """A fresh run of ``proc``'s FoE loop: FrameResults as dicts, and the
+    batches' all-reduced rates."""
+    proc.detection_results, proc._psum_metrics = {}, []
+    results = proc.run_detection_foe()
+    return {i: fr.to_dict() for i, fr in results.items()}, list(proc._psum_metrics)
+
+
+def _multi_train_kw(dev, sizes):
+    h, w, batch, steps = sizes["train"]
+    return dict(steps=steps, batch=batch, hw=(h, w), chunk=steps, seed=0,
+                use_selector=False, device=dev)
+
+
+def _half_batch_kw(dev, kw) -> dict:
+    """The planted control of the data-parallel training gate: ``kw``'s run
+    on the first half of each step's draws of the whole batch, the update
+    rank 0 of two makes when the gradients are not all-reduced."""
+    from mav_detection_tpu_torch.cli.train import _draws_fn
+    from mav_detection_tpu_torch.data.synthgen import SceneDraws
+
+    h, w = kw["hw"]
+    half = kw["batch"] // 2
+    full = _draws_fn(None, kw["batch"], h, w, 0.0, kw["seed"], dev)
+    return dict(kw, batch=half,
+                draws=lambda step: SceneDraws(*(t[:half] for t in full(step))))
+
+
+def _change_err(got, ref, init) -> float:
+    """|(got - init) - (ref - init)| / |ref - init| over every parameter."""
+    num = den = 0.0
+    for k, v in init.items():
+        want = ref[k].double() - v.double()
+        num += float(((got[k].double() - v.double()) - want).square().sum())
+        den += float(want.square().sum())
+    return (num / den) ** 0.5
+
+
+def _nccl_times(mesh, sizes) -> dict:
+    """Host-clock ms per collective (20 after 3 warm-up, synchronised): the
+    all-reduce of the 4 metric counts, of the RAFT gradient (the product
+    ``RAFTConfig``'s parameters, fp32) and one halo hop of spatial
+    Farneback's refit at its finest level (``max_shift + winsize // 2 + 2``
+    flow rows each way)."""
+    import torch
+
+    from mav_detection_tpu_torch.models.raft import RAFT
+    from mav_detection_tpu_torch.ops.flow.farneback import tuned_flow_params
+    from mav_detection_tpu_torch.parallel.halo import exchange_rows
+    from mav_detection_tpu_torch.parallel.mesh import all_reduce_sum_
+
+    dev = mesh.device
+    with torch.device("meta"):
+        n_grad = sum(p.numel() for p in RAFT().parameters())
+    sh, sw = sizes["spatial"]
+    params = tuned_flow_params(sh, sw)
+    fh_r = params.max_shift + params.winsize // 2 + 2
+    band = torch.zeros((1, 2, sh // mesh.size, sw), device=dev)
+    small, grad = torch.zeros(4, device=dev), torch.zeros(n_grad, device=dev)
+
+    def ms(fn, reps=20):
+        for _ in range(3):
+            fn()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync(dev)
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    return {"all_reduce_counts_ms": ms(lambda: all_reduce_sum_(small, mesh)),
+            "all_reduce_grad_ms": ms(lambda: all_reduce_sum_(grad, mesh)),
+            "grad_bytes": 4 * n_grad,
+            "halo_hop_ms": ms(lambda: exchange_rows(band, fh_r, fh_r, mesh)),
+            "halo_bytes_each_way": 4 * 2 * fh_r * sw}
+
+
+def _multi_rank(mesh, sizes):
+    """Phase ``multi`` as one rank of a process group: the data-parallel FoE
+    loop, spatial Farneback, the chunked engine and a data-parallel RAFT
+    training chunk, each through the entry point a user calls under a
+    group, each in turns with its one-card counterpart in this process
+    (``_turns``). Rank 0 returns what it measured."""
+    from dataclasses import replace
+
+    import torch
+
+    from mav_detection_tpu_torch.cli.train import train_raft
+    from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
+    from mav_detection_tpu_torch.ops.flow.farneback import _farneback_cf, tuned_flow_params
+    from mav_detection_tpu_torch.parallel.spatial import farneback_flow_spatial
+
+    def sequence(h, w, n_frames):
+        # read-only in every run: the processors of a size share it
+        return SyntheticDataset(params=SyntheticParams(height=h, width=w,
+                                                       n_frames=n_frames))
+
+    dev, out = mesh.device, {}
+    h, w, n_frames, batch = sizes["loop"]
+    ds = sequence(h, w, n_frames)
+    dp = _multi_processor(dev, ds, mesh, batch_size=batch, devices=mesh.size)
+    # the batch a mesh runs (raised to its size where smaller): the same
+    # batches draw the same FoE samples
+    one = _multi_processor(dev, ds, batch_size=dp.batch_size)
+    out["loop"] = _turns(mesh, lambda: _frame_dicts(one), lambda: _frame_dicts(dp))
+
+    sh, sw = sizes["spatial"]
+    prev, curr, _ = scene_batch(1, sh, sw, hires=True)
+    params = tuned_flow_params(sh, sw)
+    p_t, c_t = torch.from_numpy(prev).to(dev), torch.from_numpy(curr).to(dev)
+    sep = replace(params, warp="separable")
+    out["spatial"] = _turns(
+        mesh, lambda: _farneback_cf(p_t, c_t, sep)[0].cpu(),
+        lambda: farneback_flow_spatial(p_t[0], c_t[0], params, mesh).cpu())
+    if mesh.rank == 0:
+        _run(lambda: _farneback_cf(p_t, c_t, params), dev)          # warm-up
+        _, fused_s, fused_launches = _run(lambda: _farneback_cf(p_t, c_t, params), dev)
+        out["spatial"].update(fused_s=fused_s, fused_launches=fused_launches)
+
+    if sizes["chunked"] != (h, w, n_frames):
+        ds = sequence(*sizes["chunked"])
+    scan = _multi_processor(dev, ds, engine="scan")
+    chunked = _multi_processor(dev, ds, mesh, engine="chunked", devices=mesh.size)
+    out["chunked"] = _turns(mesh, lambda: _frame_dicts(scan)[0],
+                            lambda: _frame_dicts(chunked)[0])
+
+    kw = _multi_train_kw(dev, sizes)
+
+    def state(model_losses):
+        model, losses = model_losses
+        return {k: v.cpu() for k, v in model.state_dict().items()}, np.asarray(losses)
+
+    out["train"] = _turns(mesh, lambda: state(train_raft(**kw)),
+                          lambda: state(train_raft(**kw, devices=mesh.size, mesh=mesh)))
+    if mesh.rank == 0:
+        out["train"]["half_batch_result"] = state(train_raft(**_half_batch_kw(dev, kw)))
+    out["nccl"] = _nccl_times(mesh, sizes)
+    return out if mesh.rank == 0 else None
+
+
+def _results_diff(tag, got, ref):
+    """Largest FoE and rate differences of two runs' FrameResult dicts;
+    raises where they do not cover the same pairs or miss the tolerances."""
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"[multi] {tag}: pairs {sorted(got)} against {sorted(ref)}")
+    foe = rate = 0.0
+    for i in ref:
+        foe = max(foe, float(np.abs(np.subtract(got[i]["foe_dense"],
+                                                ref[i]["foe_dense"])).max()))
+        for k in RATES:
+            a, b = got[i][k], ref[i][k]
+            if np.isnan(a) != np.isnan(b):
+                raise AssertionError(f"[multi] {tag} pair {i} {k}: {a} against {b}")
+            if not np.isnan(a):
+                rate = max(rate, abs(a - b))
+    if foe > MULTI_FOE_TOL_PX or rate > MULTI_RATE_TOL:
+        raise AssertionError(f"[multi] {tag}: FoE {foe} px (tol {MULTI_FOE_TOL_PX}), "
+                             f"rates {rate} (tol {MULTI_RATE_TOL})")
+    return foe, rate
+
+
+def _expected_psum(results, batch: int, hw: int):
+    """The batches' pooled fixed-threshold TPR / FPR from one-card
+    FrameResults: tp = tpr * pos and fp = fpr * neg per frame, pos the
+    target's pixels and neg the rest."""
+    out = []
+    n = len(results)
+    for b0 in range(0, n, batch):
+        frames = [results[i] for i in range(b0, min(b0 + batch, n))]
+        pos = np.array([fr["drone_size_pixels"] for fr in frames], np.float64)
+        tp = sum(fr["tpr_fixed"] * p for fr, p in zip(frames, pos) if p > 0)
+        fp = sum(fr["fpr_fixed"] * (hw - p) for fr, p in zip(frames, pos))
+        with np.errstate(invalid="ignore"):     # no target pixel: 0/0, as pooled
+            out.append((tp / pos.sum(), fp / (hw - pos).sum(), len(frames)))
+    return out
+
+
+def phase_multi(dev, sizes=MULTI_SIZES, ranks: int = 1) -> dict:
+    """The multi-device paths on ``ranks`` spawned ranks (world size 1 by
+    default; NCCL on the cards, gloo on the CPU), each held to its one-card
+    counterpart, which rank 0 runs in turns with it in the same process."""
+    from mav_detection_tpu_torch.parallel.mesh import backend_for, launch
+
+    t0 = time.perf_counter()
+    got = launch(_multi_rank, ranks, dev, sizes, timeout_s=600.0)
+    out = {"backend": backend_for(dev), "world_size": ranks,
+           "rank_s": time.perf_counter() - t0, "nccl": got["nccl"]}
+
+    h, w, n_frames, batch = sizes["loop"]
+    batch = max(batch, ranks)
+    loop = got["loop"]
+    (results, psum), (one, _) = loop["result"], loop["one_result"]
+    foe, rate = _results_diff("data parallel", results, one)
+    want = _expected_psum(one, batch, h * w)
+    pairs = [(a, b) for g, e in zip(psum, want) for a, b in zip(g, e)]
+    psum_err = max((abs(a - b) for a, b in pairs if not np.isnan(b)), default=0.0)
+    if (len(psum) != len(want) or psum_err > MULTI_RATE_TOL
+            or any(np.isnan(a) != np.isnan(b) for a, b in pairs)):
+        raise AssertionError(f"[multi] psum {psum} against {want}")
+    out["data_parallel"] = {
+        "size": f"{w}x{h}", "batch": batch, "pairs": n_frames - 1,
+        "frames_per_s": (n_frames - 1) / loop["s"],
+        "one_card_frames_per_s": (n_frames - 1) / loop["one_s"],
+        "launches": loop["launches"], "one_card_launches": loop["one_launches"],
+        "max_foe_diff_px": foe, "max_rate_diff": rate, "psum": psum,
+        "max_psum_diff": psum_err}
+
+    sh, sw = sizes["spatial"]
+    sp = got["spatial"]
+    err = float((sp["result"] - sp["one_result"]).abs().max())
+    if err > SPATIAL_TOL_PX:
+        raise AssertionError(f"[multi] spatial Farneback {err} px from unsharded")
+    out["spatial"] = {"size": f"{sw}x{sh}", "max_abs_err_px": err,
+                      "ms_per_pair": sp["s"] * 1e3,
+                      "unsharded_separable_ms": sp["one_s"] * 1e3,
+                      "batched_fused_b1_ms": sp["fused_s"] * 1e3,
+                      "launches": sp["launches"], "fused_b1_launches": sp["fused_launches"]}
+
+    ch, cw, c_frames = sizes["chunked"]
+    chk = got["chunked"]
+    foe, rate = _results_diff("chunked", chk["result"], chk["one_result"])
+    out["chunked"] = {"size": f"{cw}x{ch}", "transitions": c_frames - 1,
+                      "ms_per_transition": chk["s"] * 1e3 / (c_frames - 1),
+                      "scan_ms_per_transition": chk["one_s"] * 1e3 / (c_frames - 1),
+                      "launches": chk["launches"], "scan_launches": chk["one_launches"],
+                      "max_foe_diff_px": foe, "max_rate_diff": rate}
+
+    import torch
+
+    from mav_detection_tpu_torch.models.raft import create_raft
+
+    kw = _multi_train_kw(dev, sizes)
+    tr = got["train"]
+    (state, losses), (one_state, one_losses) = tr["result"], tr["one_result"]
+    worst = 0.0
+    for k, v in one_state.items():
+        a, b = state[k].float().numpy(), v.float().numpy()
+        worst = max(worst, float(np.abs(a - b).max()))
+        if (np.abs(a - b) > TRAIN_DP_ATOL + TRAIN_DP_RTOL * np.abs(b)).any():
+            raise AssertionError(f"[multi] data-parallel RAFT {k}: {np.abs(a - b).max()}")
+    init = create_raft(torch.Generator().manual_seed(kw["seed"])).state_dict()
+    change = _change_err(state, one_state, init)
+    one_again = _change_err(tr["one_first_result"][0], one_state, init)
+    control = _change_err(tr["half_batch_result"][0], one_state, init)
+    loss_err = float(np.max(np.abs(losses[2:] - one_losses[2:]) / np.abs(one_losses[2:])))
+    if change > TRAIN_DP_CHANGE_TOL or loss_err > TRAIN_DP_LOSS_RTOL:
+        raise AssertionError(f"[multi] data-parallel RAFT: parameter change {change} from "
+                             f"the one-card change (tol {TRAIN_DP_CHANGE_TOL}), losses "
+                             f"{losses} against {one_losses} (rtol {TRAIN_DP_LOSS_RTOL})")
+    if control <= TRAIN_DP_CHANGE_TOL:
+        raise AssertionError(f"[multi] data-parallel RAFT: the half-batch control's change "
+                             f"reads {control}, inside the gate {TRAIN_DP_CHANGE_TOL}")
+    out["train"] = {"size": f"{kw['hw'][1]}x{kw['hw'][0]}", "batch": kw["batch"],
+                    "steps": kw["steps"], "ms_per_step": tr["s"] * 1e3 / kw["steps"],
+                    "one_card_ms_per_step": tr["one_s"] * 1e3 / kw["steps"],
+                    "max_param_diff": worst, "change_err": change,
+                    "one_card_again_change_err": one_again,
+                    "half_batch_control_change_err": control, "loss_rel_err": loss_err,
+                    "losses": [float(v) for v in losses],
+                    "one_card_losses": [float(v) for v in one_losses]}
+    if dev.type == "cuda":
+        fused = "farneback_iterate_fused"
+        for tag in ("data_parallel", "chunked"):
+            if out[tag]["launches"][fused] == 0:
+                raise AssertionError(f"[multi] {tag}: the fused kernel never launched")
+        if out["spatial"]["launches"][fused]:
+            raise AssertionError("[multi] spatial: the fused kernel launched")
+    return out
+
+
+def main_multi(dev, ranks: int, smi: str) -> int:
+    """``--multi N``: phase ``multi`` on N cards, then ``dryrun_multichip``
+    on N cards."""
+    import torch
+
+    from mav_detection_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    multi = phase_multi(dev, ranks=ranks)
+    _say_multi(multi, smi, time.perf_counter() - t0)
+    lines = dryrun_multichip(ranks)
+    if len(lines) != 6:
+        raise AssertionError(f"dryrun_multichip({ranks}): {len(lines)} stages")
+    say(json.dumps({"multi": {key: multi[key] for key in (
+        "backend", "world_size", "nccl", "data_parallel", "spatial", "chunked",
+        "train")}}))
+    say(smi)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _say_multi(multi: dict, smi: str, seconds: float) -> None:
+    dp, sp, chk, trn = (multi[k] for k in ("data_parallel", "spatial", "chunked", "train"))
+    say(f"[multi] world size {multi['world_size']}, {multi['backend']}, in spawned ranks "
+        f"({multi['rank_s']:.1f} s with their start-up) on {smi}:")
+    say(f"[multi] data-parallel FoE loop {dp['size']} b={dp['batch']}, {dp['pairs']} pairs: "
+        f"{dp['frames_per_s']:.2f} frames/s (one card here {dp['one_card_frames_per_s']:.2f}), "
+        f"FrameResults within {dp['max_foe_diff_px']:.3g} px / {dp['max_rate_diff']:.3g} of the "
+        f"one-card loop's, psum TPR/FPR {json.dumps(dp['psum'])} within "
+        f"{dp['max_psum_diff']:.3g} of the pooled one-card rates; fused launches on rank 0 "
+        f"{json.dumps(dp['launches'])} (one card {json.dumps(dp['one_card_launches'])}); one "
+        f"card and sharded in turns in the rank's process")
+    say(f"[multi] spatial Farneback {sp['size']}: {sp['ms_per_pair']:.2f} ms per pair (host "
+        f"clock), unsharded separable {sp['unsharded_separable_ms']:.2f} ms, batched fused b=1 "
+        f"{sp['batched_fused_b1_ms']:.2f} ms; max |flow - unsharded| {sp['max_abs_err_px']:.3g} "
+        f"px (tol {SPATIAL_TOL_PX}); fused launches {json.dumps(sp['launches'])} (batched "
+        f"fused {json.dumps(sp['fused_b1_launches'])})")
+    say(f"[multi] chunked engine {chk['size']}, {chk['transitions']} transitions: "
+        f"{chk['ms_per_transition']:.3f} ms per transition (scan engine here "
+        f"{chk['scan_ms_per_transition']:.3f}), within {chk['max_foe_diff_px']:.3g} px / "
+        f"{chk['max_rate_diff']:.3g} of the scan engine's; fused launches on rank 0 "
+        f"{json.dumps(chk['launches'])} (scan {json.dumps(chk['scan_launches'])})")
+    say(f"[multi] data-parallel RAFT chunk {trn['size']} b={trn['batch']}, {trn['steps']} "
+        f"steps: {trn['ms_per_step']:.2f} ms per step (one card here "
+        f"{trn['one_card_ms_per_step']:.2f}), parameters within {trn['max_param_diff']:.3g} "
+        f"(gate rtol {TRAIN_DP_RTOL}, atol {TRAIN_DP_ATOL}); parameter change "
+        f"{trn['change_err']:.4g} from the one card's (gate {TRAIN_DP_CHANGE_TOL}; one card "
+        f"run again {trn['one_card_again_change_err']:.4g}, half-batch control "
+        f"{trn['half_batch_control_change_err']:.4g}), losses from step 2 within "
+        f"{trn['loss_rel_err']:.3g} (gate {TRAIN_DP_LOSS_RTOL}): {json.dumps(trn['losses'])} "
+        f"against {json.dumps(trn['one_card_losses'])}")
+    say(f"[multi] NCCL, host clock per collective: {json.dumps(multi['nccl'])} "
+        f"({seconds:.1f} s)")
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    ranks = int(argv[argv.index("--multi") + 1]) if "--multi" in argv else 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "runs on a CUDA card only", file=sys.stderr)
@@ -3175,6 +3601,9 @@ def main() -> int:
         f"runtime/native/png.cpp (g++), started together, built and loaded in "
         f"{build_s:.2f} s; "
         f"ptxas: {regs}")
+
+    if ranks:
+        return main_multi(dev, ranks, smi)
 
     t0 = time.perf_counter()
     main_shape = phase_kernels(dev, 8, 480, 752, hires=False)
@@ -3451,6 +3880,11 @@ def main() -> int:
     say(f"[tools] foe_angular_error_map: {json.dumps(tools['foe_angular_error_map'])}; "
         f"run_demo on the mock: {json.dumps(tools['demo'])}; figures without matplotlib: "
         f"{json.dumps(tools['figures'])} ({times['tools']:.1f} s)")
+    t0 = time.perf_counter()
+    multi = phase_multi(dev)
+    times["multi"] = time.perf_counter() - t0
+    _say_multi(multi, smi, times["multi"])
+    dp, sp, chk = (multi[k] for k in ("data_parallel", "spatial", "chunked"))
     say(f"[phases] seconds {json.dumps(times)}")
 
     k = "farneback_iterate_fused"
@@ -3479,6 +3913,9 @@ def main() -> int:
         "launches_yolo_cli_detection": yo["launches"]["detection"],
         "launches_train": tr["launches_train"][k],
         "launches_tools_trace": trc["launches"][k],
+        "launches_multi_data_parallel": dp["launches"][k],
+        "launches_multi_chunked": chk["launches"][k],
+        "launches_multi_spatial": sp["launches"][k],
         "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
         "per_batch": {f"{size} b={tb}": {
             key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
@@ -3524,6 +3961,9 @@ def main() -> int:
                     "train": {key: tr[key] for key in ("card_vs_cpu", "runs", "evals")},
                     "tools": {"trace": trc, "foe_angular_error_map":
                               tools["foe_angular_error_map"], "demo": tools["demo"]},
+                    "multi": {key: multi[key] for key in (
+                        "backend", "world_size", "nccl", "data_parallel", "spatial",
+                        "chunked", "train")},
                     "nets_loops": [{k: lp[k] for k in (
                         "size", "frames_per_s", "device_ms_per_batch",
                         "flow_device_ms_per_batch", "wall_ms_per_batch",

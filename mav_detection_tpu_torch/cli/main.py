@@ -42,6 +42,13 @@ Usage:
         --headless
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --flow-source FARNEBACK --engine scan [--use-sparse-of] --headless
+    python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
+        --flow-source FARNEBACK --devices 4 [--engine spatial|chunked] \
+        --headless
+
+``--devices N`` runs the detection on N ranks, one process per card (or,
+with ``--device cpu``, N gloo processes); the Validator then runs once, in
+the calling process.
 
 ``--dataset vis_drone`` reads ``VIS_DRONE_PATH``, ``--dataset experiment``
 ``EXPERIMENT_PATH``. With ``SYNTHETIC_PATH`` set, the synthetic sequence is
@@ -71,7 +78,8 @@ PORTED = {
     "sequence": None,
     "flow_source": {"FARNEBACK", "PRECOMPUTED", "LUCAS_KANADE", "GROUND_TRUTH",
                     "RAFT"},
-    "engine": {"BATCH", "SCAN"},
+    "engine": {"BATCH", "SCAN", "CHUNKED", "SPATIAL"},
+    "devices": None,
     "mode": None,
     "algorithm": None,
     "use_sparse_of": None,
@@ -119,9 +127,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--batch-size", type=int, default=8,
                         help="frame pairs per device batch")
     parser.add_argument("--devices", type=int, default=0,
-                        help="shard frame batches over N devices")
+                        help="shard frame batches over N devices (one process "
+                             "each, NCCL on the cards, gloo with --device cpu)")
     parser.add_argument("--engine", type=str, default="batch",
-                        help="frame engine (ported: batch|scan)")
+                        help="frame engine: batch, scan, chunked (time chunks "
+                             "over the devices; needs --devices), spatial (each "
+                             "pair's Farneback solve row-sharded over the "
+                             "devices; needs --devices)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default) or cpu")
     parser.add_argument("--debug", action="store_true")
@@ -219,6 +231,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         debug=args.debug, batch_size=args.batch_size,
         foe_samples=args.foe_samples, use_sparse_of=args.use_sparse_of,
         engine=args.engine.lower(), headless=args.headless,
+        devices=args.devices,
         prepare_dataset=args.prepare_dataset, validate=args.validate,
         data_to_yolo=args.data_to_yolo, undistort=args.undistort)
     execute(config, args.device)

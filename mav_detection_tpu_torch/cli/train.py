@@ -22,9 +22,15 @@ without one unless given ``device="cpu"`` (``--device cpu``).
 
 Random draws cannot match across frameworks: each trainer takes ``draws``,
 a callable giving the ``SceneDraws`` of a step, and draws from a
-``torch.Generator`` seeded ``seed + 1`` when none is given. ``--devices N``
-(data parallel, ROADMAP A6) is checked as the reference checks it and then
-raises: it is not ported.
+``torch.Generator`` seeded ``seed + 1`` when none is given.
+
+``--devices N`` trains RAFT data parallel, one process per device
+(``parallel/mesh.py``: NCCL on the cards, gloo with ``--device cpu``): every
+rank draws the whole batch's ``SceneDraws`` from the same seed and renders
+its own slice of it, the gradients are averaged with one all-reduce before
+the global-norm clip (which then sees the global gradient, as optax does
+under GSPMD), Adam runs replicated, and the selector and the saves run on
+rank 0, whose weights every rank takes at the end.
 """
 from __future__ import annotations
 
@@ -111,19 +117,28 @@ def _scan_chunks(run_chunk, params, opt_state, key, steps: int, chunk: int,
 
 
 def _check_devices(devices: int, batch: int, device: Device) -> None:
-    """The reference's ``--devices`` checks, in its order and words; more
-    than one device then raises: data parallel is ROADMAP A6."""
+    """The reference's ``--devices`` checks, in its order and words (on the
+    CPU the available count is the gloo ranks ``parallel.mesh`` offers)."""
+    from mav_detection_tpu_torch.parallel.mesh import available_devices
+
     if devices <= 1:
         return
-    dev = torch.device(device)
-    avail = torch.cuda.device_count() if dev.type == "cuda" else 1
+    avail = available_devices(device)
     if devices > avail:
         raise ValueError(f"--devices {devices} > {avail} available devices")
     if batch % devices:
         raise ValueError(f"--batch {batch} must divide by --devices {devices}")
-    raise NotImplementedError(
-        f"--devices {devices}: data-parallel training is not ported yet "
-        "(ROADMAP A6, multi-GPU); train on one card with --devices 0")
+
+
+class _StepDraws:
+    """``draws`` fixed up front for every step, on the CPU: a callable that
+    pickles into spawned ranks."""
+
+    def __init__(self, draws: DrawsFn, steps: int) -> None:
+        self.per_step = [SceneDraws(*(t.cpu() for t in draws(s))) for s in range(steps)]
+
+    def __call__(self, step: int) -> SceneDraws:
+        return self.per_step[step]
 
 
 def _draws_fn(draws: Optional[DrawsFn], batch: int, h: int, w: int,
@@ -146,12 +161,24 @@ def _make_run_chunk(step_fn: Callable[[int], torch.Tensor]):
     return run_chunk
 
 
-def _step(opt, loss_of: Callable[[], torch.Tensor]) -> torch.Tensor:
+def _step(opt, loss_of: Callable[[], torch.Tensor], mesh=None) -> torch.Tensor:
+    """One update; with ``mesh`` the gradients (and the reported loss) are
+    averaged over the ranks with one all-reduce before the optimizer's clip."""
     opt.zero_grad()
     loss = loss_of()
     loss.backward()
+    loss = loss.detach()
+    if mesh is not None:
+        from mav_detection_tpu_torch.parallel.mesh import all_reduce_mean_
+
+        for p in opt.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        loss = loss.reshape(1).clone()
+        all_reduce_mean_([p.grad for p in opt.params] + [loss], mesh)
+        loss = loss[0]
     opt.step()
-    return loss.detach()
+    return loss
 
 
 def _selection_fixture(**kw):
@@ -191,16 +218,33 @@ def train_raft(steps: int = 4000, batch: int = 8,
                save_best_to: str = "", drone_weight: float = 40.0,
                sin_blend: float = 0.6, pan_max: float = 0.0, devices: int = 0,
                config=None, use_selector: bool = True, device: Device = "cuda",
-               draws: Optional[DrawsFn] = None):
+               draws: Optional[DrawsFn] = None, mesh=None):
     """Train RAFT on generated scenes -> (model, losses). ``init_params`` (a
     state_dict) resumes; ``config`` (the full ``RAFTConfig``, bf16, by
-    default) and ``use_selector`` exist for tests."""
+    default) and ``use_selector`` exist for tests. ``devices > 1`` trains
+    data parallel: on spawned ranks when there is no process group (rank
+    0's weights come back), else as this process's rank (or ``mesh``'s)."""
     from mav_detection_tpu_torch.convert import flax_from_raft_state_dict
     from mav_detection_tpu_torch.models.optim import TrainOptimizer, train_schedule
     from mav_detection_tpu_torch.models.raft import RAFTConfig, create_raft
+    from mav_detection_tpu_torch.parallel import mesh as pmesh
 
     _check_devices(devices, batch, device)
     dev = resolve_device(device)
+    if devices > 1 and mesh is None:
+        if not torch.distributed.is_initialized():
+            return _train_raft_spawned(
+                devices, dev, draws, steps=steps, batch=batch, hw=hw, iters=iters,
+                peak_lr=peak_lr, chunk=chunk, seed=seed, init_params=init_params,
+                save_best_to=save_best_to, drone_weight=drone_weight,
+                sin_blend=sin_blend, pan_max=pan_max, config=config,
+                use_selector=use_selector)
+        mesh = pmesh.make_mesh(devices, dev)
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        dev = mesh.device
+        logger.info(f"[raft] data-parallel over {mesh.size} devices "
+                    f"(per-device batch {batch // mesh.size})")
     h, w = hw
     config = config or RAFTConfig()
     model = create_raft(torch.Generator().manual_seed(seed), config)
@@ -210,9 +254,14 @@ def train_raft(steps: int = 4000, batch: int = 8,
     opt = TrainOptimizer(model.parameters(), train_schedule(peak_lr, steps, 200),
                          weight_decay=1e-5)
     draw = _draws_fn(draws, batch, h, w, pan_max, seed, dev)
+    # every rank draws the whole batch and renders its slice
+    local = batch if mesh is None else batch // mesh.size
+    mine = slice(0, batch) if mesh is None else slice(mesh.rank * local,
+                                                      (mesh.rank + 1) * local)
 
     def loss_of(step: int) -> torch.Tensor:
-        sc = generate_batch(batch, h, w, pan_max, sin_blend, draw(step), device=dev)
+        d = SceneDraws(*(t[mine] for t in draw(step)))
+        sc = generate_batch(local, h, w, pan_max, sin_blend, d, device=dev)
         return raft_batch_loss(model, sc, iters, drone_weight, config)
 
     sel_sets = [
@@ -246,11 +295,39 @@ def train_raft(steps: int = 4000, batch: int = 8,
             total += epe + depe
         return -(worst + 0.05 * total)
 
-    run_chunk = _make_run_chunk(lambda s: _step(opt, lambda: loss_of(s)))
+    run_chunk = _make_run_chunk(lambda s: _step(opt, lambda: loss_of(s), mesh))
     model, losses = _scan_chunks(
         run_chunk, model, opt, 0, steps, chunk, "raft",
-        selector=selector if use_selector else None, select_every=10,
-        save_best_to=save_best_to, to_tree=flax_from_raft_state_dict)
+        selector=selector if use_selector and lead else None, select_every=10,
+        save_best_to=save_best_to if lead else "", to_tree=flax_from_raft_state_dict)
+    if mesh is not None and use_selector:
+        # rank 0's selection is every rank's
+        pmesh.broadcast_(list(model.state_dict().values()), mesh)
+    return model, losses
+
+
+def _train_raft_rank(mesh, draws, kwargs):
+    """A spawned rank of ``train_raft``: rank 0 returns its weights and
+    losses."""
+    model, losses = train_raft(**kwargs, devices=mesh.size, device=mesh.device,
+                               draws=draws, mesh=mesh)
+    return (model.state_dict(), losses) if mesh.rank == 0 else None
+
+
+def _train_raft_spawned(devices: int, dev: torch.device, draws: Optional[DrawsFn],
+                        **kwargs):
+    """``train_raft`` on ``devices`` spawned ranks; rank 0's weights come
+    back as a model on ``dev``. Given ``draws`` are fixed up front (they
+    must reach the ranks)."""
+    from mav_detection_tpu_torch.models.raft import RAFT, RAFTConfig
+    from mav_detection_tpu_torch.parallel import mesh as pmesh
+
+    if draws is not None:
+        draws = _StepDraws(draws, kwargs["steps"])
+    state, losses = pmesh.launch(_train_raft_rank, devices, dev, draws, kwargs)
+    with torch.device("meta"):
+        model = RAFT(kwargs["config"] or RAFTConfig())
+    model.load_state_dict({k: v.to(dev) for k, v in state.items()}, assign=True)
     return model, losses
 
 
@@ -551,8 +628,8 @@ def main(argv=None) -> None:
                         help="detection mode whose imagery TinyYOLO trains on; the "
                         "checkpoint is written as yolo_<mode>.msgpack")
     parser.add_argument("--devices", type=int, default=0,
-                        help="data-parallel RAFT training over N devices (not "
-                             "ported: N > 1 raises after the argument checks)")
+                        help="data-parallel RAFT training over N devices (one "
+                             "process each; gloo ranks with --device cpu)")
     parser.add_argument("--eval-only", action="store_true")
     parser.add_argument("--resume", action="store_true",
                         help="initialize RAFT from the existing checkpoint")

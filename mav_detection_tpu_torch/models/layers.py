@@ -20,15 +20,58 @@ fp32 one (as Flax's ``param_dtype`` stays fp32 whatever ``dtype`` is).
   unbatched (h, w, c) image at a time (``vmap`` over the batch), so its
   statistics are **per image row**: over w and the group's channels. The
   checkpoints were trained that way, and ``GroupNorm`` here does the same.
+* **Row sharding.** Inside ``row_sharded(mesh)`` every tensor holds this
+  rank's band of image rows (equal bands, each starting on a multiple of
+  every stride). ``Conv`` then pulls the rows its window reads beyond the
+  band from the neighbours (``parallel.halo.exchange_rows``, differentiable)
+  in place of zero padding, and pads zeros only at the global edges, with
+  XLA's SAME split of the global height: the result is the unsharded
+  convolution's rows of the band. GroupNorm's per-row statistics need
+  nothing.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# the mesh whose ranks each hold a band of rows, inside ``row_sharded``
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("rows", default=None)
+
+
+@contextlib.contextmanager
+def row_sharded(mesh) -> Iterator[None]:
+    """Run the layers on row bands of ``mesh`` (a ``parallel.mesh.Mesh``)."""
+    token = _ROWS.set(mesh)
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
+
+
+def current_rows():
+    """The row-sharding mesh of the enclosing ``row_sharded``, or None."""
+    return _ROWS.get()
+
+
+def _row_halo(x: torch.Tensor, k: int, s: int, mesh) -> torch.Tensor:
+    """This rank's band with the rows a (k, stride s) SAME window reads
+    beyond it: the neighbours' rows inside the image, zeros beyond its
+    global edges."""
+    from mav_detection_tpu_torch.parallel.halo import exchange_rows
+
+    lo, _ = same_pads(x.shape[-2] * mesh.size, k, s)
+    below = k - s - lo       # < 0: the window never reaches the next band
+    x = exchange_rows(x, lo, max(below, 0), mesh)
+    top = lo if mesh.rank == 0 else 0
+    bottom = max(below, 0) if mesh.rank == mesh.size - 1 else 0
+    return F.pad(x, (0, 0, top, bottom)) if top or bottom else x
 
 
 def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -52,6 +95,10 @@ class Conv(nn.Module):
         top, bottom = same_pads(h, self.k, self.stride)
         left, right = same_pads(w, self.k, self.stride)
         x = x.to(dtype)
+        rows = current_rows()
+        if rows is not None:
+            x = _row_halo(x, self.k, self.stride, rows)
+            top = bottom = 0
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom))
         return F.conv2d(x, self.weight.to(dtype), self.bias.to(dtype),

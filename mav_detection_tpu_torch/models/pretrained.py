@@ -102,18 +102,22 @@ def _model_on(name: str, device: torch.device, build: Callable[[], torch.nn.Modu
     return _CACHE[key]
 
 
-def load_raft(device: Union[str, torch.device] = "cpu"):
-    """The shipped RAFT as a ``models.raft.RAFT`` on ``device``, or None."""
+def load_raft(device: Union[str, torch.device] = "cuda"):
+    """The shipped RAFT as a ``models.raft.RAFT`` on ``device``, or None.
+    Raises without a card unless ``device="cpu"``."""
     from mav_detection_tpu_torch.models.raft import RAFT
+    from mav_detection_tpu_torch.utils.device import resolve_device
 
-    return _model_on("raft", torch.device(device), RAFT, load_raft_params)
+    return _model_on("raft", resolve_device(device), RAFT, load_raft_params)
 
 
-def load_sky(device: Union[str, torch.device] = "cpu"):
-    """The shipped SkyUNet on ``device``, or None."""
+def load_sky(device: Union[str, torch.device] = "cuda"):
+    """The shipped SkyUNet on ``device``, or None. Raises without a card
+    unless ``device="cpu"``."""
     from mav_detection_tpu_torch.models.sky_segmentation import SkyUNet
+    from mav_detection_tpu_torch.utils.device import resolve_device
 
-    return _model_on("sky", torch.device(device), SkyUNet, load_sky_params)
+    return _model_on("sky", resolve_device(device), SkyUNet, load_sky_params)
 
 
 def yolo_checkpoint_name(mode: Optional[str] = None) -> str:

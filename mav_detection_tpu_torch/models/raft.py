@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mav_detection_tpu_torch.models.layers import Conv, GroupNorm, init_params
+from mav_detection_tpu_torch.models.layers import Conv, GroupNorm, current_rows, init_params
 from mav_detection_tpu_torch.ops.geometry.warp import sample_bilinear_replicate
 from mav_detection_tpu_torch.ops.image.resize import resize_frames
 from mav_detection_tpu_torch.utils.device import resolve_device
@@ -119,12 +119,14 @@ def _inv_sqrt_dim(c: int) -> float:
 
 
 def all_pairs_correlation(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
-    """(b, c, h, w) x2 -> (b, h, w, h, w) correlation volume, one fp32
-    matmul per pair."""
+    """(b, c, h, w) x (b, c, H, W) -> (b, h, w, H, W) correlation volume,
+    one fp32 matmul per pair (f1 a band of rows of f2's image when row
+    sharded)."""
     b, c, h, w = f1.shape
+    th, tw = f2.shape[-2:]
     a = f1.reshape(b, c, h * w).transpose(1, 2).to(torch.float32)
-    corr = torch.matmul(a, f2.reshape(b, c, h * w).to(torch.float32))
-    return corr.reshape(b, h, w, h, w) / float(np.sqrt(np.float32(c)))
+    corr = torch.matmul(a, f2.reshape(b, c, th * tw).to(torch.float32))
+    return corr.reshape(b, h, w, th, tw) / float(np.sqrt(np.float32(c)))
 
 
 def build_corr_pyramid(corr: torch.Tensor, levels: int) -> List[torch.Tensor]:
@@ -139,8 +141,17 @@ def build_corr_pyramid(corr: torch.Tensor, levels: int) -> List[torch.Tensor]:
     return pyramid
 
 
+def _row0(h: int) -> int:
+    """Global row of this rank's first row of an h-row band inside
+    ``layers.row_sharded``; 0 unsharded."""
+    rows = current_rows()
+    return 0 if rows is None else rows.rank * h
+
+
 def _grid(h: int, w: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
+    """Pixel coordinates (global rows when row sharded)."""
+    ys = (torch.arange(h, dtype=torch.float32, device=device)
+          + _row0(h))[:, None].expand(h, w)
     xs = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w)
     return ys, xs
 
@@ -228,10 +239,13 @@ def build_local_corr_volumes(f1: torch.Tensor, f2_pyramid: Sequence[torch.Tensor
 
     For each row shift u one batched matmul of the full-resolution rows of
     f1 that share a pooled row against that row of the edge-padded pooled
-    map gives every column product; the band x//s + v is then gathered."""
+    map gives every column product; the band x//s + v is then gathered.
+    Row sharded, f1 is this rank's band of rows (its global rows from
+    ``_row0``) and the pyramid the whole image's."""
     b, c, h, w = f1.shape
     f1f = f1.to(torch.float32)
     scale_dot = _inv_sqrt_dim(c)
+    row0 = _row0(h)
     vols = []
     for lvl, f2l in enumerate(f2_pyramid):
         s = 2 ** lvl
@@ -239,12 +253,14 @@ def build_local_corr_volumes(f1: torch.Tensor, f2_pyramid: Sequence[torch.Tensor
         pad = R + 2
         f2p = F.pad(f2l.to(torch.float32), (pad, pad, pad, pad), mode="replicate")
         twp = f2p.shape[-1]
+        # a band starting inside a pooled row is padded up to its start
+        off, base = row0 % s, row0 // s
         # ceil sizes: ragged pixels keep their true base index y//s, the
         # edge padding supplies the clamped values
-        ky, kx = -(-h // s), -(-w // s)
+        ky, kx = -(-(h + off) // s), -(-w // s)
         U = 2 * R + 2
         # full-res pixels grouped by pooled row: (b, ky, s*kx*s, c)
-        f1g = F.pad(f1f, (0, kx * s - w, 0, ky * s - h)).permute(0, 2, 3, 1)
+        f1g = F.pad(f1f, (0, kx * s - w, off, ky * s - h - off)).permute(0, 2, 3, 1)
         f1g = f1g.reshape(b, ky, s * kx * s, c)
         # band column of pixel (.., X, ..) at shift v: X + v + 2 in f2p
         band = (torch.arange(kx, device=f1.device)[:, None]
@@ -252,10 +268,10 @@ def build_local_corr_volumes(f1: torch.Tensor, f2_pyramid: Sequence[torch.Tensor
         band = band[None, None, None, :, None, :].expand(b, ky, s, kx, s, U)
         per_u = []
         for u in range(U):
-            rows = f2p[:, :, u + 2:u + 2 + ky, :].permute(0, 2, 1, 3)  # (b,ky,c,twp)
+            rows = f2p[:, :, base + u + 2:base + u + 2 + ky, :].permute(0, 2, 1, 3)
             m = torch.matmul(f1g, rows).reshape(b, ky, s, kx, s, twp)
             d = torch.gather(m, 5, band).reshape(b, ky * s, kx * s, U)
-            per_u.append(d[:, :h, :w])
+            per_u.append(d[:, off:off + h, :w])
         vols.append(torch.stack(per_u, 3) * scale_dot)
     return vols
 
@@ -354,7 +370,16 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     k*9 + j for sub-pixel k = 8a + b and neighbour j = 3dy + dx."""
     b, _, h, w = flow.shape
     m = torch.softmax(mask.reshape(b, 64, 9, h, w), dim=2)
-    pads = F.pad(flow * 8.0, (1, 1, 1, 1), mode="replicate")
+    rows = current_rows()
+    if rows is None:
+        pads = F.pad(flow * 8.0, (1, 1, 1, 1), mode="replicate")
+    else:
+        from mav_detection_tpu_torch.parallel.halo import exchange_rows
+
+        # one neighbour row each way, replicated at the global edges
+        pads = F.pad(exchange_rows(flow * 8.0, 1, 1, rows),
+                     (1, 1, 1 if rows.rank == 0 else 0,
+                      1 if rows.rank == rows.size - 1 else 0), mode="replicate")
     neighbors = torch.stack([pads[:, :, dy:dy + h, dx:dx + w]
                              for dy in range(3) for dx in range(3)], 2)  # (b,2,9,h,w)
     up = torch.sum(m[:, None] * neighbors[:, :, None], 3)                # (b,2,64,h,w)
@@ -415,6 +440,13 @@ class RAFT(nn.Module):
         """The per-iteration lookup of ``cfg``'s correlation form, with its
         per-pair precompute done."""
         r = cfg.corr_radius
+        rows = current_rows()
+        if rows is not None:
+            # the targets span the whole image: every rank gathers f2 (1/8
+            # resolution) and builds its own rows' volumes against it
+            from mav_detection_tpu_torch.parallel.halo import gather_rows
+
+            f2 = gather_rows(f2, rows)
         if cfg.materialize_corr:
             pyramid = build_corr_pyramid(all_pairs_correlation(f1, f2), cfg.corr_levels)
             return lambda flow: lookup_corr(pyramid, flow, r)
@@ -594,20 +626,70 @@ def flow_magnitude_quantile(flow, quantile: float = 0.99,
     return b - (b - a) * (1 - g) if g >= 0.5 else a + (b - a) * g
 
 
+def quantile_reaches_sharded(mesh, flow, threshold: float, quantile: float = 0.99,
+                             n_real: Optional[int] = None
+                             ) -> Tuple[bool, Optional[float]]:
+    """Whether the ``quantile`` magnitude (numpy's linear interpolation)
+    over the first ``n_real`` lanes of every rank's flow reaches
+    ``threshold``, decided as ``flow_magnitude_quantile`` over the ranks'
+    lanes together would decide it: one all-reduce of the counts at or
+    above the threshold and one of the two order statistics beside it.
+    Returns (decision, the quantile where the decision needed it, else
+    None)."""
+    from mav_detection_tpu_torch.parallel.mesh import all_reduce_sum_
+
+    t = torch.as_tensor(flow)
+    mag = torch.linalg.vector_norm(t[:n_real].to(torch.float32), dim=-1).reshape(-1)
+    at_or_above = mag >= threshold
+    counts = torch.stack([at_or_above.sum(), torch.tensor(mag.numel(), device=mag.device)]
+                         ).to(torch.float64)
+    inf = torch.tensor(float("inf"), device=mag.device)
+    # the largest magnitude below the threshold and the smallest at or above
+    # it, both as maxima
+    edges = torch.stack([torch.where(at_or_above, -inf, mag).max() if mag.numel() else -inf,
+                         (-torch.where(at_or_above, mag, inf)).max() if mag.numel() else -inf])
+    all_reduce_sum_(counts, mesh)
+    torch.distributed.all_reduce(edges, op=torch.distributed.ReduceOp.MAX,
+                                 group=mesh.group)
+    c, n = (int(v) for v in counts.cpu())
+    if n == 0:
+        return False, None
+    below, above = (float(v) for v in edges.cpu())
+    above = -above
+    pos = quantile * (n - 1)
+    lo = int(math.floor(pos))
+    hi = min(lo + 1, n - 1)
+    first = n - c               # sorted index of the first value >= threshold
+    if lo >= first:
+        return True, None
+    if hi < first:
+        return False, None
+    g = pos - lo
+    q = above - (above - below) * (1 - g) if g >= 0.5 else below + (above - below) * g
+    return q >= threshold, q
+
+
 def check_flow_saturation(flow, config: RAFTConfig = INFERENCE_CONFIG,
                           quantile: float = 0.99,
-                          n_real: Optional[int] = None) -> bool:
+                          n_real: Optional[int] = None, mesh=None) -> bool:
     """True (and a log warning) when the ``quantile`` magnitude of the first
     ``n_real`` lanes reaches >= 90 % of the exact lookup range: beyond it
     the estimate saturates. Only real lanes count: the reference takes the
-    quantile over a padded tail's repeated frames too, which dilutes it."""
+    quantile over a padded tail's repeated frames too, which dilutes it.
+    With ``mesh`` the lanes are this rank's share of a batch and the
+    decision is the whole batch's, the same on every rank."""
     cov = flow_coverage_px(config)
     if not np.isfinite(cov):
         return False
-    q = flow_magnitude_quantile(flow, quantile, n_real)
-    if q >= 0.9 * cov:
+    if mesh is not None:
+        saturated, q = quantile_reaches_sharded(mesh, flow, 0.9 * cov, quantile, n_real)
+    else:
+        q = flow_magnitude_quantile(flow, quantile, n_real)
+        saturated = q >= 0.9 * cov
+    if saturated:
+        shown = f"{q:.1f} px" if q is not None else f">= {0.9 * cov:.1f} px"
         logger.warning(
-            f"RAFT flow p{int(quantile * 100)} magnitude {q:.1f} px is near/"
+            f"RAFT flow p{int(quantile * 100)} magnitude {shown} is near/"
             f"beyond the local-volume coverage ({cov:.0f} px): estimates "
             "saturate — raise RAFTConfig.max_flow_lookup or use "
             "materialize_corr=True")
@@ -642,14 +724,15 @@ def _escalate_config(config: RAFTConfig,
 
 def _flow_with_escalation(run: Callable[[RAFTConfig], torch.Tensor],
                           images_hw: Tuple[int, int], config: RAFTConfig,
-                          n_real: Optional[int] = None) -> torch.Tensor:
+                          n_real: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Run inference, and while the first ``n_real`` lanes saturate the
     banded volumes' coverage, re-run the same batch on the next rung of the
     ladder. One scalar pair comes to the host per rung; the flow stays
-    where it was computed."""
+    where it was computed. With ``mesh`` the rung is decided once for the
+    whole sharded batch, so every rank climbs together."""
     cfg = config
     flow = run(cfg)
-    while check_flow_saturation(flow, cfg, n_real=n_real):
+    while check_flow_saturation(flow, cfg, n_real=n_real, mesh=mesh):
         nxt = _escalate_config(cfg, images_hw)
         if nxt is None:
             logger.warning(
@@ -671,28 +754,28 @@ def raft_flow_batch_auto(images1, images2, model: Optional[RAFT] = None,
                          iters: int = PRODUCT_ITERS,
                          config: RAFTConfig = INFERENCE_CONFIG,
                          device: Device = "cuda",
-                         n_real: Optional[int] = None) -> torch.Tensor:
+                         n_real: Optional[int] = None, mesh=None) -> torch.Tensor:
     """``raft_flow_batch`` with coverage escalation on saturation of the
-    first ``n_real`` pairs."""
+    first ``n_real`` pairs (of every rank's, with ``mesh``)."""
     model, dev = _resolve_model(model, device)
     hw = (int(images1.shape[1]), int(images1.shape[2]))
     return _flow_with_escalation(
         lambda cfg: raft_flow_batch(images1, images2, model, iters, cfg, dev),
-        hw, config, n_real)
+        hw, config, n_real, mesh)
 
 
 def raft_flow_video_auto(frames, model: Optional[RAFT] = None,
                          iters: int = PRODUCT_ITERS,
                          config: RAFTConfig = INFERENCE_CONFIG,
                          device: Device = "cuda",
-                         n_real: Optional[int] = None) -> torch.Tensor:
+                         n_real: Optional[int] = None, mesh=None) -> torch.Tensor:
     """``raft_flow_video`` with coverage escalation on saturation of the
-    first ``n_real`` transitions."""
+    first ``n_real`` transitions (of every rank's, with ``mesh``)."""
     model, dev = _resolve_model(model, device)
     hw = (int(frames.shape[1]), int(frames.shape[2]))
     return _flow_with_escalation(
         lambda cfg: raft_flow_video(frames, model, iters, cfg, dev), hw, config,
-        n_real)
+        n_real, mesh)
 
 
 @dataclass(frozen=True)
@@ -732,10 +815,11 @@ def _run_scaled(run_auto: Callable[[TunedRAFT], torch.Tensor],
 def raft_flow_batch_tuned(images1, images2, model: Optional[RAFT] = None,
                           tuned: Optional[TunedRAFT] = None,
                           device: Device = "cuda",
-                          n_real: Optional[int] = None) -> torch.Tensor:
+                          n_real: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Product entry point for pair batches: ``tuned_raft_config`` picks the
     working scale and iterations, inference runs through the escalation
-    ladder, the flow comes back at the input resolution, on ``device``."""
+    ladder, the flow comes back at the input resolution, on ``device``.
+    ``mesh``: the pairs are this rank's lanes of a sharded batch."""
     dev = resolve_device(device)
     images1 = torch.as_tensor(images1).to(dev)
     images2 = torch.as_tensor(images2).to(dev)
@@ -746,15 +830,16 @@ def raft_flow_batch_tuned(images1, images2, model: Optional[RAFT] = None,
         images1, images2 = resize_frames(images1, hw), resize_frames(images2, hw)
     return _run_scaled(
         lambda tt: raft_flow_batch_auto(images1, images2, model, tt.iters,
-                                        tt.config, dev, n_real), (h, w), t)
+                                        tt.config, dev, n_real, mesh), (h, w), t)
 
 
 def raft_flow_video_tuned(frames, model: Optional[RAFT] = None,
                           tuned: Optional[TunedRAFT] = None,
                           device: Device = "cuda",
-                          n_real: Optional[int] = None) -> torch.Tensor:
+                          n_real: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Product entry point for contiguous frame chains (shared per-frame
-    encoding through ``raft_flow_video``)."""
+    encoding through ``raft_flow_video``); ``mesh``: the chain is this
+    rank's lanes of a sharded batch."""
     dev = resolve_device(device)
     frames = torch.as_tensor(frames).to(dev)
     h, w = int(frames.shape[1]), int(frames.shape[2])
@@ -763,7 +848,7 @@ def raft_flow_video_tuned(frames, model: Optional[RAFT] = None,
         frames = resize_frames(frames, (h // t.scale, w // t.scale))
     return _run_scaled(
         lambda tt: raft_flow_video_auto(frames, model, tt.iters, tt.config, dev,
-                                        n_real), (h, w), t)
+                                        n_real, mesh), (h, w), t)
 
 
 # ---------------------------------------------------------------- training

@@ -293,6 +293,49 @@ def poly_exp_pyr_cf(img: torch.Tensor, smooth: Tuple[float, ...], lh: int,
                         b1 * ig03 + b4 * ig33, b6 * ig55], dim=1)
 
 
+def _band(size: int, kernel: Tuple[float, ...], mode: str,
+          device: torch.device) -> torch.Tensor:
+    return _device_const("band", (size, kernel, mode), device)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
+    """Separable Gaussian of the trailing two dims, ``(..., h, w)``, with
+    OpenCV's sigma-from-ksize rule and reflect-101 borders (the reference's
+    unfused ``_gaussian_blur``)."""
+    g = _gaussian_kernel(ksize, sigma)
+    h, w = img.shape[-2:]
+    return torch.matmul(torch.matmul(_band(h, g, "reflect", img.device), img),
+                        _band(w, g, "reflect", img.device).T)
+
+
+def poly_exp(img: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
+    """Per-pixel quadratic fit of (b, h, w) frames -> (b, 5, h, w), with
+    ``poly_exp_pyr_cf``'s channel layout (the reference's unfused
+    ``_poly_exp``): the moment correlations alone, borders "edge", so that a
+    row slab of a larger image expands as that image does away from the
+    slab's edges."""
+    g_np, xg_np, xxg_np, ig11, ig03, ig33, ig55 = _poly_exp_moments(n, sigma)
+    g, xg, xxg = (tuple(float(v) for v in k) for k in (g_np, xg_np, xxg_np))
+    h, w = img.shape[-2:]
+    dev = img.device
+    # vertical moments first, then the horizontal ones (the reference's order)
+    t0, t1, t2 = (torch.matmul(_band(h, k, "edge", dev), img) for k in (g, xg, xxg))
+    b1, b2, b4 = (torch.matmul(t0, _band(w, k, "edge", dev).T) for k in (g, xg, xxg))
+    b3, b6 = (torch.matmul(t1, _band(w, k, "edge", dev).T) for k in (g, xg))
+    b5 = torch.matmul(t2, _band(w, g, "edge", dev).T)
+    return torch.stack([b3 * ig11, b2 * ig11, b1 * ig03 + b5 * ig33,
+                        b1 * ig03 + b4 * ig33, b6 * ig55], dim=1)
+
+
+def resize_linear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(..., "linear")`` of the trailing two dims (the
+    reference's ``_resize_linear`` on channel-first arrays); to its own size,
+    the identity, without the two matmuls."""
+    if tuple(img.shape[-2:]) == tuple(shape):
+        return img
+    return resize_linear_cf(img, shape)
+
+
 def resize_linear_cf(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     """Linear resize of the trailing two (spatial) dims, ``(..., h, w)``:
     ``jax.image.resize(..., "linear")`` as two matmuls against

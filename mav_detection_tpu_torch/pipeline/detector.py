@@ -169,3 +169,14 @@ def pack_frame_scalars(s: FrameScalars) -> torch.Tensor:
             s.drone_size_pixels[:, None], s.drone_flow_pixels,
             s.center_phi[:, None])
     return torch.cat([c.to(torch.float32) for c in cols], dim=1)
+
+
+def unpack_frame_scalars(packed: torch.Tensor) -> FrameScalars:
+    """The inverse of ``pack_frame_scalars``: (B, 12) -> ``FrameScalars``
+    (``drone_size_pixels`` back to int64)."""
+    p = packed.to(torch.float32)
+    return FrameScalars(
+        foe=p[:, 0:2], tpr=p[:, 2], fpr=p[:, 3], tpr_fixed=p[:, 4],
+        fpr_fixed=p[:, 5], sky_tpr=p[:, 6], sky_fpr=p[:, 7],
+        drone_size_pixels=p[:, 8].to(torch.int64), drone_flow_pixels=p[:, 9:11],
+        center_phi=p[:, 11])

@@ -39,9 +39,18 @@ Conversions: ``annotations_to_yolo`` (``--data-to-yolo``), ``convert``
 (``--prepare-dataset``: mode imagery through ``pipeline/mode_imagery.py``)
 and ``undistort`` (the ``UNDISTORT_PATH`` passthrough).
 
-Not ported yet, each raising rather than
-skipping: the spatial engine, multi-device meshes (and with them the chunked
-engine, which exists only across devices), and the ``cv2.VideoWriter`` mp4
+Multi-device engines (``devices > 1``; one process per device,
+``parallel/mesh.py``): without a process group the Processor spawns its
+ranks at run time (NCCL on the cards, gloo with ``device="cpu"``) and hands
+back rank 0's FrameResults; under a group that exists already it runs as
+its rank. The batch engine shards every batch's lanes: each rank stages
+and uploads its own lanes on its own thread, runs flow and detection on
+them, the fixed-threshold TPR/FPR of the batch is one all-reduce of four
+counts (padded lanes masked out), and rank 0 gathers the packed scalars
+into FrameResults and JSON. ``--engine spatial`` row-shards each pair's
+Farneback solve (``parallel/spatial.py``) and then detects as the batch
+engine does; ``--engine chunked`` splits the sequence into time chunks
+(``detect_video_chunked``). Not ported: the ``cv2.VideoWriter`` mp4
 fallback (the port has no OpenCV).
 """
 from __future__ import annotations
@@ -53,7 +62,9 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from contextlib import contextmanager
+from dataclasses import dataclass, fields
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -75,6 +86,7 @@ from mav_detection_tpu_torch.ops.flow.farneback import (
     _farneback_cf,
     tuned_flow_params,
 )
+from mav_detection_tpu_torch.ops.geometry.foe import sample_points
 from mav_detection_tpu_torch.ops.flow.lucas_kanade import (
     lk_dense_flow,
     lucas_kanade_track,
@@ -103,7 +115,13 @@ from mav_detection_tpu_torch.pipeline.detector import (
     detect_frame_batch_scalars,
     pack_frame_scalars,
 )
-from mav_detection_tpu_torch.pipeline.temporal import detect_sequence_scan
+from mav_detection_tpu_torch.parallel import mesh as pmesh
+from mav_detection_tpu_torch.parallel.spatial import farneback_flow_spatial
+from mav_detection_tpu_torch.pipeline.temporal import (
+    SCAN_SEED,
+    detect_sequence_scan,
+    detect_video_chunked,
+)
 from mav_detection_tpu_torch.runtime import native_loader
 from mav_detection_tpu_torch.utils.device import resolve_device
 from mav_detection_tpu_torch.utils.tracing import Tracer
@@ -115,16 +133,56 @@ HOMOGRAPHY_BORDER = 20
 HOMOGRAPHY_SAMPLES = 1000
 
 
+def _pull_debug_images(out, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The first ``n`` lanes' fixed-threshold masks, phi maps and derotated
+    flow of a detection step's outputs, on the host: one pull per kind."""
+    return (out.estimate_fixed[:n].cpu().numpy(), out.phi[:n].cpu().numpy(),
+            out.flow_derotated[:n].cpu().numpy())
+
+
 def _edge_pad_batch(arr, pad: int):
     """Repeat the trailing element ``pad`` times along axis 0 (tail-batch
     padding: the extra lanes are real, finite inputs — last frame against
     itself — so every downstream op stays NaN-free; their results are never
     read back)."""
-    if pad <= 0:
-        return arr
-    if isinstance(arr, torch.Tensor):
-        return torch.cat([arr, arr[-1:].expand((pad,) + arr.shape[1:])])
-    return np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)], axis=0)
+    return pmesh.pad_to(arr, arr.shape[0] + pad)
+
+
+# Processor settings a spawned rank takes from the caller's Processor
+_RANK_ATTRS = ("save_images", "batch_size", "_farneback")
+
+
+@dataclass
+class _RankJob:
+    """What a spawned rank needs to run a Processor method as the caller's."""
+    config: RunConfig
+    dataset: Any
+    attrs: Dict[str, Any]
+    method: str
+    kwargs: Dict[str, Any]
+
+
+def _portable_config(config: RunConfig) -> RunConfig:
+    """A copy of ``config`` from its fields alone (no per-instance
+    attributes, no results), which pickles into a spawned rank."""
+    return RunConfig(**{f.name: getattr(config, f.name) for f in fields(config)
+                        if f.name != "results"})
+
+
+def _processor_rank(mesh: pmesh.Mesh, job: _RankJob):
+    """A spawned rank: a Processor on this rank's device and the job's
+    dataset runs the job's method; rank 0 returns its FrameResults and
+    all-reduced metrics."""
+    proc = Processor(job.config, device=mesh.device, mesh=mesh,
+                     dataset=job.dataset)
+    proc._spawned = True
+    for key, value in job.attrs.items():
+        setattr(proc, key, value)
+    try:
+        results = getattr(proc, job.method)(**job.kwargs)
+    finally:
+        proc._close_flo_prefetcher()
+    return (results, proc._psum_metrics) if mesh.rank == 0 else None
 
 
 class Processor:
@@ -132,23 +190,52 @@ class Processor:
     engines)."""
 
     def __init__(self, config: RunConfig,
-                 device: Union[str, torch.device] = "cuda") -> None:
+                 device: Union[str, torch.device] = "cuda",
+                 mesh: Optional[pmesh.Mesh] = None,
+                 dataset=None) -> None:
+        """``mesh``: run as that rank of a process group (a spawned rank, or
+        a caller under a group of its own); ``dataset``: use it in place of
+        ``config.get_dataset``."""
         self.device = resolve_device(device)
         self.config = config
         self.logger = config.logger or logging.getLogger("mav_detection_tpu_torch")
-        if config.engine == "spatial":
-            raise NotImplementedError(
-                "--engine spatial is not ported yet (parallel/spatial.py); "
-                "use batch or scan")
-        if config.devices and config.devices > 1:
-            raise NotImplementedError(
-                "multi-device frame batches (parallel/mesh.py) are not "
-                "ported yet; use one device")
+        self.batch_size = max(1, config.batch_size)
+        # frame-batch data parallelism: the mesh of a process group, or the
+        # number of ranks to spawn at run time when there is no group
+        self.mesh = mesh
+        self._ranks = 0
+        self._spawned = False
+        self._psum_metrics: List[tuple] = []
+        if mesh is None and config.devices and config.devices > 1:
+            avail = pmesh.available_devices(self.device)
+            if avail < config.devices:
+                self.logger.warning(
+                    f"--devices {config.devices} requested but only {avail} "
+                    f"available; running unsharded")
+            elif torch.distributed.is_available() and torch.distributed.is_initialized():
+                self.mesh = pmesh.make_mesh(config.devices, self.device)
+            else:
+                self._ranks = config.devices
+        if self.mesh is not None:
+            self.device = self.mesh.device
+        n_shards = self.mesh.size if self.mesh is not None else self._ranks
+        if n_shards:
+            # each rank needs at least one frame of every batch
+            self.batch_size = max(self.batch_size, n_shards)
+        if config.engine == "spatial" and not n_shards:
+            raise ValueError("--engine spatial row-shards each frame's flow "
+                             "solve over the mesh; it requires --devices > 1")
+        if (config.engine == "spatial"
+                and config.flow_source not in (FlowSource.FARNEBACK,)):
+            raise ValueError(
+                f"--engine spatial shards the Farneback solver; "
+                f"--flow-source {config.flow_source.name} is not supported "
+                "there — use the batch engine")
         # the SkyUNet of frames without a precomputed sky mask runs here too,
         # and a SimDataset's GT flow is synthesised here
-        self.dataset = config.get_dataset(device=self.device)
+        self.dataset = (config.get_dataset(device=self.device) if dataset is None
+                        else dataset)
         self.dataset.device = self.device   # also for a dataset made elsewhere
-        self.batch_size = max(1, config.batch_size)
         self.detection_results: Dict[int, FrameResult] = {}
         self._stage_host_seconds = 0.0
         self._flo_prefetcher: Optional[native_loader.FloPrefetcher] = None
@@ -204,10 +291,13 @@ class Processor:
         tensor.record_stream(main)
         return tensor
 
-    def _stage_batch(self, idx: List[int], src: FlowSource) -> Dict[str, object]:
+    def _stage_batch(self, idx: List[int], src: FlowSource,
+                     lanes: Optional[int] = None) -> Dict[str, object]:
         """Host staging of one frame batch (gray conversion, .flo reads, aux
         arrays) for flow source ``src``. Runs on a background thread so it
-        overlaps the card computing the previous batch."""
+        overlaps the card computing the previous batch. ``lanes``: the
+        lanes of a full batch (``batch_size`` by default; a rank's share of
+        it on a mesh)."""
         t0 = time.time()
         ds = self.dataset
         h, w = ds.capture_shape[:2]
@@ -227,7 +317,7 @@ class Processor:
             # encodes each of them once)
             g = np.stack([self._flow_frame(src, i)
                           for i in range(idx[0], idx[-1] + 2)])
-            if self._copy_stream is not None and len(idx) == self.batch_size:
+            if self._copy_stream is not None and len(idx) == (lanes or self.batch_size):
                 # full batches upload HERE, overlapping the previous batch;
                 # tail batches stay host-side for the padding step
                 staged["frames_dev"] = self._upload(g)
@@ -280,7 +370,8 @@ class Processor:
             self._flo_prefetcher.close()
             self._flo_prefetcher = None
 
-    def _open_flo_prefetcher(self, n_pairs: int, src: FlowSource) -> None:
+    def _open_flo_prefetcher(self, n_pairs: int, src: FlowSource,
+                             pairs: Optional[Sequence[int]] = None) -> None:
         """Arm the native bounded in-order ``.flo`` prefetcher for a
         file-backed flow source: its threads read ahead of the staging
         thread across batch boundaries. Without files on disk, or where the
@@ -291,7 +382,7 @@ class Processor:
         self._close_flo_prefetcher()
         if src not in (FlowSource.PRECOMPUTED, FlowSource.GROUND_TRUTH):
             return
-        paths = self._flo_paths(range(n_pairs), src)
+        paths = self._flo_paths(range(n_pairs) if pairs is None else pairs, src)
         if paths and native_loader.available():
             self._flo_prefetcher = native_loader.FloPrefetcher(
                 paths, depth=max(2 * self.batch_size, 4), n_threads=2)
@@ -321,7 +412,7 @@ class Processor:
             return _farneback_cf(prevs, currs, self._farneback)
         if src == FlowSource.RAFT:
             return raft_flow_batch_tuned(prevs, currs, device=self.device,
-                                         n_real=n_real)
+                                         n_real=n_real, mesh=self.mesh)
         n = prevs.shape[0]
         n_real = n if n_real is None else n_real
         flows = torch.stack([
@@ -329,22 +420,29 @@ class Processor:
             for j in range(n_real)])
         return _edge_pad_batch(flows, n - n_real)
 
+    def _staged_frames(self, staged: Dict[str, object]) -> Optional[torch.Tensor]:
+        """The device frames of a staged chain of contiguous pairs, or None
+        where the pairs were staged apart."""
+        if "frames_dev" in staged:
+            return self._await_upload(staged["frames_dev"])
+        if "frames" in staged:
+            return self._to_dev(staged["frames"])
+        return None
+
     def _flow_from_staged(self, staged: Dict[str, object], src: FlowSource,
                           n_real: Optional[int] = None) -> torch.Tensor:
         """Device flow (n, h, w, 2) for a staged batch of flow source
         ``src``, of which the first ``n_real`` lanes are real frames."""
         if "flow_host" in staged:
             return self._to_dev(staged["flow_host"])
-        if "frames_dev" in staged:
-            frames = self._await_upload(staged["frames_dev"])
-        elif "frames" in staged:
-            frames = self._to_dev(staged["frames"])
-        else:
+        frames = self._staged_frames(staged)
+        if frames is None:
             return self._flow_pairs(self._to_dev(staged["prevs"]),
                                     self._to_dev(staged["currs"]), src, n_real)
         if src == FlowSource.RAFT:
             # the chain's shared encoding: each frame through fnet once
-            return raft_flow_video_tuned(frames, device=self.device, n_real=n_real)
+            return raft_flow_video_tuned(frames, device=self.device, n_real=n_real,
+                                         mesh=self.mesh)
         return self._flow_pairs(frames[:-1], frames[1:], src, n_real)
 
     def _flow_batch(self, indices: List[int]) -> torch.Tensor:
@@ -572,8 +670,9 @@ class Processor:
                 f"--engine {engine}: flow-source {src.name} ignored: the scan "
                 "engine computes Farneback flow on device")
         if engine == "chunked":
-            # time chunks over a device mesh: there is none on one device
-            raise ValueError("--engine chunked requires --devices > 1")
+            if self.mesh is None:
+                raise ValueError("--engine chunked requires --devices > 1")
+            return self._run_chunked(sample_yx)
 
         ds = self.dataset
         T = ds.N
@@ -617,16 +716,59 @@ class Processor:
                             foe_sparse)
                 self.logger.info(f"sparse FoE (LK traces): median "
                                  f"{np.nanmedian(foe_sparse, axis=0)}")
-            for t in range(1, T):       # transition (t-1, t) -> result i
-                i = t - 1
-                fr = self._frame_result(i, packed[i], inputs["gt_foes"][t])
-                self.detection_results[i] = fr
-                self.config.results[i] = fr
-                if results_dir:
-                    with open(os.path.join(results_dir,
-                                           f"image_{i:05d}.json"), "w") as f:
-                        f.write(fr.to_json())
+            self._scan_results(packed, inputs["gt_foes"], T, results_dir)
         self.logger.info("stage timing:\n" + self.tracer.summary())
+        return self.detection_results
+
+    def _scan_results(self, packed: np.ndarray, gt_foes: np.ndarray, T: int,
+                      results_dir: str) -> None:
+        """FrameResults (and JSON) of transitions 1..T-1 from their packed
+        scalars: transition (t-1, t) is result t-1."""
+        self._record_results(range(T - 1), packed, gt_foes[1:T], results_dir)
+
+    def _run_chunked(self, sample_yx=None) -> Dict[int, FrameResult]:
+        """``--engine chunked`` as this rank of the mesh: the sequence padded
+        to a multiple of the mesh size by repeating its last frame, each
+        rank's time chunk through ``detect_video_chunked`` (only that chunk
+        goes to its device), the scalars gathered; rank 0 writes the
+        FrameResults. Without explicit draws every rank draws the scan
+        engine's, so chunked equals scan on the same sequence."""
+        if self.config.use_sparse_of:
+            self.logger.warning(
+                "--use-sparse-of ignored with --engine chunked: LK trace "
+                "state spans chunk boundaries and cannot ride the "
+                "one-frame halo — use --engine scan")
+        ds = self.dataset
+        T = ds.N
+        h, w = ds.capture_shape[:2]
+        T_pad = -(-T // self.mesh.size) * self.mesh.size
+        step = self._detection_step()
+        with self.tracer.stage("stage"):
+            inputs = self._sequence_inputs()
+            padded = {k: pmesh.pad_to(v, T_pad) for k, v in inputs.items()}
+            if sample_yx is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(SCAN_SEED)
+                sample_yx = sample_points(T - 1, step.foe_samples, h, w, gen,
+                                          self.device)
+            if not isinstance(sample_yx, torch.Tensor):
+                sample_yx = torch.from_numpy(np.asarray(sample_yx))
+            sample_yx = pmesh.pad_to(sample_yx, T_pad - 1)
+        with self.tracer.stage("scan"):
+            out = detect_video_chunked(
+                self.mesh, padded["frames"], padded["omegas"], padded["dts"],
+                padded["segs"], padded["skys"], padded["depths"],
+                padded["gt_foes"], sample_yx=sample_yx, params=self._farneback,
+                config=step)
+        if self.mesh.rank == 0:
+            with self.tracer.stage("materialize"):
+                packed = pack_frame_scalars(out)[:T - 1].cpu().numpy()
+            with self.tracer.stage("artifacts"):
+                results_dir = ds.results_path if ds.seq_path else ""
+                if results_dir:
+                    create_if_not_exists(results_dir)
+                self._scan_results(packed, inputs["gt_foes"], T, results_dir)
+            self.logger.info("stage timing:\n" + self.tracer.summary())
         return self.detection_results
 
     def run_detection_foe(self, sample_yx: Optional[Sequence] = None
@@ -636,23 +778,20 @@ class Processor:
         ``sample_yx``: optional per-batch FoE sample indices, one
         (B_padded, 2N, 2) (y, x) array per batch, in place of the draw from
         the run's generator (seeded once per run with ``SAMPLE_SEED``). On
-        the scan engine: one (T-1, 2N, 2) array for the whole sequence."""
+        the scan and chunked engines: one (T-1, 2N, 2) array for the whole
+        sequence. With ``devices > 1`` and no process group, the batch,
+        spatial and chunked engines run on spawned ranks (rank 0's
+        FrameResults come back)."""
+        if self._ranks and self.config.engine != "scan":
+            return self._run_on_ranks("run_detection_foe", sample_yx=sample_yx)
         if self.config.engine in ("scan", "chunked"):
             return self.run_detection_foe_scan(sample_yx=sample_yx)
+        if self.mesh is not None:
+            return self._run_detection_foe_sharded(sample_yx)
         ds = self.dataset
         n_pairs = ds.N - 1
         h, w = ds.capture_shape[:2]
-        out_dirs: Dict[str, str] = {}
-        if ds.seq_path:
-            out_dirs = {
-                "results": ds.results_path,
-                "result_imgs": os.path.join(ds.seq_path, "result-images"),
-                "derotated": os.path.join(ds.seq_path, "derotated"),
-                "phi": os.path.join(ds.seq_path, "phi"),
-                "processed": os.path.join(ds.seq_path, "processed"),
-            }
-            for d in out_dirs.values():
-                create_if_not_exists(d)
+        out_dirs = self._foe_out_dirs()
         save_images = bool(out_dirs) and self.save_images
         gen = torch.Generator(device=self.device)
         gen.manual_seed(SAMPLE_SEED)
@@ -664,21 +803,11 @@ class Processor:
         self._open_flo_prefetcher(n_pairs, src)
         batches = [list(range(b0, min(b0 + self.batch_size, n_pairs)))
                    for b0 in range(0, n_pairs, self.batch_size)]
-        # double buffering: batch k+1 stages on a background thread while
-        # the card computes batch k
-        executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="stager")
-        try:
-            future = (executor.submit(self._stage_batch, batches[0], src)
-                      if batches else None)
-            for k, idx in enumerate(batches):
+        with self._staged_batches(batches, src) as staged_batches:
+            for k, (idx, staged) in enumerate(zip(batches, staged_batches)):
                 if self.is_exiting:
                     break
                 nb = len(idx)
-                staged = future.result()
-                if k + 1 < len(batches):
-                    future = executor.submit(self._stage_batch, batches[k + 1],
-                                             src)
-
                 # static-shape tail: pad the remainder batch to batch_size
                 if 0 < nb < self.batch_size:
                     pad_b = self.batch_size - nb
@@ -713,49 +842,289 @@ class Processor:
                 # lanes' images stay on the card
                 with self.tracer.stage("materialize"):
                     if save_images:
-                        n_real = len(idx)
-                        fixed_masks = out.estimate_fixed[:n_real].cpu().numpy()
-                        phi_maps = out.phi[:n_real].cpu().numpy()
-                        derot = out.flow_derotated[:n_real].cpu().numpy()
+                        images = _pull_debug_images(out, len(idx))
                         out = _to_scalars(out)
                     packed = pack_frame_scalars(out).cpu().numpy()
 
                 with self.tracer.stage("artifacts"):
-                    gt_foes = staged["gt_foes"]
-                    for j, i in enumerate(idx):
-                        fr = self._frame_result(i, packed[j], gt_foes[j])
-                        self.detection_results[i] = fr
-                        self.config.results[i] = fr
-                        name = f"image_{i:05d}"
-                        if out_dirs:
-                            with open(os.path.join(out_dirs["results"],
-                                                   name + ".json"), "w") as f:
-                                f.write(fr.to_json())
-                        if save_images:
-                            self._write_debug_images(
-                                out_dirs, name, np.asarray(ds.get_frame(i)),
-                                fixed_masks[j], phi_maps[j], derot[j])
-                done = idx[-1] + 1
-                if done % max(n_pairs // 10, 1) < self.batch_size:
-                    self.logger.info(
-                        f"{done / n_pairs * 100:.1f}% {done}/{n_pairs} "
-                        f"({done / max(time.time() - t_start, 1e-9):.1f} fps)")
+                    self._record_results(idx, packed, staged["gt_foes"],
+                                         out_dirs.get("results", ""))
+                    if save_images:
+                        self._write_batch_images(out_dirs, idx, images)
+                self._log_progress(idx[-1] + 1, n_pairs, t_start)
+        self._finish_foe_loop(out_dirs, time.time() - t_start,
+                              "— overlapped with device compute on a background thread")
+        return self.detection_results
+
+    def _foe_out_dirs(self) -> Dict[str, str]:
+        """The FoE loop's output directories, created; none without a
+        sequence directory."""
+        ds = self.dataset
+        if not ds.seq_path:
+            return {}
+        out_dirs = {
+            "results": ds.results_path,
+            "result_imgs": os.path.join(ds.seq_path, "result-images"),
+            "derotated": os.path.join(ds.seq_path, "derotated"),
+            "phi": os.path.join(ds.seq_path, "phi"),
+            "processed": os.path.join(ds.seq_path, "processed"),
+        }
+        for d in out_dirs.values():
+            create_if_not_exists(d)
+        return out_dirs
+
+    @contextmanager
+    def _staged_batches(self, staged_idx: List[List[int]], src: FlowSource,
+                        lanes: Optional[int] = None
+                        ) -> Iterator[Iterator[Dict[str, object]]]:
+        """An iterator over the staged arrays of each batch of pairs in
+        ``staged_idx``, in order, with double buffering: batch k+1 stages
+        on a background thread while the caller computes batch k. On
+        leaving the context (also on a break or an error) neither the
+        stager thread nor the prefetcher's reader threads outlive it."""
+        executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="stager",
+                                      initializer=self._bind_device)
+
+        def staged_batches():
+            future = (executor.submit(self._stage_batch, staged_idx[0], src, lanes)
+                      if staged_idx else None)
+            for k in range(len(staged_idx)):
+                staged = future.result()
+                if k + 1 < len(staged_idx):
+                    future = executor.submit(self._stage_batch, staged_idx[k + 1],
+                                             src, lanes)
+                yield staged
+
+        try:
+            yield staged_batches()
         finally:
-            # also on an error mid-run: neither the stager thread nor the
-            # prefetcher's reader threads outlive it
             executor.shutdown(wait=True, cancel_futures=True)
             self._close_flo_prefetcher()
-        wall = time.time() - t_start
+
+    def _record_results(self, idx: Sequence[int], packed: np.ndarray, gt_foes,
+                        results_dir: str) -> None:
+        """The FrameResults of pairs ``idx`` from their rows of packed
+        scalars, and their JSON into ``results_dir`` when given."""
+        for j, i in enumerate(idx):
+            fr = self._frame_result(i, packed[j], gt_foes[j])
+            self.detection_results[i] = fr
+            self.config.results[i] = fr
+            if results_dir:
+                with open(os.path.join(results_dir, f"image_{i:05d}.json"), "w") as f:
+                    f.write(fr.to_json())
+
+    def _write_batch_images(self, out_dirs: Dict[str, str], idx: Sequence[int],
+                            images: Tuple[np.ndarray, ...]) -> None:
+        """The debug PNGs of pairs ``idx`` from ``_pull_debug_images``'s
+        arrays."""
+        for j, i in enumerate(idx):
+            self._write_debug_images(out_dirs, f"image_{i:05d}",
+                                     np.asarray(self.dataset.get_frame(i)),
+                                     *(a[j] for a in images))
+
+    def _log_progress(self, done: int, n_pairs: int, t_start: float) -> None:
+        """About every tenth of the sequence: the share done and frames/s."""
+        if done % max(n_pairs // 10, 1) < self.batch_size:
+            self.logger.info(
+                f"{done / n_pairs * 100:.1f}% {done}/{n_pairs} "
+                f"({done / max(time.time() - t_start, 1e-9):.1f} fps)")
+
+    def _finish_foe_loop(self, out_dirs: Dict[str, str], wall: float,
+                         note: str) -> None:
+        """The FoE loop's tail: the host-staging log line, the video of the
+        overlay PNGs, the stage timing."""
         if wall > 0:
             self.logger.info(
                 f"host staging {self._stage_host_seconds:.2f}s over "
                 f"{wall:.2f}s wall ({100 * self._stage_host_seconds / wall:.0f}% "
-                "— overlapped with device compute on a background thread)")
+                f"{note})")
         if out_dirs:
             with self.tracer.stage("encode"):
                 self._encode_video(out_dirs["processed"],
-                                   os.path.join(ds.seq_path, "processed.mp4"))
+                                   os.path.join(self.dataset.seq_path, "processed.mp4"))
         self.logger.info("stage timing:\n" + self.tracer.summary())
+
+    # ------------------------------------------------------- multi-device
+    def _bind_device(self) -> None:
+        """Make this thread's current device the Processor's (a staging
+        thread of a rank on ``cuda:r`` would otherwise start on card 0; a
+        bare ``cuda`` is the current card already)."""
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
+
+    def _pairs_of(self, staged: Dict[str, object]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device (prevs, currs) of a staged gray batch."""
+        frames = self._staged_frames(staged)
+        if frames is None:
+            return self._to_dev(staged["prevs"]), self._to_dev(staged["currs"])
+        return frames[:-1], frames[1:]
+
+    def _flow_spatial_pairs(self, prevs: torch.Tensor, currs: torch.Tensor
+                            ) -> torch.Tensor:
+        """``--engine spatial``: each pair's Farneback solve row-sharded over
+        the mesh (``parallel/spatial.py``), its flow on every rank. A frame
+        height that does not divide by the mesh size takes the unsharded
+        batched solver: edge-padding rows would move the 5-px border
+        down-weight ramp off the true bottom edge and change near-border
+        flow."""
+        n_dev = self.mesh.size
+        h = prevs.shape[1]
+        if h % n_dev:
+            self.logger.warning(
+                f"--engine spatial: frame height {h} does not divide by the "
+                f"{n_dev}-device mesh — using the unsharded batched solver")
+            return _farneback_cf(prevs, currs, self._farneback)
+        return torch.stack([
+            farneback_flow_spatial(prevs[j], currs[j], self._farneback, self.mesh)
+            for j in range(prevs.shape[0])])
+
+    def _log_psum(self, n_devices: int) -> None:
+        wsum = sum(n for _, _, n in self._psum_metrics)
+        tpr_g = sum(t * n for t, _, n in self._psum_metrics) / wsum
+        fpr_g = sum(f * n for _, f, n in self._psum_metrics) / wsum
+        self.logger.info(
+            f"on-mesh psum metrics ({n_devices} devices): "
+            f"fixed-threshold TPR {tpr_g:.4f} FPR {fpr_g:.6f}")
+
+    def _run_on_ranks(self, method: str, **kwargs) -> Dict[int, FrameResult]:
+        """Run ``method`` on ``devices`` spawned ranks with this Processor's
+        dataset and settings, and take rank 0's FrameResults and all-reduced
+        metrics as this Processor's."""
+        job = _RankJob(config=_portable_config(self.config), dataset=self.dataset,
+                       attrs={k: getattr(self, k) for k in _RANK_ATTRS},
+                       method=method, kwargs=kwargs)
+        results, psum = pmesh.launch(_processor_rank, self._ranks, self.device, job)
+        for i, fr in results.items():
+            self.detection_results[i] = fr
+            self.config.results[i] = fr
+        self._psum_metrics.extend(psum)
+        if psum:
+            self._log_psum(self._ranks)
+        return self.detection_results
+
+    def _run_detection_foe_sharded(self, sample_yx: Optional[Sequence] = None
+                                   ) -> Dict[int, FrameResult]:
+        """The FoE loop as this rank of the mesh (batch and spatial engines).
+
+        A batch of ``batch_size`` lanes is padded to ``per * size`` lanes by
+        repeating its last one, and rank ``r`` takes lanes ``[r*per,
+        (r+1)*per)``. On the batch engine each rank stages and uploads only
+        its lanes, on its own thread, and computes their flow; on the
+        spatial engine every rank stages the whole batch and the ranks solve
+        each pair's flow together. Each rank draws the whole batch's FoE
+        samples from the run's generator and takes its lanes' (lane ``i``
+        votes on the unsharded run's samples of lane ``i``), runs the
+        detection step, and joins one all-reduce of the fixed-threshold
+        counts (padded lanes masked out) and one all-gather of the packed
+        (per, 12) scalars; rank 0 pulls both at once and writes the
+        FrameResults and JSON. Debug images are written by the rank that
+        computed them."""
+        mesh = self.mesh
+        ds = self.dataset
+        n_pairs = ds.N - 1
+        h, w = ds.capture_shape[:2]
+        lead = mesh.rank == 0
+        spatial = self.config.engine == "spatial"
+        out_dirs = self._foe_out_dirs()
+        save_images = bool(out_dirs) and self.save_images
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(SAMPLE_SEED)
+        step = self._detection_step()
+        src = self._effective_flow_source()
+        B = self.batch_size
+        lo, hi, per = pmesh.lanes(B, mesh)
+        padded_b = per * mesh.size
+
+        def mine(idx: List[int]) -> List[int]:
+            # this rank's real pairs; a rank with none stages the batch's
+            # last pair, whose lanes are then all padding
+            return idx[lo:min(hi, len(idx))] or [idx[-1]]
+
+        t_start = time.time()
+        self._stage_host_seconds = 0.0
+        batches = [list(range(b0, min(b0 + B, n_pairs)))
+                   for b0 in range(0, n_pairs, B)]
+        staged_idx = [idx if spatial else mine(idx) for idx in batches]
+        self._open_flo_prefetcher(n_pairs, src,
+                                  [i for idx in staged_idx for i in idx])
+        with self._staged_batches(staged_idx, src,
+                                  B if spatial else per) as staged_batches:
+            for k, (idx, staged) in enumerate(zip(batches, staged_batches)):
+                if self.is_exiting:
+                    break
+                nb = len(idx)
+                n_valid = max(0, min(hi, nb) - lo)
+
+                with self.tracer.stage("flow"):
+                    if spatial:
+                        prevs, currs = self._pairs_of(staged)
+                        flow = pmesh.pad_to(self._flow_spatial_pairs(prevs, currs),
+                                            padded_b)[lo:hi]
+                        staged = {key: pmesh.pad_to(v, padded_b)[lo:hi]
+                                  for key, v in staged.items()
+                                  if key not in ("frames_dev", "frames", "prevs",
+                                                 "currs")}
+                    else:
+                        n_mine = len(staged_idx[k])
+                        if n_mine < per:
+                            staged = {key: _edge_pad_batch(v, per - n_mine)
+                                      for key, v in staged.items()}
+                        # RAFT decides its coverage ladder on the real lanes
+                        # of the whole batch; the others compute their lanes
+                        flow = self._flow_from_staged(
+                            staged, src, n_valid if src == FlowSource.RAFT else n_mine)
+                with self.tracer.stage("stage+detect"):
+                    if "gt_flow" in staged:
+                        gt_flow = self._to_dev(staged["gt_flow"])
+                    else:
+                        gt_flow = torch.zeros((per, h, w, 2), device=self.device)
+                    syx = (sample_points(B, step.foe_samples, h, w, gen, self.device)
+                           if sample_yx is None
+                           else self._to_dev(np.asarray(sample_yx[k])))
+                    segs = self._to_dev(staged["segs"])
+                    out = detect_frame_batch(
+                        flow, gt_flow, self._to_dev(staged["omegas"]),
+                        self._to_dev(staged["dts"]), segs,
+                        self._to_dev(staged["skys"]),
+                        self._to_dev(staged["depths"]),
+                        self._to_dev(staged["gt_foes"]),
+                        sample_yx=pmesh.pad_to(syx, padded_b)[lo:hi], config=step)
+                    valid = torch.arange(lo, hi, device=self.device) < nb
+                    g_tpr, g_fpr = pmesh.aggregate_metrics_psum(
+                        mesh, segs, (255 * out.estimate_fixed.to(torch.int32)
+                                     ).to(torch.uint8), valid)
+                    gathered = pmesh.all_gather_cat(
+                        pack_frame_scalars(_to_scalars(out)), mesh)
+
+                with self.tracer.stage("materialize"):
+                    if lead:
+                        host = torch.cat([gathered.reshape(-1), g_tpr.reshape(1),
+                                          g_fpr.reshape(1)]).cpu().numpy()
+                        packed = host[:-2].reshape(padded_b, 12)
+                        self._psum_metrics.append((float(host[-2]), float(host[-1]),
+                                                   nb))
+                    if save_images and n_valid:
+                        images = _pull_debug_images(out, n_valid)
+
+                with self.tracer.stage("artifacts"):
+                    if save_images and n_valid:
+                        self._write_batch_images(out_dirs, idx[lo:lo + n_valid], images)
+                    if lead:
+                        gt_foes = [ds.get_gt_foe(i) for i in idx]
+                        self._record_results(
+                            idx, packed, [np.full(2, np.nan, np.float32) if g is None
+                                          else np.asarray(g, np.float32) for g in gt_foes],
+                            out_dirs.get("results", ""))
+                if lead:
+                    self._log_progress(idx[-1] + 1, n_pairs, t_start)
+        wall = time.time() - t_start
+        # the video is encoded once every rank has written its images
+        torch.distributed.barrier(group=mesh.group)
+        if lead:
+            if self._psum_metrics and not self._spawned:
+                self._log_psum(mesh.size)
+            self._finish_foe_loop(out_dirs, wall, "on rank 0")
         return self.detection_results
 
     @staticmethod

@@ -16,13 +16,15 @@ The reference's PRNG key becomes explicit draws: ``sample_yx`` for the dense
 vote and ``sparse_perm`` for the sparse vote's partner pairing; without them
 one ``torch.Generator`` on the device, seeded once, gives both.
 
-The time-chunked variant (``detect_video_chunked``) exists only across
-devices and belongs to the multi-device engines.
+The time-chunked variant (``detect_video_chunked``) splits the sequence
+over the ranks of a process group: each rank scans a contiguous time chunk,
+the first transition of a chunk fed by its left neighbour's last frame.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from mav_detection_tpu_torch.ops.flow.farneback import (
@@ -49,6 +51,8 @@ from mav_detection_tpu_torch.pipeline.detector import (
     FrameScalars,
     _to_scalars,
     detect_frame_batch,
+    pack_frame_scalars,
+    unpack_frame_scalars,
 )
 
 # seed of the generator that draws when the caller passes no draws
@@ -171,3 +175,70 @@ def detect_sequence_scan(
     if track_sparse:
         return out, history, foe_sparse
     return out, history
+
+
+def detect_video_chunked(
+    mesh,
+    frames,                       # (T, h, w), T divisible by the mesh size
+    omegas,
+    dts,
+    segmentations,
+    sky_masks,
+    depths,
+    gt_foes,
+    sample_yx=None,
+    params: FarnebackParams = FarnebackParams(warp="separable", fast=True),
+    config: DetectionStep = DetectionStep(),
+) -> FrameScalars:
+    """Chunked-video sharding over ``mesh`` (a ``parallel.mesh.Mesh``): rank
+    ``r`` takes the contiguous time chunk ``r`` of the sequence (its inputs
+    alone go to its device) and receives its left neighbour's last frame as
+    a one-frame halo (``exchange_rows`` along time), so every transition
+    (t-1, t), the chunk boundaries included, is computed exactly once. The
+    inputs are the whole sequence, laid out as ``detect_sequence_scan``'s
+    (element t describes transition (t-1, t)), on any device or as numpy.
+
+    ``sample_yx`` (T-1, 2N, 2) are the whole sequence's draws; each rank
+    slices its own transitions, so the result equals ``detect_sequence_scan``
+    on the same draws. Without them every rank draws the scan engine's
+    (a generator on its device seeded ``SCAN_SEED``). Returns the
+    per-transition scalars of transitions 1..T-1 (leading axis T-1,
+    time-ordered) on every rank: the wrap-around transition of the
+    reference's ring is dropped."""
+    from mav_detection_tpu_torch.parallel.halo import exchange_rows
+    from mav_detection_tpu_torch.parallel.mesh import all_gather_cat
+
+    T = frames.shape[0]
+    n_dev = mesh.size
+    if T % n_dev:
+        raise ValueError(f"sequence length {T} not divisible by {n_dev} devices")
+    dev = mesh.device
+    tl = T // n_dev
+    lo = mesh.rank * tl
+    h, w = frames.shape[1:3]
+    if sample_yx is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SCAN_SEED)
+        sample_yx = sample_points(T - 1, config.foe_samples, h, w, gen, dev)
+
+    def chunk(a, start: int, stop: int) -> torch.Tensor:
+        a = a[start:stop]
+        return (torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
+                else a).to(dev)
+
+    frames_c = exchange_rows(chunk(frames, lo, lo + tl), 1, 0, mesh, dim=0)
+    # element 0 of the aux inputs is not read: the halo frame's slot (or,
+    # on rank 0, the sequence's first frame)
+    aux_lo = max(lo - 1, 0) if mesh.rank else 0
+    aux = [chunk(a, aux_lo, lo + tl) for a in (omegas, dts, segmentations,
+                                                  sky_masks, depths, gt_foes)]
+    first_t = lo if mesh.rank else 1
+    out, _ = detect_sequence_scan(
+        frames_c, *aux, sample_yx=chunk(sample_yx, first_t - 1, lo + tl - 1),
+        params=params, config=config)
+    packed = pack_frame_scalars(out)
+    if mesh.rank == 0:
+        # rank 0 has no transition into its first frame: a filler row keeps
+        # the chunks equal for the gather and is dropped after it
+        packed = torch.cat([packed.new_zeros((1, packed.shape[1])), packed])
+    return unpack_frame_scalars(all_gather_cat(packed, mesh)[1:])

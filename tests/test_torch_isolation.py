@@ -68,6 +68,9 @@ NEW_MODULES = [
     "mav_detection_tpu_torch.cli.demo",
     "mav_detection_tpu_torch.cli.video",
     "mav_detection_tpu_torch.eval.figures",
+    "mav_detection_tpu_torch.parallel.mesh",
+    "mav_detection_tpu_torch.parallel.halo",
+    "mav_detection_tpu_torch.parallel.spatial",
 ]
 
 
@@ -409,3 +412,45 @@ def test_yolo_entry_points_raise_without_card(tmp_path, monkeypatch):
     for argv in (["--validate"], ["--prepare-dataset"], ["--data-to-yolo"]):
         with pytest.raises(RuntimeError, match="cuda"):
             main(["--dataset", "synthetic", "--headless", *argv])
+
+
+def test_spawned_ranks_never_import_jax(tmp_path):
+    """The multi-device paths spawn their ranks from the port's own rank
+    functions: with ``jax`` and the JAX package made unimportable for the
+    caller and every rank it spawns (stand-ins first on PYTHONPATH, which
+    the ranks inherit), ``dryrun_multichip`` runs every stage on 2 gloo
+    ranks."""
+    for name in ("jax", "mav_detection_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is barred here')\n")
+    code = ("import torch\n"
+            "torch.set_num_threads(1)\n"
+            "from mav_detection_tpu_torch.entry import dryrun_multichip\n"
+            "if __name__ == '__main__':\n"
+            "    assert len(dryrun_multichip(2, 'cpu')) == 6\n")
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "raft train step ok" in proc.stdout
+
+
+def test_multi_device_entry_points_raise_without_card():
+    """The pretrained loaders, the sharded Processor and
+    ``dryrun_multichip`` run on the card by default (the data-parallel
+    trainer: tests/test_torch_train.py)."""
+    _no_card()
+    from mav_detection_tpu_torch.core.config import RunConfig
+    from mav_detection_tpu_torch.entry import dryrun_multichip
+    from mav_detection_tpu_torch.models import pretrained
+    from mav_detection_tpu_torch.pipeline.processor import Processor
+
+    for call in (pretrained.load_raft, pretrained.load_sky,
+                 lambda: dryrun_multichip(2),
+                 lambda: Processor(RunConfig(dataset="synthetic", devices=2,
+                                             flow_source="FARNEBACK"))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()

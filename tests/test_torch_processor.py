@@ -148,15 +148,22 @@ def test_edge_pad_batch():
     (dict(flow_source="RAFT", engine="scan"), "run_detection_foe"),
     (dict(flow_source="RAFT", engine="scan"), "run_detection")])
 def test_unported_paths_raise(kw, attr):
-    """The spatial engine and every multi-device run (the chunked engine
-    exists only across devices) raise at construction; the RAFT source on
-    the scan engine raises the reference's ValueError when asked for flow
-    (the scan body computes Farneback flow)."""
+    """Multi-device runs construct with their ranks to spawn and the batch
+    raised to them (tests/test_torch_parallel*.py run them); the spatial
+    engine without devices raises the reference's ValueError at
+    construction; the RAFT source on the scan engine raises the reference's
+    ValueError when asked for flow (the scan body computes Farneback
+    flow)."""
     kw = dict(kw)
     flow_source = kw.pop("flow_source", "FARNEBACK")
     if attr is None:
-        with pytest.raises(NotImplementedError):
-            port_processor(flow_source, **kw)
+        if "devices" not in kw:
+            with pytest.raises(ValueError, match="requires --devices > 1"):
+                port_processor(flow_source, **kw)
+            return
+        proc = port_processor(flow_source, **kw)
+        assert proc._ranks == 2 and proc.mesh is None
+        assert proc.batch_size == max(BATCH, 2)
         return
     proc = port_processor(flow_source, **kw)
     with pytest.raises(ValueError, match="--flow-source RAFT is not supported there"):
@@ -185,10 +192,23 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["--engine", "spatial"], ["--engine", "chunked"], ["--devices", "2"]])
-def test_cli_unported_flags_raise(argv):
+def test_cli_unported_flags_raise(argv, monkeypatch):
+    """The multi-device flags are ported: the CLI hands them to the
+    Processor, which raises the reference's ValueErrors for the spatial and
+    chunked engines without --devices."""
+    import mav_detection_tpu_torch.cli.main as tmain
+
     base = ["--dataset", "synthetic", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli_main(base + argv)
+    seen = {}
+    monkeypatch.setattr(tmain, "execute",
+                        lambda config, device: seen.update(config=config, device=device))
+    cli_main(base + argv)
+    assert seen["device"] == "cpu"
+    assert seen["config"].devices == (2 if "--devices" in argv else 0)
+    if "--engine" in argv:
+        monkeypatch.undo()
+        with pytest.raises(ValueError, match="requires --devices > 1"):
+            cli_main(base + argv + ["--flow-source", "FARNEBACK", "--headless"])
 
 
 def _dataset_layout(name, root):

@@ -385,8 +385,19 @@ def test_chunked_without_devices_raises():
 @pytest.mark.parametrize("kw", [dict(engine="chunked", devices=2), dict(engine="scan", devices=2),
                                 dict(engine="spatial")])
 def test_multi_device_engines_are_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_processor(SMALL, **kw)
+    """The multi-device engines are ported (tests/test_torch_parallel*.py):
+    chunked constructs with its ranks to spawn; scan with devices runs
+    unsharded in the caller, as the reference's does; spatial without
+    devices raises the reference's ValueError."""
+    if kw["engine"] == "spatial":
+        with pytest.raises(ValueError, match="requires --devices > 1"):
+            port_processor(SMALL, **kw)
+        return
+    proc = port_processor(SMALL, **kw)
+    assert proc._ranks == 2
+    if kw["engine"] == "scan":
+        res = proc.run_detection()
+        assert sorted(res) == list(range(SMALL["n_frames"] - 1))
 
 
 def test_scan_engine_defaults_to_the_card():

@@ -257,14 +257,17 @@ def test_module_keeps_its_best_weights_and_pulls_once_per_chunk(tmp_path):
 
 # ---------------------------------------------------------------- --devices
 def test_device_count_errors_come_first_in_the_reference_order(monkeypatch):
-    with pytest.raises(ValueError, match="2 > 1 available devices"):
-        ttrain.train_raft(steps=2, batch=8, devices=2, device="cpu")
+    """The reference's checks come before any model or device work; then a
+    missing card raises (data parallel itself: tests/test_torch_parallel_train.py)."""
+    with pytest.raises(ValueError, match="16 > 8 available devices"):
+        ttrain.train_raft(steps=2, batch=8, devices=16, device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
     with pytest.raises(ValueError, match="--batch 6 must divide by --devices 8"):
         ttrain.train_raft(steps=2, batch=6, devices=8, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
         ttrain.train_raft(steps=2, batch=8, devices=2, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(RuntimeError, match="device='cuda'"):
         ttrain.main(["--model", "raft", "--devices", "2", "--steps", "2"])
 
 
