@@ -22,6 +22,23 @@ Phases, each printing one line (plus its seconds):
                batch, its plain version's time, its bound, every tile
                shape's time at each layer, and its shared memory,
                registers and blocks per SM.
+ 3b. probes  — the TPU probe kernels of tools/, ported as
+               csrc/shift_probes.cu: shift_chain, shift_gather and the y
+               stage in forms A, B, C, D and T, each equal (torch.equal) to
+               its plain version on both axes, at S = 1, 8 and 16 and at
+               sizes off the block; then, launch counters zeroed, the probe
+               entry points (mav_detection_tpu_torch/tools/), each holding
+               every kernel to its plain version at the size it times: the
+               tools' defaults, the fused kernel's finest layer at b=8
+               (3840x752; 160 bands of 24x752, sy per cell and in runs of
+               32 columns) and its tile geometry (1440 tiles of 32x64, sy
+               in runs of 32); each kernel's time per launch (a replayed
+               CUDA graph) beside its bound, the plain versions' and
+               grid_sample's times, the y stage's forms T and A as shares
+               of a farneback_iterate_fused launch at b=8 480x752 (T on the
+               tile geometry against its prediction), and
+               batch_overhead_probe (ms per frame per iteration, full,
+               kernel and glue, at b=1 and b=8).
   4. accuracy — flow EPE vs the analytic GT of the scipy-rendered scene on
                the 16-px interior: < 0.40 px at 752x480, < 0.55 px at
                1920x1024.
@@ -165,6 +182,7 @@ import collections
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -172,27 +190,41 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 non-tensor rate, dense
-# bf16 tensor rate
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
-# fp32 operations of farneback_iterate_fused, counted from
-# csrc/farneback_iter.cu, per cell of each stage (integer index work not
-# counted): the y stage per A-window cell (coordinate block 20, 5 planes x 3,
-# 1 - fy), the x stage and normal equations per M-region cell (coordinate
-# block 20, 1 - fx, 5 x 3, combination 37), and the mean and 2x2 solve per
-# output pixel; the box sums add 5 planes x taps per vertical and per
-# horizontal sum
-OPS_Y_STAGE = 36
-OPS_UPDATE = 73
-OPS_SOLVE = 18
+# the card's timing (CUDA events; a replayed CUDA graph), the H100 SXM peaks
+# and the bounds from them (the fused kernel's: bytes and operations)
+from mav_detection_tpu_torch.ops.flow.farneback_iter import fused_bound
+from mav_detection_tpu_torch.utils.timing import bound_ms, fmt_share, graph_ms
+from mav_detection_tpu_torch.utils.timing import events_ms as time_ms
 
+# One row per hand kernel: its route and source, the TPU kernel it replaces
+# (file:line of the function), and the pl.pallas_call sites (file:line) of
+# the repo that run that TPU kernel (tests/test_torch_probes.py holds every
+# site of the repo to this table)
+_PROBES_CU = "mav_detection_tpu_torch/csrc/shift_probes.cu"
 KERNEL_ROWS = {
     "farneback_iterate_fused": dict(
         route="cuda", source="mav_detection_tpu_torch/csrc/farneback_iter.cu",
-        replaces="mav_detection_tpu/ops/flow/farneback_pallas.py:328"),
+        replaces="mav_detection_tpu/ops/flow/farneback_pallas.py:328",
+        sites=("mav_detection_tpu/ops/flow/farneback_pallas.py:419",
+               "mav_detection_tpu/ops/flow/farneback_pallas.py:451",
+               "tools/batch_overhead_probe.py:114")),
+    "shift_chain": dict(route="cuda", source=_PROBES_CU,
+                        replaces="tools/gather_probe.py:39",
+                        sites=("tools/gather_probe.py:94",)),
+    "shift_gather": dict(route="cuda", source=_PROBES_CU,
+                         replaces="tools/gather_probe.py:56",
+                         sites=("tools/gather_probe.py:94",)),
+    # variants A-D of the chain probe's kernel; T is the port's two-tap form
+    # of the same function (variant A's)
+    **{f"y_stage_{v}": dict(route="cuda", source=_PROBES_CU,
+                            replaces="tools/chain_probe.py:50",
+                            sites=("tools/chain_probe.py:126",))
+       for v in "ABCDT"},
 }
+# the y stage's share of one farneback_iterate_fused launch at b=8 480x752,
+# predicted in PERF.md before it was measured: the two-tap form T on
+# the kernel's 32x64 tile geometry (1440 tiles), sy in runs of 32 columns
+Y_STAGE_SHARE_PREDICTED = (0.45, 0.6)
 SCHEDULE_TOL_PX = 1e-4   # whole schedule; one iteration must be exact
 NAN_WITHOUT_TARGET = ("tpr", "tpr_fixed", "drone_flow_pixels")
 
@@ -252,39 +284,6 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int, warm: int = 3) -> float:
-    """Mean ms per call over ``reps`` calls, CUDA events, after warm-up."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Mean device ms per call of ``fn`` (kernel launches on the current
-    stream), from a CUDA graph of ``reps`` calls replayed after warm-up, so
-    that the host's time per launch does not show between short kernels."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    return time_ms(graph.replay, 5, 2) / reps
-
-
 def scene_batch(b: int, h: int, w: int, hires: bool):
     from mav_detection_tpu_torch.data.scene import hires_scene_kwargs, make_scene
 
@@ -292,24 +291,6 @@ def scene_batch(b: int, h: int, w: int, hires: bool):
     scenes = [make_scene(seed, h=h, w=w, **kw) for seed in range(b)]
     return (np.stack([s[0] for s in scenes]), np.stack([s[1] for s in scenes]),
             np.stack([s[2] for s in scenes]))
-
-
-def fused_bound(b: int, h: int, w: int, win: int, S: int, tile) -> tuple:
-    """Least time of one iteration on the card: the larger of the bytes the
-    function must move (R0, R1, flow in and out once each, the border once)
-    over the HBM rate and the fp32 operations the kernel does on these
-    shapes, halo recompute included, over the fp32 rate."""
-    th, tw = tile
-    m = win // 2
-    taps = 2 * m + 1
-    mrh, mrw = th + 2 * m, tw + 2 * m
-    aw = mrw + 2 * S + 1
-    per_tile = (OPS_Y_STAGE * mrh * aw + OPS_UPDATE * mrh * mrw
-                + 5 * taps * (th * mrw + th * tw) + OPS_SOLVE * th * tw)
-    ops = per_tile * b * -(-h // th) * -(-w // tw)
-    nbytes = 4 * (14 * b * h * w + h * w)
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
-    return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
 def level_inputs(dev, prev, curr, gt, params):
@@ -411,6 +392,141 @@ def phase_kernels(dev, b: int, h: int, w: int, hires: bool,
             "schedule_err_px": err_sched, "timings": timings,
             "resources": {f"{th}x{tw}": fi.fused_kernel_info(win, S, (th, tw))
                           for th, tw in sorted(fi.TILES)}}
+
+
+def _library_lerp(x, sy, fy, S: int, axis: int):
+    """The two-tap lerp of shift_gather as one grid_sample call (bilinear,
+    border, corners aligned): the grid and the call."""
+    import torch
+    import torch.nn.functional as F
+
+    nr, nc = x.shape
+    rows, cols = (nr - 2 * S - 1, nc) if axis == 0 else (nr, nc - 2 * S - 1)
+    r = torch.arange(rows, device=x.device, dtype=torch.float32)[:, None]
+    c = torch.arange(cols, device=x.device, dtype=torch.float32)[None, :]
+    t = sy[:rows, :cols] + S + fy[:rows, :cols]
+    gy, gx = (r + t, c.expand(rows, cols)) if axis == 0 else (r.expand(rows, cols), c + t)
+    grid = torch.stack([gx * (2.0 / (nc - 1)) - 1.0, gy * (2.0 / (nr - 1)) - 1.0], -1)
+    x4, grid = x[None, None], grid[None].contiguous()
+    return lambda: F.grid_sample(x4, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+
+
+def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440)) -> dict:
+    """The probe kernels of csrc/shift_probes.cu against their plain
+    versions (torch.equal): both axes, S = 1 and 8 (compiled in) and 16 (the
+    run-time-S instance), sizes on and off the block; then, with the launch
+    counters zeroed, the probe entry points, each of which holds every
+    kernel to its plain version at the size it times: at the tools'
+    defaults, at the fused kernel's finest layer at b=8 (``fine``: shift
+    rows, columns, y-stage bands of 24x752; the y stage with sy per cell
+    and in runs of 32 columns), the y stage on the fused kernel's own tile
+    geometry (``tile``: rows, columns, tiles; the same A-window cells per
+    output, sy in runs of 32 columns), and batch_overhead_probe; then
+    grid_sample's time at the finest layer."""
+    import torch
+
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.ops.flow import shift_probes as sp
+    from mav_detection_tpu_torch.tools import (
+        batch_overhead_probe,
+        chain_probe,
+        gather_probe,
+    )
+
+    rng = np.random.default_rng(0)
+    errs = {k: 0.0 for k in sp.KERNELS}
+    checks = 0
+
+    def hold(kernel, equal, err, tag):
+        nonlocal checks
+        errs[kernel] = max(errs[kernel], err)
+        if not equal:
+            raise AssertionError(f"{kernel} {tag}: differs from its plain "
+                                 f"version by {err}")
+        checks += 1
+
+    def hold_now(kernel, got, want, tag):
+        torch.cuda.synchronize()
+        hold(kernel, torch.equal(got, want), float((got - want).abs().max()), tag)
+
+    for S in (1, 8, 16):
+        for axis in (0, 1):
+            for rows, cols in ((37, 45), (64, 768)):
+                tag = f"{rows}x{cols} S={S} axis={axis}"
+                x, sy, fy = sp.shift_inputs(rng, rows, cols, S, axis, dev)
+                chain = sp.shift_chain(x, sy, fy, S, axis)
+                gather = sp.shift_gather(x, sy, fy, S, axis)
+                hold_now("shift_chain", chain, sp.shift_chain_ref(x, sy, fy, S, axis), tag)
+                hold_now("shift_gather", gather, sp.shift_gather_ref(x, sy, fy, S, axis), tag)
+                if not torch.equal(gather, chain):
+                    raise AssertionError(f"shift_gather {tag}: not exact against the chain")
+        for th, tw, m, bands in ((5, 37, 3, 2), (24, 752, 6, 3)):
+            g = sp.YGeometry(S, th, tw, m)
+            tag = f"bands={bands} th={th} tw={tw} m={m} S={S}"
+            slab, sy, fy = sp.y_stage_inputs(rng, g, bands, dev)
+            outs = {v: sp.y_stage(slab, sy, fy, S, m, v) for v in sp.VARIANTS}
+            for v, o in outs.items():
+                hold_now(f"y_stage_{v}", o, sp.y_stage_ref(slab, sy, fy, S, m, v), tag)
+            for v in chain_probe.EXACT_VS_A:
+                if not torch.equal(outs[v], outs["A"]):
+                    raise AssertionError(f"y_stage_{v} {tag}: not exact against A")
+
+    rows, cols, bands = fine
+    th, tw, tiles = tile
+    sp.reset_launch_counts()
+    fi.reset_launch_counts()
+    runs = {"gather_default": gather_probe.main([], device=dev),
+            "chain_default": chain_probe.main([], device=dev),
+            "gather_fine": gather_probe.main(["--rows", str(rows), "--cols", str(cols),
+                                              "--reps", "50"], device=dev),
+            "chain_fine": chain_probe.main(["--bands", str(bands), "--reps", "50"],
+                                           device=dev),
+            "chain_fine_runs": chain_probe.main(["--bands", str(bands), "--reps", "50",
+                                                 "--sy-run", "32"], device=dev),
+            "chain_tile": chain_probe.main(["--th", str(th), "--tw", str(tw), "--bands",
+                                            str(tiles), "--reps", "50", "--sy-run", "32"],
+                                           device=dev),
+            "batch_overhead": batch_overhead_probe.main([], device=dev)}
+    torch.cuda.synchronize()
+    launches = dict(sp.LAUNCHES)
+    fused_launches = fi.LAUNCHES["farneback_iterate_fused"]
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing or fused_launches == 0:
+        raise AssertionError(f"probes: no launch of {missing or 'the fused kernel'}")
+    # every kernel at every size the probes timed, against its plain version
+    for name, run in runs.items():
+        for a in run.get("axes", ()):
+            tag = f"{name} {run['rows']}x{run['cols']} axis={a['axis']}"
+            for k in ("shift_chain", "shift_gather"):
+                hold(k, a[k]["equal_to_plain"], a[k]["max_abs_err"], tag)
+            if not a["exact_vs_chain"]:
+                raise AssertionError(f"shift_gather {tag}: not exact against the chain")
+        for v, r in run.get("variants", {}).items():
+            tag = f"{name} bands={run['bands']} th={run['th']} tw={run['tw']}"
+            hold(f"y_stage_{v}", r["equal_to_plain"], r["max_abs_err"], tag)
+            if v in chain_probe.EXACT_VS_A and r["max_diff_vs_A"] != 0.0:
+                raise AssertionError(f"y_stage_{v} {tag}: not exact against A")
+
+    # grid_sample at the finest layer, on the probe's draws
+    library, lib_err = [], {}
+    rng = np.random.default_rng(0)
+    for axis in (0, 1):
+        x, sy, fy = sp.shift_inputs(rng, rows, cols, 8, axis, dev)
+        lib = _library_lerp(x, sy, fy, 8, axis)
+        library.append(time_ms(lib, 10, 2))
+        lib_err[axis] = float((lib()[0, 0] - sp.shift_gather(x, sy, fy, 8, axis)).abs().max())
+    sp.reset_launch_counts()   # the comparisons' launches do not count
+    resources = {k: sp.kernel_info(k, 8) for k in sp.KERNELS}
+
+    fused_ms = runs["batch_overhead"]["batches"][1]["kernel_ms_per_launch"]
+    shares = {f"{v} {r}": runs[r]["variants"][v]["us"] / 1e3 / fused_ms
+              for r in ("chain_fine", "chain_fine_runs", "chain_tile") for v in ("T", "A")}
+    return {"checks": checks, "max_abs_err": errs, "launches": launches,
+            "fused_launches": fused_launches, "runs": runs,
+            "library_ms": library, "library_max_abs_diff": lib_err,
+            "resources": resources, "fused_ms_b8": fused_ms,
+            "shares_of_fused": shares}
 
 
 def phase_accuracy(dev) -> dict:
@@ -1522,12 +1638,6 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes: float, flops_fp32: float, flops_bf16: float) -> tuple:
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = (flops_fp32 / FP32_FLOPS_PER_S + flops_bf16 / BF16_FLOPS_PER_S) * 1e3
-    return max(tb, to), ("bytes" if tb >= to else "operations")
-
-
 def _device_ms(fn, reps: int = 5) -> tuple:
     """Device ms per call from a replayed CUDA graph; CUDA events around
     eager calls where the stage cannot be captured."""
@@ -1574,7 +1684,7 @@ def _raft_stage_times(dev, frames: np.ndarray) -> list:
         def stage(name, fn, nbytes, extra_fp32=0.0):
             fl = _conv_flops(model, fn)
             ms, timer = _device_ms(fn)
-            bound, by = _bound(nbytes, fl["fp32"] + extra_fp32, fl["bf16"])
+            bound, by = bound_ms(nbytes, fl["fp32"] + extra_fp32, fl["bf16"])
             rows.append({"stage": name, "ms": ms, "timer": timer, "bound_ms": bound,
                          "bound_by": by, "bytes": nbytes,
                          "gflop_fp32": (fl["fp32"] + extra_fp32) / 1e9,
@@ -2422,13 +2532,13 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
         boxes = dec()
         fl = _conv_flops(model, fwd)
         weights = _nbytes(*model.parameters())
-        fwd_bound, fwd_by = _bound(_nbytes(x, raw) + weights, fl["fp32"], fl["bf16"])
+        fwd_bound, fwd_by = bound_ms(_nbytes(x, raw) + weights, fl["fp32"], fl["bf16"])
         gh, gw = raw.shape[1:3]
         kk = min(64, gh * gw * 3)
         # decode: ~12 fp32 operations per raw value, the k x k IoU matrix
         # (~20 each) and the k masked steps over (b, k)
         dec_ops = 12.0 * raw.numel() + 20.0 * b * kk * kk + 6.0 * b * kk * kk
-        dec_bound, dec_by = _bound(_nbytes(raw, *boxes), dec_ops, 0.0)
+        dec_bound, dec_by = bound_ms(_nbytes(raw, *boxes), dec_ops)
         fwd_graph, fwd_timer = _device_ms(fwd, 5)
         dec_graph, dec_timer = _device_ms(dec, 5)
         timing = {
@@ -2923,14 +3033,14 @@ def phase_train(dev, sizes=None, batch: int = 8, steps: int = 20, chunk: int = 1
             # a step reads and writes the parameters, both Adam moments and
             # the gradients once each, and reads the scene draws
             nbytes = 8 * params_bytes + 4 * batch * (4 * h * w + 40)
-            bound_ms, bound_by = _bound(nbytes, 3 * fl["fp32"], 3 * fl["bf16"])
+            step_bound, bound_by = bound_ms(nbytes, 3 * fl["fp32"], 3 * fl["bf16"])
             n_chunks = len(meter.chunks)
             r = {"size": f"{w}x{h}", "batch": batch, "steps": steps, "chunk": chunk,
                  "ms_per_step": ms_step, "steps_per_s": 1e3 / ms_step,
                  "chunk_ms": [c["ms"] for c in meter.chunks],
                  "wall_s_with_selection": wall, "selector_calls": meter.selector_calls,
-                 "bound_ms_per_step": bound_ms, "bound_by": bound_by,
-                 "share_of_bound": bound_ms / ms_step,
+                 "bound_ms_per_step": step_bound, "bound_by": bound_by,
+                 "share_of_bound": step_bound / ms_step,
                  "gflop_per_step_bf16": 3 * fl["bf16"] / 1e9,
                  "gflop_per_step_fp32": 3 * fl["fp32"] / 1e9,
                  "max_memory_allocated_bytes": peak,
@@ -3566,6 +3676,95 @@ def _say_multi(multi: dict, smi: str, seconds: float) -> None:
         f"({seconds:.1f} s)")
 
 
+def _probe_rows(pr: dict) -> list:
+    """The kernels JSON rows of the probe kernels: the finest layer's
+    numbers (shift axis 0; the y stage's 160 bands with sy per cell), the
+    other sizes' beside."""
+    from mav_detection_tpu_torch.ops.flow import shift_probes as sp
+
+    runs = pr["runs"]
+    rows = []
+    for k in sp.KERNELS:
+        if k.startswith("y_stage_"):
+            v = k[len("y_stage_"):]
+            cf, ct = runs["chain_fine"], runs["chain_tile"]
+            fine = cf["variants"][v]
+            shape = f"bands={cf['bands']} th={cf['th']} tw={cf['tw']} m={cf['m']} S={cf['S']}"
+            extra = {"ms_tool_default": runs["chain_default"]["variants"][v]["us"] / 1e3,
+                     "share_of_fused_launch": pr["shares_of_fused"].get(f"{v} chain_fine"),
+                     "ms_sy_in_runs_of_32": runs["chain_fine_runs"]["variants"][v]["us"] / 1e3,
+                     "ms_tile_geometry": ct["variants"][v]["us"] / 1e3,
+                     "bound_ms_tile_geometry": ct["variants"][v]["bound_us"] / 1e3,
+                     "tile_geometry": f"bands={ct['bands']} th={ct['th']} tw={ct['tw']} "
+                                      f"sy-run {ct['sy_run']}",
+                     "bytes": cf["bytes"], "fused_y_bytes": cf["fused_y_bytes"],
+                     "library_note": "no one PyTorch call: five planes and their sum"}
+            lib = None
+        else:
+            gf = runs["gather_fine"]
+            fine = gf["axes"][0][k]
+            shape = f"{gf['rows']}x{gf['cols']} S={gf['S']} axis 0"
+            extra = {"ms_tool_default": runs["gather_default"]["axes"][0][k]["us"] / 1e3,
+                     "ms_axis1": gf["axes"][1][k]["us"] / 1e3,
+                     "bound_ms_axis1": gf["axes"][1][k]["bound_us"] / 1e3,
+                     "plain_ms_axis1": gf["axes"][1][k]["plain_ms"],
+                     "library_ms_axis1": pr["library_ms"][1],
+                     "library": "torch.nn.functional.grid_sample (bilinear)",
+                     "library_max_abs_diff": pr["library_max_abs_diff"],
+                     "exact_vs_chain": all(a["exact_vs_chain"] for a in gf["axes"])}
+            lib = pr["library_ms"][0]
+        rows.append({"name": k, **KERNEL_ROWS[k], "launches": pr["launches"][k],
+                     "max_abs_err": pr["max_abs_err"][k], "ms": fine["us"] / 1e3,
+                     "plain_ms": fine["plain_ms"], "bound_ms": fine["bound_us"] / 1e3,
+                     "bound_by": fine["bound_by"], "library_ms": lib,
+                     "shape": shape, "tolerance": 0.0, "check": "pass",
+                     "path": "probes", **pr["resources"][k], **extra})
+    return rows
+
+
+def _say_probes(pr: dict, smi: str, seconds: float) -> None:
+    runs = pr["runs"]
+    say(f"[probes] {pr['checks']} checks, every kernel and variant equal to its "
+        f"plain version (torch.equal) at every size the probes time and at S = "
+        f"1, 8, 16 on both axes and off the block: max_abs_err "
+        f"{json.dumps(pr['max_abs_err'])}")
+    for row in _probe_rows(pr):
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        say(f"[probes]   {row['name']} {row['shape']} on {smi}: {row['ms'] * 1e3:.2f} "
+            f"us/launch, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+            f"share of bound {row['bound_ms'] / row['ms']:.3f}; tool default "
+            f"{row['ms_tool_default'] * 1e3:.2f} us; plain {row['plain_ms']:.4f} ms; "
+            f"grid_sample {lib}; {row['registers']} registers, "
+            f"{row['blocks_per_sm']} blocks of 256 per SM; launches {row['launches']}")
+    hw = f"{runs['batch_overhead']['H']}x{runs['batch_overhead']['W']}"
+    sh = pr["shares_of_fused"]
+    say(f"[probes] at b=8 {hw} on {smi}: farneback_iterate_fused "
+        f"{pr['fused_ms_b8']:.5f} ms per launch; the y stage alone as shares of "
+        f"it: {json.dumps(sh)}")
+    for name in ("chain_fine", "chain_fine_runs", "chain_tile"):
+        r = runs[name]
+        say(f"[probes]   {name}: {r['bands']} bands of {r['th']}x{r['tw']}, sy-run "
+            f"{r['sy_run']}: T {r['variants']['T']['us'] / 1e3:.5f} ms (share of "
+            f"bound {fmt_share(r['variants']['T']['share'])}), A "
+            f"{r['variants']['A']['us'] / 1e3:.5f} ms; the slab moves {r['bytes']} B, "
+            f"the fused kernel's y stage must read {r['fused_y_bytes']} B")
+    lo, hi = Y_STAGE_SHARE_PREDICTED
+    t = sh["T chain_tile"]
+    say(f"[probes] the y stage's share of a fused launch (T on the kernel's tile "
+        f"geometry, sy in runs of 32): {t:.3f}; predicted {lo}-{hi}: "
+        f"{'held' if lo <= t <= hi else 'missed'}")
+    for row in runs["batch_overhead"]["batches"]:
+        say(f"[probes] batch_overhead b={row['b']} {hw} on {smi}: full "
+            f"{row['full_ms']:.5f} ms/frame/iter, kernel {row['kernel_ms']:.5f}, "
+            f"glue {row['glue_ms']:.5f} ({row['glue_ms'] / row['full_ms']:.3f} of "
+            f"full); bound {row['bound_ms_per_launch']:.5f} ms per launch "
+            f"({row['bound_by']}, tile {row['tile']})")
+    say(f"[probes] launches on the probe paths {json.dumps(pr['launches'])}, "
+        f"farneback_iterate_fused {pr['fused_launches']}; grid_sample against "
+        f"shift_gather max {json.dumps(pr['library_max_abs_diff'])} "
+        f"({seconds:.1f} s)")
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -3596,11 +3795,14 @@ def main(argv=None) -> int:
     build_s = _build.build_seconds()
     regs = [ln.strip() for ln in _build.BUILD_LOGS["farneback_iter"].splitlines()
             if "registers" in ln]
+    probe_regs = [int(n) for n in re.findall(r"Used (\d+) registers",
+                                             _build.BUILD_LOGS["shift_probes"])]
     times["build"] = build_s
-    say(f"[build] csrc/farneback_iter.cu (nvcc), runtime/native/loader.cpp and "
-        f"runtime/native/png.cpp (g++), started together, built and loaded in "
-        f"{build_s:.2f} s; "
-        f"ptxas: {regs}")
+    say(f"[build] csrc/farneback_iter.cu and csrc/shift_probes.cu (nvcc), "
+        f"runtime/native/loader.cpp and runtime/native/png.cpp (g++), started "
+        f"together, built and loaded in {build_s:.2f} s; ptxas farneback_iter: "
+        f"{regs}; ptxas shift_probes, registers of its {len(probe_regs)} "
+        f"instances: {probe_regs}")
 
     if ranks:
         return main_multi(dev, ranks, smi)
@@ -3630,6 +3832,13 @@ def main(argv=None) -> int:
                 f"batch (bound {t['bound_ms_per_batch']:.5f}, plain "
                 f"{t['plain_ms_per_batch']:.4f})")
     say(f"[kernels] ({times['kernels']:.1f} s)")
+
+    t0 = time.perf_counter()
+    say("[probes] the TPU probe kernels of tools/, ported (csrc/shift_probes.cu), "
+        "through their probe entry points:")
+    probes = phase_probes(dev)
+    times["probes"] = time.perf_counter() - t0
+    _say_probes(probes, smi, times["probes"])
 
     t0 = time.perf_counter()
     acc = phase_accuracy(dev)
@@ -3916,6 +4125,7 @@ def main(argv=None) -> int:
         "launches_multi_data_parallel": dp["launches"][k],
         "launches_multi_chunked": chk["launches"][k],
         "launches_multi_spatial": sp["launches"][k],
+        "launches_batch_overhead_probe": probes["fused_launches"],
         "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
         "per_batch": {f"{size} b={tb}": {
             key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
@@ -3953,6 +4163,7 @@ def main(argv=None) -> int:
                                      ("ms_per_batch", "bound_ms_per_batch",
                                       "plain_ms_per_batch")}},
     })
+    rows += _probe_rows(probes)
     say(json.dumps({"nets": {k: nets[k] for k in ("load", "sky", "raft", "stages")},
                     "datasets": {key: dsets[key] for key in (
                         "midgard", "midgard_card_vs_cpu", "png", "sim")},

@@ -1,11 +1,14 @@
 """Build and load the port's native libraries.
 
-Three sources, each compiled at first use into a shared library with a
+Four sources, each compiled at first use into a shared library with a
 plain C interface and loaded with ``ctypes``:
 
 * ``"farneback_iter"``: ``csrc/farneback_iter.cu``, the CUDA kernels, with
   ``nvcc`` for ``sm_90a`` into ``build/kernels/``. The wrappers pass
   ``tensor.data_ptr()`` and the current stream's handle as ``c_void_p``.
+* ``"shift_probes"``: ``csrc/shift_probes.cu``, the probe kernels of the
+  warp's shifted reads (``ops/flow/shift_probes.py``), the same way and with
+  the same flags.
 * ``"loader"``: ``runtime/native/loader.cpp``, the host ``.flo`` codec and
   prefetcher, with ``g++`` into ``build/native/``.
 * ``"png"``: ``runtime/native/png.cpp``, the PNG row unfilter of
@@ -84,6 +87,17 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.farneback_iterate_fused_info.restype = i
 
 
+def _bind_shift_probes(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.shift_chain, lib.shift_gather):
+        fn.argtypes = [p, p, p, p, i, i, i, i, p]
+        fn.restype = i
+    lib.y_stage.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.y_stage.restype = i
+    lib.shift_probe_info.argtypes = [i, i, i, p]
+    lib.shift_probe_info.restype = i
+
+
 def _bind_loader(lib: ctypes.CDLL) -> None:
     import numpy as np
 
@@ -130,6 +144,8 @@ class _Source(NamedTuple):
 SOURCES: Dict[str, _Source] = {
     "farneback_iter": _Source(SOURCE, _nvcc, NVCC_FLAGS, BUILD_DIR,
                               _bind_kernels),
+    "shift_probes": _Source(PKG_DIR / "csrc" / "shift_probes.cu", _nvcc,
+                            NVCC_FLAGS, BUILD_DIR, _bind_shift_probes),
     "loader": _Source(PKG_DIR / "runtime" / "native" / "loader.cpp", _gxx,
                       GXX_FLAGS, BUILD_ROOT / "native", _bind_loader),
     "png": _Source(PKG_DIR / "runtime" / "native" / "png.cpp", _gxx, GXX_FLAGS,

@@ -286,6 +286,47 @@ def fused_kernel_info(winsize: int, max_shift: int, tile=TILE) -> Dict[str, int]
     return {"smem_bytes": out[0], "registers": out[1], "blocks_per_sm": out[2]}
 
 
+# fp32 operations of farneback_iterate_fused, counted from
+# csrc/farneback_iter.cu, per cell of each stage (integer index work not
+# counted): the y stage per A-window cell (coordinate block 20, 5 planes x 3,
+# 1 - fy), the x stage and normal equations per M-region cell (coordinate
+# block 20, 1 - fx, 5 x 3, combination 37), and the mean and 2x2 solve per
+# output pixel; the box sums add 5 planes x taps per vertical and per
+# horizontal sum
+OPS_Y_STAGE = 36
+OPS_UPDATE = 73
+OPS_SOLVE = 18
+
+
+def fused_bytes(b: int, h: int, w: int) -> int:
+    """Bytes one ``farneback_iterate_fused`` launch must move: R0 and R1
+    (5 planes each), the flow in and out (2 each) once per pixel, the border
+    map once."""
+    return 4 * (14 * b * h * w + h * w)
+
+
+def fused_ops(b: int, h: int, w: int, winsize: int, max_shift: int, tile) -> int:
+    """fp32 operations of one launch on these shapes, halo recompute
+    included."""
+    th, tw = tile
+    m = winsize // 2
+    taps = 2 * m + 1
+    mrh, mrw = th + 2 * m, tw + 2 * m
+    aw = mrw + 2 * max_shift + 1
+    per_tile = (OPS_Y_STAGE * mrh * aw + OPS_UPDATE * mrh * mrw
+                + 5 * taps * (th * mrw + th * tw) + OPS_SOLVE * th * tw)
+    return per_tile * b * -(-h // th) * -(-w // tw)
+
+
+def fused_bound(b: int, h: int, w: int, winsize: int, max_shift: int, tile) -> tuple:
+    """(least ms of one launch on the H100, "bytes" or "operations"): the
+    larger of ``fused_bytes`` over the HBM rate and ``fused_ops`` over the
+    fp32 rate."""
+    from mav_detection_tpu_torch.utils.timing import bound_ms
+
+    return bound_ms(fused_bytes(b, h, w), fused_ops(b, h, w, winsize, max_shift, tile))
+
+
 def farneback_iterate(R0: torch.Tensor, R1: torch.Tensor, flow0: torch.Tensor,
                       border: torch.Tensor, iterations: int,
                       winsize: int = 12, max_shift: int = 16) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """The CUDA kernel against its plain PyTorch version, on the card.
 
 These need an NVIDIA card with nvcc (they build csrc/ at first use) and skip
-elsewhere. On a machine with one:
+elsewhere. On a machine with one (``--noconftest`` where jax is not
+installed: tests/conftest.py imports it, these tests need none of it):
 
-    python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q -m cuda
 """
 import numpy as np
 import pytest
@@ -226,3 +227,69 @@ def test_train_step_on_card_matches_cpu(dev, net, dtype, loss_rtol, median_steps
     assert lc == pytest.approx(lh, rel=loss_rtol)
     diff = torch.cat([(pc[k] - ph[k]).abs().flatten() for k in ph]) / 1e-3
     assert float(diff.median()) < median_steps
+
+
+# ---------------------------------------------------------------- probe kernels
+@pytest.mark.parametrize("S", [1, 8, 16])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("rows,cols", [(37, 45), (64, 768), (3840, 752)])
+def test_shift_probes_equal_their_plain_versions(dev, S, axis, rows, cols):
+    """shift_chain and shift_gather (S = 8 compiled in, 1 and 16 through the
+    run-time-S instance; 37x45 is off the 256-thread block; 64x768 the
+    tools' default, 3840x752 the fused kernel's finest layer at b=8) equal
+    their plain versions and each other."""
+    from mav_detection_tpu_torch.ops.flow import shift_probes as sp
+
+    x, sy, fy = sp.shift_inputs(np.random.default_rng(S + axis), rows, cols, S, axis, dev)
+    chain = sp.shift_chain(x, sy, fy, S, axis)
+    gather = sp.shift_gather(x, sy, fy, S, axis)
+    torch.cuda.synchronize()
+    assert torch.equal(chain, sp.shift_chain_ref(x, sy, fy, S, axis))
+    assert torch.equal(gather, sp.shift_gather_ref(x, sy, fy, S, axis))
+    assert torch.equal(gather, chain)
+
+
+@pytest.mark.parametrize("variant", ["A", "B", "C", "D", "T"])
+@pytest.mark.parametrize("S,th,tw,m,bands", [(1, 5, 37, 3, 2), (8, 24, 752, 6, 2),
+                                             (16, 7, 50, 6, 3), (8, 24, 752, 6, 20),
+                                             (8, 24, 752, 6, 160), (8, 32, 64, 6, 1440)])
+def test_y_stage_equals_its_plain_version(dev, variant, S, th, tw, m, bands):
+    """Off the block, the run-time-S instance, the tool's default (20
+    bands), the fused kernel's finest layer at b=8 (160 bands) and its tile
+    geometry (1440 tiles of 32x64)."""
+    from mav_detection_tpu_torch.ops.flow import shift_probes as sp
+
+    g = sp.YGeometry(S, th, tw, m)
+    slab, sy, fy = sp.y_stage_inputs(np.random.default_rng(S), g, bands, dev)
+    out = sp.y_stage(slab, sy, fy, S, m, variant)
+    torch.cuda.synchronize()
+    assert out.shape == (bands, 1, g.mrows, g.acols)
+    assert torch.equal(out, sp.y_stage_ref(slab, sy, fy, S, m, variant))
+    if variant in ("B", "T"):
+        assert torch.equal(out, sp.y_stage(slab, sy, fy, S, m, "A"))
+
+
+def test_probe_wrappers_count_and_refuse(dev):
+    from mav_detection_tpu_torch.ops.flow import shift_probes as sp
+
+    rng = np.random.default_rng(0)
+    x, sy, fy = sp.shift_inputs(rng, 16, 40, 8, 0, dev)
+    g = sp.YGeometry(8, 4, 16, 2)
+    slab, ysy, yfy = sp.y_stage_inputs(rng, g, 2, dev)
+    sp.reset_launch_counts()
+    sp.shift_chain(x, sy, fy, 8, 0)
+    sp.y_stage(slab, ysy, yfy, 8, 2, "T")
+    assert sp.LAUNCHES["shift_chain"] == 1 and sp.LAUNCHES["y_stage_T"] == 1
+    with pytest.raises(ValueError, match="float32"):
+        sp.shift_gather(x.double(), sy, fy, 8, 0)
+    with pytest.raises(ValueError, match="shape"):
+        sp.shift_gather(x, sy[:-1], fy, 8, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.shift_chain(x.t().contiguous().t(), sy, fy, 8, 0)
+    with pytest.raises(ValueError, match="need"):
+        sp.y_stage(slab, ysy[:, :-1], yfy, 8, 2, "A")
+    with pytest.raises(ValueError, match="float32"):
+        sp.y_stage(slab, ysy, yfy.half(), 8, 2, "C")
+    assert sum(sp.LAUNCHES.values()) == 2
+    info = sp.kernel_info("y_stage_A", 8)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1

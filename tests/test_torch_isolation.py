@@ -71,7 +71,18 @@ NEW_MODULES = [
     "mav_detection_tpu_torch.parallel.mesh",
     "mav_detection_tpu_torch.parallel.halo",
     "mav_detection_tpu_torch.parallel.spatial",
+    "mav_detection_tpu_torch.ops.flow.shift_probes",
+    "mav_detection_tpu_torch.utils.timing",
+    "mav_detection_tpu_torch.tools.gather_probe",
+    "mav_detection_tpu_torch.tools.chain_probe",
+    "mav_detection_tpu_torch.tools.batch_overhead_probe",
 ]
+
+
+# an import of the reference's tools/ scripts (they import jax); the port's
+# probes are mav_detection_tpu_torch.tools
+_NO_REFERENCE_TOOLS = re.compile(r"^\s*(?:import|from)\s+tools(?:[.\s,]|$)",
+                                 re.MULTILINE)
 
 
 # a module-level import of requests or matplotlib: a CUDA host need not
@@ -128,6 +139,21 @@ def test_source_imports_neither_flax_nor_msgpack(path):
 def test_source_imports_neither_imageio_nor_pil(path):
     text = path.read_text()
     assert not _NO_IMAGE_LIBS.findall(text), f"{path}: {_NO_IMAGE_LIBS.findall(text)}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_reference_tool(path):
+    text = path.read_text()
+    found = _NO_REFERENCE_TOOLS.findall(text)
+    assert not found, f"{path}: {found}"
+
+
+def test_reference_tools_pattern_catches_and_spares():
+    assert _NO_REFERENCE_TOOLS.search("from tools import gather_probe")
+    assert _NO_REFERENCE_TOOLS.search("    import tools.chain_probe as cp")
+    assert not _NO_REFERENCE_TOOLS.search("from mav_detection_tpu_torch.tools import chain_probe")
+    assert not _NO_REFERENCE_TOOLS.search("import toolset")
+    assert not _NO_REFERENCE_TOOLS.search("# the tools of the reference")
 
 
 def test_image_lib_pattern_catches_and_spares():
