@@ -39,9 +39,11 @@ Phases, each printing one line (plus its seconds):
                tile geometry against its prediction), and
                batch_overhead_probe (ms per frame per iteration, full,
                kernel and glue, at b=1 and b=8).
-  4. accuracy — flow EPE vs the analytic GT of the scipy-rendered scene on
-               the 16-px interior: < 0.40 px at 752x480, < 0.55 px at
-               1920x1024.
+  4. accuracy — flow EPE with the product's tuned_flow_params on the
+               16-px interior of the scipy-rendered scene: vs its analytic
+               GT < 0.40 px at 752x480, < 0.55 px at 1920x1024; vs
+               bench.py's cv2 oracle call (0.4, 1, 12, 10, 8, 1.2, 0)
+               < 0.1 px at 752x480 (the north star's first gate).
   5. main path — Processor.run_detection_foe with FARNEBACK flow at 480x752
                (12 frames, batch 8: the tail batch is padded) and 1024x1920
                (6 frames, batch 4), launch counters zeroed just before and
@@ -157,6 +159,27 @@ Phases, each printing one line (plus its seconds):
                launches counted); foe_angular_error_map card against CPU;
                run_demo on the mock client; the figures' numbers with
                matplotlib barred (nothing written).
+ 17b. tools_flow — the stage probes and flow sweeps of tools/, ported
+               (mav_detection_tpu_torch/tools/), each main(...) once at the
+               tool's frame size with the fused kernel's counter zeroed just
+               before: pipeline_stage_probe (752x480, b=1 and 8: the flow
+               stage split into the iterate per layer, the preprocessing
+               matmuls and the glue, each beside its bound),
+               iter_schedule_sweep (752x480 b=8: the control, the identity
+               (6, 6, 6) and the product (2, 3, 8) schedules, EPE vs GT and
+               vs the cv2 oracle computed here), hires_flow_sweep
+               (1920x1024: levels {2, 3} x S {8, 16}, b=1 and 4),
+               hires_pipeline_probe (the Processor loop on 7 mock AirSim
+               captures at 1920x1024, the count phase datasets renders,
+               --no-images: the compute loop; the link canary),
+               raft_stage_probe (752x480: full forward at 1 and 6
+               iterations, encoder, volumes, batch 8 against a loop),
+               hires_raft_probe (1920x1024, batches 1, 2, 4), hires_lk_probe
+               (1920x1024, b=1 and 8) and spatial_probe (1920x1024, the
+               product's parameters: unsharded and the mesh of 1; P = 2 and
+               4 run under --multi 4). Each tool's own checks gate the run
+               (phase_tools_flow lists them); the whole of each result is
+               written to build/chip_smoke/tools_flow.json.
  18. multi   — the multi-device paths at world size 1 with NCCL, in one
                spawned rank (parallel/mesh.launch), each warmed up once and
                then timed with the launch counters zeroed: the data-parallel
@@ -170,8 +193,9 @@ Phases, each printing one line (plus its seconds):
                rtol 2e-2 / atol 1e-3). Frames/s, ms per pair, transition
                and step on the host clock; the fused kernel's launches on
                each path (none on spatial: tensor-code separable warp).
-Then the nets, datasets, yolo, train, tools and multi JSON line, the kernels JSON
-line, the nvidia-smi line, and as the last line
+``--multi N`` also runs spatial_probe on N cards (P = 2, 4, 8 up to N).
+Then the nets, datasets, yolo, train, tools, tools_flow and multi JSON
+line, the kernels JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line and
 exits non-zero; so does a machine without a card, or a directory without
 the package.
@@ -192,8 +216,10 @@ import numpy as np
 
 # the card's timing (CUDA events; a replayed CUDA graph), the H100 SXM peaks
 # and the bounds from them (the fused kernel's: bytes and operations)
+from mav_detection_tpu_torch.models.layers import conv_flops as _conv_flops
 from mav_detection_tpu_torch.ops.flow.farneback_iter import fused_bound
 from mav_detection_tpu_torch.utils.timing import bound_ms, fmt_share, graph_ms
+from mav_detection_tpu_torch.utils.timing import nbytes as _nbytes
 from mav_detection_tpu_torch.utils.timing import events_ms as time_ms
 
 # One row per hand kernel: its route and source, the TPU kernel it replaces
@@ -226,6 +252,11 @@ KERNEL_ROWS = {
 # the kernel's 32x64 tile geometry (1440 tiles), sy in runs of 32 columns
 Y_STAGE_SHARE_PREDICTED = (0.45, 0.6)
 SCHEDULE_TOL_PX = 1e-4   # whole schedule; one iteration must be exact
+# bench.py's oracle call (pyr_scale, levels, winsize, iterations, poly_n,
+# poly_sigma, flags) and its gate on the port's flow at 752x480
+# (bench.py:238-243; the reference's flow reads 0.0495 px, BENCH_r05.json)
+CV2_ORACLE_ARGS = (0.4, 1, 12, 10, 8, 1.2, 0)
+CV2_GATE_PX = 0.1
 NAN_WITHOUT_TARGET = ("tpr", "tpr_fixed", "drone_flow_pixels")
 
 # nets phase gates. The JAX package's numbers on the same scipy renders
@@ -530,6 +561,11 @@ def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440)) -> dict:
 
 
 def phase_accuracy(dev) -> dict:
+    """EPE of the port's flow with the product's ``tuned_flow_params`` on
+    the 16-px interior of the bench scene: against the analytic GT at both
+    sizes, and at 752x480 against bench.py's cv2 oracle call (the north
+    star's first gate, < 0.1 px)."""
+    import cv2
     import torch
 
     from mav_detection_tpu_torch.data.scene import (
@@ -537,19 +573,26 @@ def phase_accuracy(dev) -> dict:
         hires_scene_kwargs,
         make_scene,
     )
-    from mav_detection_tpu_torch.ops.flow import farneback_flow
+    from mav_detection_tpu_torch.ops.flow import farneback_flow, tuned_flow_params
 
     res = {}
     for (h, w), gate, kw in (((480, 752), 0.40, {}),
                              ((1024, 1920), 0.55, None)):
         kw = hires_scene_kwargs(h, w) if kw is None else kw
         prev, curr, gt = make_scene(0, h=h, w=w, **kw)
-        flow = farneback_flow(prev, curr, device=dev)
+        flow = farneback_flow(prev, curr, tuned_flow_params(h, w), device=dev)
         torch.cuda.synchronize()
-        epe = epe_interior(flow.cpu().numpy(), gt)
+        flow = flow.cpu().numpy()
+        epe = epe_interior(flow, gt)
         if not epe < gate:
             raise AssertionError(f"{w}x{h}: EPE vs GT {epe} px >= {gate}")
         res[f"{w}x{h}"] = {"epe_gt_px": epe, "gate_px": gate}
+        if (h, w) == (480, 752):
+            ref = cv2.calcOpticalFlowFarneback(prev, curr, None, *CV2_ORACLE_ARGS)
+            epe_cv2 = epe_interior(flow, ref)
+            if not epe_cv2 < CV2_GATE_PX:
+                raise AssertionError(f"{w}x{h}: EPE vs cv2 {epe_cv2} px >= {CV2_GATE_PX}")
+            res[f"{w}x{h}"].update(epe_cv2_px=epe_cv2, cv2_gate_px=CV2_GATE_PX)
     return res
 
 
@@ -1609,33 +1652,6 @@ def phase_entry(dev) -> dict:
     return {"foe": vals[:2].tolist(), "foe_vs_cpu_px": err, "launches": launches,
             "mask_pixels": int(total_mask.sum()),
             "ms_per_step": wall_ms(lambda: fn(*args), 5)}
-
-
-def _conv_flops(model, fn):
-    """fp32 and bf16 multiply-adds x2 of every ``models.layers.Conv`` that
-    ``fn()`` runs, counted from the output shapes by forward hooks."""
-    import torch
-
-    from mav_detection_tpu_torch.models.layers import Conv
-
-    flops = {"fp32": 0.0, "bf16": 0.0}
-
-    def hook(mod, args, out):
-        kind = "bf16" if args[1] == torch.bfloat16 else "fp32"
-        flops[kind] += 2.0 * out.numel() * mod.weight.shape[1] * mod.k * mod.k
-
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, Conv)]
-    try:
-        fn()
-    finally:
-        for h in handles:
-            h.remove()
-    return flops
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _device_ms(fn, reps: int = 5) -> tuple:
@@ -3268,6 +3284,191 @@ def phase_tools(dev, size=(480, 752), batch: int = 8) -> dict:
 
 
 # ------------------------------------------------------------------- multi
+# phase tools_flow: the frame sizes the flow tools run at, the phase's own
+# cuts (the schedules: the control, the identity and the product; the AirSim
+# loop over the 7 captures phase datasets renders, not the tool's 25, and
+# without the debug images, which take ~6.7 s of every 1920x1024 batch on an
+# H100 80GB HBM3 at 700 W, PERF.md §5: phase artifacts times them at 752x480)
+TOOLS_FLOW_SIZES = {"bench": (480, 752), "hires": (1024, 1920)}
+TOOLS_FLOW_SCHEDULES = "flat;6,6,6;2,3,8"
+TOOLS_FLOW_SIM_FRAMES = 7
+RESULTS_DIR = os.path.join("build", "chip_smoke")   # the phases' whole results
+BENCH_EPE_GT_GATE_PX = 0.40      # bench.py:415 at 752x480
+RAFT_BATCH_TOL_PX = RAFT_CARD_CPU_TOL_PX   # batch against loop / single pair
+
+
+def _tool(mod, argv, dev, **kw):
+    """``mod.main(argv, dev, **kw)`` with the tool's printing kept out of
+    this script's output (its full text is in the result's ``"stdout"``),
+    the fused kernel's counter zeroed just before: (result, launches, s)."""
+    import contextlib
+    import io
+
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+
+    buf = io.StringIO()
+    _sync(dev)
+    fi.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(argv, dev, **kw)
+    _sync(dev)
+    res["stdout"] = buf.getvalue()
+    return res, fi.LAUNCHES["farneback_iterate_fused"], time.perf_counter() - t0
+
+
+def phase_tools_flow(dev, sizes=TOOLS_FLOW_SIZES, sim_frames=TOOLS_FLOW_SIM_FRAMES,
+                     lk_batches="1,8", raft_batches="1,2,4") -> dict:
+    """Every flow tool of ``mav_detection_tpu_torch/tools`` through its
+    ``main`` at the tool's frame size, the fused kernel's counter zeroed
+    just before each, and each tool's own checks as gates: the stages of the
+    flow compose to ``farneback_flow_batch``'s flow; the identity schedule
+    equals the control; the product schedule within the cv2 (< 0.1 px) and
+    GT (< 0.40 px) gates at 752x480; the product's hires point (levels 2,
+    S 16) within the 0.55 px GT gate; the link canary's bytes equal to its
+    numerator; RAFT's batch paths finite and within the card's bf16
+    tolerance of the loop / single pair; LK's tracks and field finite; the
+    spatial flow within 1e-3 px of the unsharded flow. The cv2 oracle of
+    the sweeps is computed here (the package runs no cv2)."""
+    import cv2
+
+    from mav_detection_tpu_torch.tools import (
+        hires_flow_sweep,
+        hires_lk_probe,
+        hires_pipeline_probe,
+        hires_raft_probe,
+        iter_schedule_sweep,
+        pipeline_stage_probe,
+        raft_stage_probe,
+        spatial_probe,
+    )
+    from mav_detection_tpu_torch.tools.common import scene
+
+    def oracle(h, w, hires):
+        prev, curr, _ = scene(h, w, hires)
+        return cv2.calcOpticalFlowFarneback(prev, curr, None, *CV2_ORACLE_ARGS)
+
+    (h, w), (H, W) = sizes["bench"], sizes["hires"]
+    runs = {
+        "pipeline_stage_probe": (pipeline_stage_probe, [str(h), str(w)], {}),
+        "iter_schedule_sweep": (iter_schedule_sweep, [
+            "--schedules", TOOLS_FLOW_SCHEDULES, "--size", f"{h}x{w}"],
+            {"oracle": oracle(h, w, False)}),
+        "hires_flow_sweep": (hires_flow_sweep, ["--size", f"{H}x{W}"],
+                             {"oracle": oracle(H, W, True)}),
+        "hires_pipeline_probe": (hires_pipeline_probe, [
+            "--size", f"{H}x{W}", "--frames", str(sim_frames), "--no-images"], {}),
+        "raft_stage_probe": (raft_stage_probe, [str(h), str(w)], {}),
+        "hires_raft_probe": (hires_raft_probe, [
+            "--size", f"{H}x{W}", "--batches", raft_batches], {}),
+        "hires_lk_probe": (hires_lk_probe, ["--size", f"{H}x{W}", "--batches", lk_batches],
+                           {}),
+        "spatial_probe": (spatial_probe, [str(H), str(W), "--meshes", ""], {}),
+    }
+    out, launches, secs = {}, {}, {}
+    for tag, (mod, argv, kw) in runs.items():
+        out[tag], launches[tag], secs[tag] = _tool(mod, argv, dev, **kw)
+
+    def gate(ok, what):
+        if not ok:
+            raise AssertionError(f"[tools_flow] {what}")
+
+    ps = out["pipeline_stage_probe"]
+    gate(ps["composed_equal"], "pipeline_stage_probe: the stages do not compose to "
+         "farneback_flow_batch's flow")
+    sw = out["iter_schedule_sweep"]
+    gate(sw["identity_equal"], "iter_schedule_sweep: (6, 6, 6) differs from the control")
+    prod = [r for r in sw["rows"] if r["level_iters"] == [2, 3, 8]][0]
+    gate(prod["epe_cv2"] < CV2_GATE_PX and prod["epe_gt"] < BENCH_EPE_GT_GATE_PX,
+         f"iter_schedule_sweep: the product schedule's EPE {prod}")
+    hs = out["hires_flow_sweep"]
+    point = [p for p in hs["points"] if (p["levels"], p["max_shift"]) == (2, 16)][0]
+    gate(point["gate_pass"], f"hires_flow_sweep: levels 2, S 16 outside the GT gate {point}")
+    hp = out["hires_pipeline_probe"]
+    gate(hp["frames"] == sim_frames - 1, f"hires_pipeline_probe: {hp['frames']} results")
+    gate(hp["link"]["h2d_bytes"] == hp["link"]["numerator_bytes"],
+         f"hires_pipeline_probe: canary {hp['link']}")
+    rs = out["raft_stage_probe"]["batch_paths"]
+    gate(rs["batch"]["finite"] and rs["loop"]["finite"]
+         and rs["max_batch_vs_loop_px"] <= RAFT_BATCH_TOL_PX["bf16"],
+         f"raft_stage_probe: batch paths {rs}")
+    for row in out["hires_raft_probe"]["batches"]:
+        gate("error" in row or (row["finite"] and row["max_vs_single_px"]
+                                <= RAFT_BATCH_TOL_PX["bf16"]),
+             f"hires_raft_probe: batch {row}")
+    lk = out["hires_lk_probe"]
+    gate(lk["tracks"] > 0 and np.isfinite([lk["track_epe_mean"], lk["dense_epe_gt"]]).all(),
+         f"hires_lk_probe: {lk}")
+    for row in out["spatial_probe"]["meshes"]:
+        gate(row["within_tol"], f"spatial_probe: P={row['P']} {row['max_abs_err_px']} px")
+    if dev.type == "cuda":
+        for tag in ("pipeline_stage_probe", "iter_schedule_sweep", "hires_flow_sweep",
+                    "hires_pipeline_probe"):
+            gate(launches[tag] > 0, f"{tag}: the fused kernel never launched")
+        gate(launches["spatial_probe"] == 0, "spatial_probe: the fused kernel launched")
+    return {"results": out, "launches": launches, "seconds": secs}
+
+
+def _keep(name: str, result: dict) -> None:
+    """The whole of a phase's result as strict JSON under build/chip_smoke/
+    (git-ignored; the standard output keeps the summary)."""
+    from mav_detection_tpu_torch.tools.common import dumps
+
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    with open(os.path.join(RESULTS_DIR, name), "w") as f:
+        f.write(dumps(result) + "\n")
+
+
+def _tools_flow_summary(tf: dict) -> dict:
+    """The numbers of phase tools_flow without the tools' printed text."""
+    return {"launches": tf["launches"], "seconds": tf["seconds"],
+            **{tag: {k: v for k, v in r.items() if k != "stdout"}
+               for tag, r in tf["results"].items()}}
+
+
+def _say_tools_flow(tf: dict, smi: str, seconds: float) -> None:
+    r, n = tf["results"], tf["launches"]
+    for b in r["pipeline_stage_probe"]["batches"]:
+        layers = ", ".join(f"{lv['layer']} {lv['shape']} {lv['ms']:.4f} (device "
+                           f"{lv['device_ms']:.4f}, bound {lv['bound_ms']:.4f})"
+                           for lv in b["layers"])
+        say(f"[tools_flow] pipeline_stage_probe {r['pipeline_stage_probe']['W']}x"
+            f"{r['pipeline_stage_probe']['H']} b={b['b']} on {smi}, ms per frame, events "
+            f"(device): pipeline {b['pipeline_ms']:.4f} ({b['pipeline_device_ms']:.4f}); "
+            f"iterate {b['iterate_ms']:.4f} ({b['iterate_device_ms']:.4f}: {layers}); "
+            f"preproc matmuls {b['preproc_ms']:.4f} ({b['preproc_device_ms']:.4f}, bound "
+            f"{b['preproc_bound_ms']:.4f} {b['preproc_bound_by']}); residual "
+            f"{b['residual_ms']:.4f} ({b['residual_device_ms']:.4f})")
+    for row in r["iter_schedule_sweep"]["rows"]:
+        say(f"[tools_flow] iter_schedule_sweep {row['level_iters']}: "
+            f"{json.dumps({k: row[k] for k in ('ms_per_frame', 'flow_ms_per_frame', 'flow_device_ms_per_frame', 'fps', 'epe_gt', 'epe_cv2', 'launches_per_pair')})}")
+    for p in r["hires_flow_sweep"]["points"]:
+        say(f"[tools_flow] hires_flow_sweep {json.dumps(p)}")
+    hp = r["hires_pipeline_probe"]
+    say(f"[tools_flow] hires_pipeline_probe {hp['size']} {hp['frames']} pairs b={hp['batch']} "
+        f"on {smi}: {hp['wall_fps']:.2f} frames/s, host staging {hp['host_stage_s']:.2f} s of "
+        f"{hp['wall_s']:.2f} s, overlap {hp['overlap_proven']}, stages ms per call "
+        f"{json.dumps(hp['stages_ms_per_call'])}; link {json.dumps(hp['link'])}")
+    rs = r["raft_stage_probe"]
+    for tag, t in rs["stages"].items():
+        say(f"[tools_flow] raft_stage_probe {rs['size']} {tag}: {json.dumps(t)}")
+    say(f"[tools_flow] raft_stage_probe slope {rs['slope_ms_per_iter']:.4f} ms/iter "
+        f"(device {rs['slope_device_ms_per_iter']}); batch paths "
+        f"{json.dumps(rs['batch_paths'])}")
+    hr = r["hires_raft_probe"]
+    say(f"[tools_flow] hires_raft_probe {hr['size']} EPE vs GT {hr['epe_gt']:.4f} px: "
+        f"{json.dumps(hr['batches'])}; first batch not fitting {hr['first_batch_not_fitting']}")
+    lk = r["hires_lk_probe"]
+    say(f"[tools_flow] hires_lk_probe {lk['size']}: {lk['tracks']} tracks, EPE mean "
+        f"{lk['track_epe_mean']:.4f} / p90 {lk['track_epe_p90']:.4f} px, dense "
+        f"{lk['dense_epe_gt']:.4f} px; {json.dumps(lk['batches'])}")
+    sp = r["spatial_probe"]
+    say(f"[tools_flow] spatial_probe {sp['size']} on {smi}: unsharded "
+        f"{sp['unsharded_ms']:.2f} ms; {json.dumps(sp['meshes'])}")
+    say(f"[tools_flow] farneback_iterate_fused launches {json.dumps(n)}; seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in tf['seconds'].items()})} ({seconds:.1f} s)")
+
+
 MULTI_SIZES = {
     "loop": (480, 752, 12, 8),          # h, w, frames, batch
     "spatial": (1024, 1920),
@@ -3626,15 +3827,29 @@ def main_multi(dev, ranks: int, smi: str) -> int:
 
     from mav_detection_tpu_torch.entry import dryrun_multichip
 
+    from mav_detection_tpu_torch.tools import spatial_probe
+
     t0 = time.perf_counter()
     multi = phase_multi(dev, ranks=ranks)
     _say_multi(multi, smi, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    H, W = TOOLS_FLOW_SIZES["hires"]
+    sp, launches, _ = _tool(spatial_probe, [str(H), str(W)], dev)
+    meshes = [row["P"] for row in sp["meshes"]]
+    bad = [row for row in sp["meshes"] if not row["within_tol"]]
+    if bad or launches or meshes != [1] + [p for p in (2, 4, 8) if p <= ranks]:
+        raise AssertionError(f"[multi] spatial_probe: meshes {meshes}, launches {launches}, "
+                             f"beyond {spatial_probe.TOL_PX} px: {bad}")
+    sp.pop("stdout")
+    say(f"[multi] spatial_probe {sp['size']} on {smi}: unsharded {sp['unsharded_ms']:.2f} "
+        f"ms; {json.dumps(sp['meshes'])} ({time.perf_counter() - t0:.1f} s)")
+    _keep("spatial_probe.json", sp)
     lines = dryrun_multichip(ranks)
     if len(lines) != 6:
         raise AssertionError(f"dryrun_multichip({ranks}): {len(lines)} stages")
     say(json.dumps({"multi": {key: multi[key] for key in (
         "backend", "world_size", "nccl", "data_parallel", "spatial", "chunked",
-        "train")}}))
+        "train")}, "spatial_probe": sp}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4090,6 +4305,11 @@ def main(argv=None) -> int:
         f"run_demo on the mock: {json.dumps(tools['demo'])}; figures without matplotlib: "
         f"{json.dumps(tools['figures'])} ({times['tools']:.1f} s)")
     t0 = time.perf_counter()
+    tflow = phase_tools_flow(dev)
+    times["tools_flow"] = time.perf_counter() - t0
+    _say_tools_flow(tflow, smi, times["tools_flow"])
+    _keep("tools_flow.json", tflow)
+    t0 = time.perf_counter()
     multi = phase_multi(dev)
     times["multi"] = time.perf_counter() - t0
     _say_multi(multi, smi, times["multi"])
@@ -4126,6 +4346,7 @@ def main(argv=None) -> int:
         "launches_multi_chunked": chk["launches"][k],
         "launches_multi_spatial": sp["launches"][k],
         "launches_batch_overhead_probe": probes["fused_launches"],
+        "launches_tools_flow": tflow["launches"],
         "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
         "per_batch": {f"{size} b={tb}": {
             key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
@@ -4172,6 +4393,7 @@ def main(argv=None) -> int:
                     "train": {key: tr[key] for key in ("card_vs_cpu", "runs", "evals")},
                     "tools": {"trace": trc, "foe_angular_error_map":
                               tools["foe_angular_error_map"], "demo": tools["demo"]},
+                    "tools_flow": _tools_flow_summary(tflow),
                     "multi": {key: multi[key] for key in (
                         "backend", "world_size", "nccl", "data_parallel", "spatial",
                         "chunked", "train")},

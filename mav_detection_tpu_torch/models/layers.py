@@ -11,7 +11,10 @@ fp32 one (as Flax's ``param_dtype`` stays fp32 whatever ``dtype`` is).
   3x3), which ``nn.Conv2d(padding=...)`` cannot express. ``Conv`` pads
   explicitly and convolves with ``padding=0``.
 * **dtype.** ``nn.Conv(dtype=bf16)`` casts input, kernel and bias to bf16
-  and returns bf16; so does ``Conv`` with ``dtype=torch.bfloat16``.
+  and returns bf16; so does ``Conv`` with ``dtype=torch.bfloat16``. Flax
+  adds the bias to the convolution's bf16 result, so ``Conv`` does too
+  (PyTorch's CPU convolution would otherwise fuse it before the one
+  rounding, and its bf16 losses drift from the reference's by ~3 %).
 * **GroupNorm.** Flax's defaults: ``epsilon=1e-6``, statistics in fp32 as
   E[x²] − E[x]² clipped at 0, ``(x - mean) * (rsqrt(var + eps) * scale) +
   bias`` in fp32, output in the call's dtype. And one that is easy to miss:
@@ -101,8 +104,11 @@ class Conv(nn.Module):
             top = bottom = 0
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight.to(dtype), self.bias.to(dtype),
-                        self.stride)
+        # the bias goes on after the convolution's result is in ``dtype``,
+        # as Flax adds it: in bf16 that is two roundings, where a bias fused
+        # into the convolution (oneDNN on the CPU) is one
+        y = F.conv2d(x, self.weight.to(dtype), None, self.stride)
+        return y + self.bias.to(dtype)[:, None, None]
 
 
 class GroupNorm(nn.Module):
@@ -146,3 +152,23 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator]) -> None
             with torch.no_grad():
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+
+
+def conv_flops(model: nn.Module, fn) -> dict:
+    """fp32 and bf16 operations (multiply-adds x2) of every ``Conv`` of
+    ``model`` that ``fn()`` runs, counted from the output shapes by forward
+    hooks: ``{"fp32": ..., "bf16": ...}``."""
+    flops = {"fp32": 0.0, "bf16": 0.0}
+
+    def hook(mod, args, out):
+        kind = "bf16" if args[1] == torch.bfloat16 else "fp32"
+        flops[kind] += 2.0 * out.numel() * mod.weight.shape[1] * mod.k * mod.k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, Conv)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return flops

@@ -1,0 +1,145 @@
+"""What the flow tools share: argument parsing, the bench scenes, the EPE
+against GT and an oracle, and strict JSON.
+
+The tools write strict JSON: a number the run could not take is ``null``,
+never ``NaN`` (``json.dumps`` would print the bare token ``NaN``, which is
+not JSON).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from mav_detection_tpu_torch.data.scene import (
+    bench_scene,
+    epe_interior,
+    hires_scene_kwargs,
+    make_scene,
+)
+
+HIRES_HW = (1024, 1920)
+BENCH_HW = (480, 752)
+
+
+def strict(obj):
+    """``obj`` with every non-finite float replaced by None and numpy
+    scalars and arrays turned into Python numbers and lists."""
+    if isinstance(obj, dict):
+        return {str(k): strict(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [strict(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return strict(obj.tolist())
+    if isinstance(obj, (np.floating, float)):
+        v = float(obj)
+        return v if math.isfinite(v) else None
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.bool_):
+        return bool(obj)
+    return obj
+
+
+def dumps(obj) -> str:
+    """One line of strict JSON."""
+    return json.dumps(strict(obj), allow_nan=False)
+
+
+def parser(doc: str) -> argparse.ArgumentParser:
+    """An argument parser with the port's ``--device`` (the card by
+    default; ``cpu`` runs the plain versions on the host clock)."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def hw(text: str) -> Tuple[int, int]:
+    """``"HxW"`` -> (H, W)."""
+    h, w = (int(v) for v in text.lower().split("x"))
+    return h, w
+
+
+def ints(text: str) -> list:
+    """``"1,4"`` -> [1, 4]."""
+    return [int(v) for v in text.split(",") if v.strip()]
+
+
+def scene(h: int, w: int, hires: bool):
+    """(prev8, curr8, gt_flow) of the bench scene at (h, w): the reference
+    resolution's scene (``hires_scene_kwargs``) with ``hires``, else the
+    752x480 scene (``make_scene(0)``) scaled to the frame as
+    ``data.scene.bench_scene`` scales it (the two are one at 752x480)."""
+    if hires:
+        return make_scene(0, h=h, w=w, **hires_scene_kwargs(h, w))
+    if (h, w) == BENCH_HW:
+        return make_scene(0)
+    return bench_scene(0, h, w)[:3]
+
+
+def oracle_flow(oracle, shape: Sequence[int]) -> Optional[np.ndarray]:
+    """The oracle's (h, w, 2) flow: an array, a ``.npy`` path, or None (the
+    package computes no cv2 flow itself: the caller passes the reference's
+    ``cv2.calcOpticalFlowFarneback`` result in)."""
+    if oracle is None:
+        return None
+    flow = np.load(oracle) if isinstance(oracle, str) else np.asarray(oracle)
+    if flow.shape != tuple(shape):
+        raise ValueError(f"oracle flow of shape {flow.shape}, expected {tuple(shape)}")
+    return flow.astype(np.float32)
+
+
+def epe(flow, ref) -> Optional[float]:
+    """Mean EPE on the 16-px interior (bench.py's gate); None without
+    ``ref``."""
+    return None if ref is None else epe_interior(np.asarray(flow), ref)
+
+
+def fmt(v, spec: str = ".4f") -> str:
+    return "null" if v is None else format(v, spec)
+
+
+DT = 0.05     # bench.py's frame interval
+
+
+def flow_detect_ms(prev8: np.ndarray, curr8: np.ndarray, batch: int, params, dev,
+                   reps: int = 5) -> dict:
+    """ms per frame of ``batch`` copies of the pair, as
+    ``bench.tpu_ms_per_frame`` times the step: ``"ms"`` the batched flow,
+    then ``detect_frame_batch_scalars`` on zero GT flow and IMU rates, empty
+    masks, unit depth and a centred GT FoE; ``"flow_ms"`` the flow alone;
+    both CUDA events on a card, the host clock on the CPU. And
+    ``"flow_device_ms"``, the flow's device time from a replayed CUDA graph
+    (the host clock on the CPU)."""
+    import torch
+
+    from mav_detection_tpu_torch.ops.flow.farneback import farneback_flow_batch
+    from mav_detection_tpu_torch.pipeline.detector import (
+        DetectionStep,
+        detect_frame_batch_scalars,
+    )
+    from mav_detection_tpu_torch.utils.timing import eager_ms, kernel_ms
+
+    h, w = prev8.shape
+    a = torch.as_tensor(np.repeat(prev8[None], batch, 0), dtype=torch.float32).to(dev)
+    b = torch.as_tensor(np.repeat(curr8[None], batch, 0), dtype=torch.float32).to(dev)
+    aux = (torch.zeros((batch, h, w, 2), device=dev), torch.zeros((batch, 3), device=dev),
+           torch.full((batch,), DT, device=dev),
+           torch.zeros((batch, h, w), dtype=torch.uint8, device=dev),
+           torch.zeros((batch, h, w), dtype=torch.bool, device=dev),
+           torch.ones((batch, h, w), device=dev),
+           torch.tensor([[w / 2.0, h / 2.0]], device=dev).repeat(batch, 1))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = DetectionStep()
+
+    def flow():
+        return farneback_flow_batch(a, b, params, dev)
+
+    def both():
+        return detect_frame_batch_scalars(flow(), *aux, generator=gen, config=step)
+
+    return {"flow_ms": eager_ms(flow, dev, reps) / batch, "ms": eager_ms(both, dev, reps) / batch,
+            "flow_device_ms": kernel_ms(flow, dev, reps) / batch}

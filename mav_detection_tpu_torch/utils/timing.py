@@ -88,5 +88,10 @@ def eager_ms(fn, dev: torch.device, reps: int, warm: int = 3) -> float:
     return events_ms(fn, reps, warm) if dev.type == "cuda" else host_ms(fn, reps, warm)
 
 
+def nbytes(*tensors) -> int:
+    """Bytes the tensors hold."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
