@@ -180,6 +180,27 @@ Phases, each printing one line (plus its seconds):
                4 run under --multi 4). Each tool's own checks gate the run
                (phase_tools_flow lists them); the whole of each result is
                written to build/chip_smoke/tools_flow.json.
+ 17c. tools_eval — the evaluation and RAFT-retraining tools of tools/,
+               ported, each main(...) once with the fused kernel's counter
+               zeroed just before: cross_domain_eval at its defaults
+               (240x320, 3 seeds; the mock simulator at 128x96) against the
+               rails of tests/test_cross_domain.py, and card against CPU on
+               seed 1 and the mock captures; raft_advantage_probe at 240x320
+               (tuned_flow_params: the fused kernel must launch), each
+               family card against CPU; hires_eval at 1920x1024 against
+               tests/test_hires.py's rails, device ms per frame beside each
+               net's bound; foe_reference_scale cut to 60 frames at 480x256
+               (3 frames past the frames >= 56 rule); then, into a temporary
+               copy of checkpoints/ as MAV_CHECKPOINT_PATH, finetune_raft
+               (20 steps, chunk 10; its shipped baseline against the JAX
+               package's evals within TRAIN_EVAL_TOL, the candidate read
+               back; its gates printed, failing after 20 steps as
+               expected), soup_raft at alphas 0, 0.5 and 1 (alpha 0's evals
+               equal the shipped weights', alpha 1's the candidate's) and
+               pan_curriculum with 2 steps per phase (three sentinels; run
+               again, every phase skipped); nothing ships unless its gates
+               pass, and checkpoints/ stays byte-unchanged (sha256). The
+               whole result goes to build/chip_smoke/tools_eval.json.
  18. multi   — the multi-device paths at world size 1 with NCCL, in one
                spawned rank (parallel/mesh.launch), each warmed up once and
                then timed with the launch counters zeroed: the data-parallel
@@ -194,8 +215,8 @@ Phases, each printing one line (plus its seconds):
                and step on the host clock; the fused kernel's launches on
                each path (none on spatial: tensor-code separable warp).
 ``--multi N`` also runs spatial_probe on N cards (P = 2, 4, 8 up to N).
-Then the nets, datasets, yolo, train, tools, tools_flow and multi JSON
-line, the kernels JSON line, the nvidia-smi line, and as the last line
+Then the nets, datasets, yolo, train, tools, tools_flow, tools_eval and
+multi JSON line, the kernels JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises before that line and
 exits non-zero; so does a machine without a card, or a directory without
 the package.
@@ -2763,6 +2784,15 @@ TRAIN_SIZES = {"raft": (128, 160), "sky": (240, 320), "yolo": (240, 320)}
 TRAIN_PEAK_LR = {"raft": 2.5e-4, "sky": 1e-3, "yolo": 1e-3}
 
 
+def _flat_tree(tree, prefix=()):
+    """(key path, leaf) pairs of a nested dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_tree(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
 def _sha256_dir(d: str) -> dict:
     import hashlib
 
@@ -2937,6 +2967,19 @@ def _device_ops(prof, n: int = 10):
                           "calls": e.count} for e in top]
 
 
+def _train_reference_numbers() -> dict:
+    """``NUMBERS`` of tests/train_reference_numbers.py (the JAX package's
+    evals of the shipped checkpoints; the module imports no JAX)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_reference_numbers", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                "tests", "train_reference_numbers.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.NUMBERS
+
+
 def phase_train(dev, sizes=None, batch: int = 8, steps: int = 20, chunk: int = 10,
                 cli_steps: int = 20) -> dict:
     """Training on the card: one update card against CPU per net; a short
@@ -2944,8 +2987,6 @@ def phase_train(dev, sizes=None, batch: int = 8, steps: int = 20, chunk: int = 1
     bound, peak memory, host looks per chunk); the evals of the shipped
     checkpoints against the JAX package's numbers; the CLI in a subprocess
     into a temporary MAV_CHECKPOINT_PATH, with checkpoints/ unchanged."""
-    import importlib.util
-
     import torch
 
     from mav_detection_tpu_torch import convert
@@ -2960,11 +3001,7 @@ def phase_train(dev, sizes=None, batch: int = 8, steps: int = 20, chunk: int = 1
     if os.environ.get("MAV_CHECKPOINT_PATH"):
         raise AssertionError("train: MAV_CHECKPOINT_PATH is set; the shipped "
                              "checkpoints must be read")
-    spec = importlib.util.spec_from_file_location(
-        "train_reference_numbers", os.path.join(here, "tests", "train_reference_numbers.py"))
-    ref_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ref_mod)
-    REF = ref_mod.NUMBERS
+    REF = _train_reference_numbers()
     ckpt_dir = os.path.join(here, "checkpoints")
     sha_before = _sha256_dir(ckpt_dir)
     checks = Checks("train")
@@ -3419,10 +3456,11 @@ def _keep(name: str, result: dict) -> None:
         f.write(dumps(result) + "\n")
 
 
-def _tools_flow_summary(tf: dict) -> dict:
-    """The numbers of phase tools_flow without the tools' printed text."""
+def _tools_summary(tf: dict) -> dict:
+    """The numbers of a tools phase without the tools' printed text."""
     return {"launches": tf["launches"], "seconds": tf["seconds"],
-            **{tag: {k: v for k, v in r.items() if k != "stdout"}
+            **{tag: ({k: v for k, v in r.items() if k != "stdout"}
+                     if isinstance(r, dict) else r)
                for tag, r in tf["results"].items()}}
 
 
@@ -3467,6 +3505,331 @@ def _say_tools_flow(tf: dict, smi: str, seconds: float) -> None:
         f"{sp['unsharded_ms']:.2f} ms; {json.dumps(sp['meshes'])}")
     say(f"[tools_flow] farneback_iterate_fused launches {json.dumps(n)}; seconds "
         f"{json.dumps({k: round(v, 2) for k, v in tf['seconds'].items()})} ({seconds:.1f} s)")
+
+
+
+# phase tools_eval: the rails of the JAX package's own tests
+# (tests/test_cross_domain.py, tests/test_hires.py), as (bound, "max" or
+# "min") per key
+CROSS_DOMAIN_RAILS = {
+    "bench": {"fb_epe": (0.25, "max"), "lk_epe": (0.35, "max"), "raft_epe": (0.4, "max"),
+              "raft_drone_epe": (2.0, "max"), "sky_tpr": (0.9, "min"),
+              "sky_fpr": (0.05, "max"), "yolo_iou": (0.4, "min")},
+    "sim": {"fb_epe": (0.6, "max"), "raft_epe": (1.2, "max"), "raft_drone_epe": (2.0, "max"),
+            "sky_tpr": (0.9, "min"), "sky_fpr": (0.05, "max"), "yolo_iou": (0.4, "min")},
+}
+HIRES_RAILS = {"half_sky_tpr": 0.95, "half_sky_fpr": 0.05, "yolo_iou": 0.3}
+# card against CPU, per number: Farneback's auto warp 1e-3 px (phase
+# solvers' farneback_flow bound) and the fused kernel's flow 1e-3 px (phase
+# accuracy); LK dense 2e-2 px (phase modules); RAFT's product bf16 0.05 px
+# (this phase's own readings on the H100: at most 0.0086 px over the bench
+# drone, the mock captures and the four families, against EPEs of
+# 0.2-6 px); the sky rates 0.015 (99.5 % mask agreement over classes of a
+# third of the frame or more); TinyYOLO's IoU 0.05 (phase yolo); the FoE
+# statistics on GT flow 0.05 px (the FoE vote at fp32,
+# tests/test_torch_airsim.py)
+TOOLS_EVAL_CARD_CPU_TOL = {"fb_epe": 1e-3, "lk_epe": 2e-2, "raft_epe": 0.05,
+                           "raft_drone_epe": 0.05, "sky_tpr": 0.015, "sky_fpr": 0.015,
+                           "yolo_iou": 0.05, "farneback_epe": 1e-3, "foe_px": 0.05}
+# foe_reference_scale's cut (tests/test_torch_eval_tools.py's): 70 frames,
+# the mock flight's length, so the validator's frames >= 56 rule keeps 13
+# of the 69 flows, at 160x120, where the FoE statistics on GT flow are
+# 2.4-5 px (at 128x96 and below, or at 480x256, some are under 0.03 px and
+# a card-vs-CPU bound of 0.05 px could not tell a wrong result). Card and
+# CPU take the same FoE draws, from numpy's generator at seed 1. The full
+# run (90 frames at 1920x1024) is made by hand; PERF.md.
+TOOLS_EVAL_FOE_CUT = {"frames": 70, "hw": (120, 160), "batch": 2, "samples": 1000,
+                      "seed": 1}
+TOOLS_EVAL_TRAIN = {"steps": 20, "chunk": 10, "curriculum_steps": 2}
+# soup_raft's --ladder-gate in the phase: after 2 steps a phase no soup
+# comes near the tool's 0.5 px, so the gate is opened here (and only here)
+# to drive the ship path into the temporary copy; every other gate is the
+# tool's own. The short curriculum's phase 3 reads eval EPE 0.59 against
+# the gate's 0.5 (the shipped weights 0.496; alpha 0.5 0.539 on an H100),
+# so the small alphas are the soups that can pass and ship.
+SOUP_LOOSE_LADDER_GATE = 100.0
+SOUP_ALPHAS = (0.0, 0.01, 0.03, 0.5, 1.0)
+
+
+def phase_tools_eval(dev, hires=(1024, 1920), foe_cut=TOOLS_EVAL_FOE_CUT,
+                     train=TOOLS_EVAL_TRAIN, cd_hw=(240, 320), cd_seeds=3) -> dict:
+    """The evaluation and RAFT-retraining tools of ``tools/``, ported
+    (``mav_detection_tpu_torch/tools``), each through its ``main`` with the
+    fused kernel's counter zeroed just before: cross_domain_eval at its
+    defaults against the JAX package's rails and card against CPU on one
+    seed; raft_advantage_probe at 240x320 card against CPU (the fused
+    kernel must launch); hires_eval at 1920x1024 against tests/test_hires.py's
+    rails; foe_reference_scale at its cut, card against CPU on the same
+    draws; finetune_raft (20 steps) into a temporary MAV_CHECKPOINT_PATH,
+    its shipped baseline against the JAX package's evals, the candidate read
+    back; pan_curriculum with 2 steps per phase (three sentinels), then
+    again (every phase skipped); soup_raft between the shipped weights and
+    the curriculum's phase 3 at ``SOUP_ALPHAS`` (alpha 0's and 1's evals
+    equal their weights', 0.5's neither), then with ``--ship`` at the best
+    passing alpha above 0: the temporary copy's RAFT file becomes that soup,
+    its weights move, and nothing else there changes. checkpoints/ must be
+    byte-unchanged."""
+    import shutil
+
+    import torch
+
+    from mav_detection_tpu_torch.data.scene import make_scene
+    from mav_detection_tpu_torch.models import checkpoint, pretrained
+    from mav_detection_tpu_torch.models.raft import raft_flow
+    from mav_detection_tpu_torch.tools import (
+        cross_domain_eval,
+        finetune_raft,
+        foe_reference_scale,
+        hires_eval,
+        pan_curriculum,
+        raft_advantage_probe,
+        soup_raft,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    if os.environ.get("MAV_CHECKPOINT_PATH"):
+        raise AssertionError("tools_eval: MAV_CHECKPOINT_PATH is set; the shipped "
+                             "checkpoints must be read")
+    REF = _train_reference_numbers()
+    ckpt_dir = os.path.join(here, "checkpoints")
+    sha_before = _sha256_dir(ckpt_dir)
+    checks = Checks("tools_eval")
+    cpu = torch.device("cpu")
+    out, launches, secs = {}, {}, {}
+
+    def run(tag, mod, argv, **kw):
+        out[tag], launches[tag], secs[tag] = _tool(mod, argv, dev, **kw)
+        return out[tag]
+
+    def rails(tag, got, table):
+        for k, (bound, kind) in table.items():
+            v = got[k]
+            if v is None:
+                raise AssertionError(f"[tools_eval] {tag} {k}: not taken")
+            checks.add(f"{tag} {k}", v, bound, f"{kind} rail", at_least=kind == "min")
+
+    def card_cpu(tag, card, host):
+        for k, v in host.items():
+            if v is None or card[k] is None:
+                if (v is None) != (card[k] is None):
+                    raise AssertionError(f"[tools_eval] {tag} {k}: card {card[k]}, CPU {v}")
+                continue
+            checks.add(f"{tag} {k} card vs CPU", abs(card[k] - v),
+                       TOOLS_EVAL_CARD_CPU_TOL[k], f"|card {card[k]:.5f} - CPU {v:.5f}|")
+
+    # ---- cross_domain_eval at its defaults, then card against CPU
+    h, w = cd_hw
+    cd = run("cross_domain_eval", cross_domain_eval,
+             ["--hw", f"{h}x{w}", "--seeds", str(cd_seeds)])
+    rails("cross_domain bench", cd["bench"], CROSS_DOMAIN_RAILS["bench"])
+    rails("cross_domain sim", cd["sim"], CROSS_DOMAIN_RAILS["sim"])
+    t0 = time.perf_counter()
+    one = {"card": cross_domain_eval.bench_scene_metrics(h, w, [1], device=dev),
+           "cpu": cross_domain_eval.bench_scene_metrics(h, w, [1], device=cpu),
+           "sim_cpu": cross_domain_eval.mock_sim_metrics(device=cpu)}
+    secs["cross_domain card vs cpu"] = time.perf_counter() - t0
+    card_cpu("cross_domain bench seed 1", one["card"], one["cpu"])
+    card_cpu("cross_domain sim", cd["sim"], one["sim_cpu"])
+    out["cross_domain_card_vs_cpu"] = one
+
+    # ---- raft_advantage_probe: the fused kernel's path
+    ra = run("raft_advantage_probe", raft_advantage_probe, ["--size", f"{h}x{w}"])
+    if dev.type == "cuda" and launches["raft_advantage_probe"] <= 0:
+        raise AssertionError("[tools_eval] raft_advantage_probe: the fused kernel never "
+                             "launched")
+    t0 = time.perf_counter()
+    ra_cpu = raft_advantage_probe.main(["--size", f"{h}x{w}"], cpu)
+    secs["raft_advantage card vs cpu"] = time.perf_counter() - t0
+    for row, host in zip(ra["rows"], ra_cpu["rows"]):
+        card_cpu(f"raft_advantage {row['family']}",
+                 {"farneback_epe": row["farneback_epe"], "raft_epe": row["raft_epe"]},
+                 {"farneback_epe": host["farneback_epe"], "raft_epe": host["raft_epe"]})
+    out["raft_advantage_cpu"] = ra_cpu
+
+    # ---- hires_eval at the reference resolution
+    H, W = hires
+    he = run("hires_eval", hires_eval, ["--size", f"{H}x{W}"])
+    half = he["sky"][1]
+    checks.add("hires half-res sky TPR", half["tpr"], HIRES_RAILS["half_sky_tpr"],
+               f"{half['size']} rail", at_least=True)
+    checks.add("hires half-res sky FPR", half["fpr"], HIRES_RAILS["half_sky_fpr"],
+               f"{half['size']} rail")
+    checks.add("hires yolo IoU", he["yolo"]["iou"], HIRES_RAILS["yolo_iou"],
+               f"{he['yolo']['size']} rail", at_least=True)
+
+    # ---- foe_reference_scale at its cut, card against CPU on the same draws
+    fh, fw = foe_cut["hw"]
+    fn, fb, fs = foe_cut["frames"], foe_cut["batch"], foe_cut["samples"]
+    draws_rng = np.random.default_rng(foe_cut["seed"])
+    draws = [np.stack([draws_rng.integers(0, fh, (fb, 2 * fs)),
+                       draws_rng.integers(0, fw, (fb, 2 * fs))], -1)
+             for _ in range(0, fn - 1, fb)]
+    foe_argv = ["--frames", str(fn), "--hw", f"{fh}x{fw}", "--batch", str(fb),
+                "--foe-samples", str(fs)]
+    fr = run("foe_reference_scale", foe_reference_scale, foe_argv, sample_yx=draws)
+    t0 = time.perf_counter()
+    fr_cpu = foe_reference_scale.main(foe_argv, cpu, sample_yx=draws)
+    secs["foe card vs cpu"] = time.perf_counter() - t0
+    out["foe_reference_scale_cpu"] = fr_cpu
+    for r in (fr, fr_cpu):
+        if r["frames"] != fn or r["scoring_frames"] != fn - 1 - 56:
+            raise AssertionError(f"[tools_eval] foe_reference_scale on {r['device']}: "
+                                 f"{r['frames']} frames, {r['scoring_frames']} scoring")
+        if r["ours_mean"] is None or not np.isfinite(r["ours_mean"] + r["ours_std"]).all():
+            raise AssertionError(f"[tools_eval] foe_reference_scale on {r['device']}: "
+                                 f"stats {r}")
+    for k in ("ours_mean", "ours_std"):
+        for i, axis in enumerate("xy"):
+            checks.add(f"foe {k[5:]} {axis} card vs CPU", abs(fr[k][i] - fr_cpu[k][i]),
+                       TOOLS_EVAL_CARD_CPU_TOL["foe_px"],
+                       f"|card {fr[k][i]:.5f} - CPU {fr_cpu[k][i]:.5f}| px")
+
+    # ---- retraining, into a temporary copy of checkpoints/
+    work = os.path.join(here, RESULTS_DIR, "tools_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with tempfile.TemporaryDirectory(prefix="mav_tools_eval_ck_") as ck:
+        for p in glob.glob(os.path.join(ckpt_dir, "*.msgpack")):
+            shutil.copy(p, ck)
+        os.environ["MAV_CHECKPOINT_PATH"] = ck
+        pretrained.clear_cache()
+        try:
+            cand = os.path.join(work, "raft_candidate.msgpack")
+            ft = run("finetune_raft", finetune_raft,
+                     ["--steps", str(train["steps"]), "--chunk", str(train["chunk"]),
+                      "--candidate", cand])
+            base = ft["baseline"]
+            for key, i, name in (("eval_raft", 0, "eval_epe"), ("eval_raft", 1, "drone_epe")):
+                checks.add(f"finetune baseline {name}", abs(base[name] - REF[key][i]),
+                           TRAIN_EVAL_TOL[key][i], f"|card {base[name]:.5f} - JAX|")
+            checks.add("finetune baseline shift_ladder",
+                       abs(base["shift_ladder"] - REF["shift_ladder_epe"]),
+                       TRAIN_EVAL_TOL["shift_ladder_epe"], f"|card {base['shift_ladder']:.5f} - JAX|")
+            model = finetune_raft.model_from_tree(checkpoint.load_msgpack(cand), dev)
+            prev8, curr8, _ = make_scene(1, h=64, w=96)
+            flow = raft_flow(model, prev8[None], curr8[None])
+            if not bool(torch.isfinite(flow).all()):
+                raise AssertionError("[tools_eval] the candidate read back gives non-finite flow")
+            cur = os.path.join(work, "curriculum")
+            pc = run("pan_curriculum", pan_curriculum,
+                     ["--dir", cur, "--steps", str(train["curriculum_steps"])])
+            done = sorted(os.path.basename(p) for p in glob.glob(os.path.join(cur, "*.done")))
+            if done != ["phase1.done", "phase2.done", "phase3.done"] or \
+                    any(p["skipped"] for p in pc["phases"]):
+                raise AssertionError(f"[tools_eval] pan_curriculum sentinels {done}")
+            again = run("pan_curriculum again", pan_curriculum,
+                        ["--dir", cur, "--steps", str(train["curriculum_steps"])])
+            if not all(p["skipped"] for p in again["phases"]):
+                raise AssertionError("[tools_eval] pan_curriculum ran a finished phase again")
+            # the soups run between the weights in the temporary copy and the
+            # curriculum's phase 3, which the short curriculum moved away
+            # from them (the fine-tune's candidate may be the shipped weights
+            # themselves, when no chunk beat the holdout)
+            p3 = os.path.join(cur, "phase3.msgpack")
+            shipped_path = pretrained.checkpoint_path("raft")
+            ends = [soup_raft.read_tree(shipped_path), soup_raft.read_tree(p3)]
+            sp = run("soup_raft", soup_raft,
+                     ["--candidate", p3, "--alphas", *(f"{a:g}" for a in SOUP_ALPHAS),
+                      "--ladder-gate", str(SOUP_LOOSE_LADDER_GATE),
+                      "--out", os.path.join(work, "raft_soup.msgpack")])
+            rows = {row["alpha"]: row for row in sp["alphas"]}
+            a0, ah, a1 = (rows[a]["evals"] for a in (0.0, 0.5, 1.0))
+            for k, v in sp["baseline"].items():
+                checks.add(f"soup alpha 0 {k}", abs(a0[k] - v), 0.0, "|soup - shipped|")
+            for k, v in pc["phases"][2]["evals"].items():
+                checks.add(f"soup alpha 1 {k}", abs(a1[k] - v), 0.0, "|soup - phase 3|")
+            keys = sorted(sp["baseline"])
+            if all(a0[k] == a1[k] for k in keys):
+                raise AssertionError("[tools_eval] the curriculum's phase 3 evaluates as the "
+                                     "shipped weights: the soup's endpoints cannot be told "
+                                     "apart")
+            if all(ah[k] == a0[k] for k in keys) or all(ah[k] == a1[k] for k in keys):
+                raise AssertionError(f"[tools_eval] soup alpha 0.5 evaluates as an endpoint: "
+                                     f"{ah}")
+            # ship the best passing alpha above 0, by the tool's own rule
+            passing = [row for row in sp["alphas"] if row["all_pass"] and row["alpha"] > 0]
+            if not passing:
+                raise AssertionError("[tools_eval] no soup above alpha 0 passes the gates: "
+                                     + json.dumps({a: r["gates"] for a, r in rows.items()}))
+            alpha = min(passing, key=lambda row: max(
+                row["evals"][k] for k in ("drone_epe", "bench_drone_epe", "sim_drone_epe"))
+            )["alpha"]
+            before = _sha256_dir(ck)
+            ss = run("soup_raft ship", soup_raft,
+                     ["--candidate", p3, "--alphas", f"{alpha:g}",
+                      "--ladder-gate", str(SOUP_LOOSE_LADDER_GATE), "--ship",
+                      "--out", os.path.join(work, "raft_soup_shipped.msgpack")])
+            if ss["best_alpha"] != alpha or ss["shipped_to"] != shipped_path:
+                raise AssertionError(f"[tools_eval] soup ship: alpha {ss['best_alpha']}, "
+                                     f"shipped to {ss['shipped_to']}")
+            after = _sha256_dir(ck)
+            changed = sorted(k for k in after if after[k] != before.get(k))
+            with open(shipped_path, "rb") as f, open(ss["soup_path"], "rb") as g:
+                copied = f.read() == g.read()
+            if not copied or set(changed) - {os.path.basename(shipped_path)}:
+                raise AssertionError(f"[tools_eval] soup ship: {changed} changed in the "
+                                     f"temporary copy")
+            got = dict(_flat_tree(soup_raft.read_tree(shipped_path)))
+            want = dict(_flat_tree(soup_raft.soup_tree(*ends, alpha)))
+            was = dict(_flat_tree(ends[0]))
+            if sorted(got) != sorted(want) or any(
+                    not np.array_equal(got[k], want[k]) for k in want):
+                raise AssertionError("[tools_eval] the shipped file is not the soup")
+            moved = sum(not np.array_equal(got[k], was[k]) for k in got)
+            if moved == 0:
+                raise AssertionError("[tools_eval] the shipped soup left every weight as it was")
+            out["ship"] = {"alpha": alpha, "passing_alphas": [r["alpha"] for r in passing],
+                           "shipped_to": ss["shipped_to"], "changed_in_copy": changed,
+                           "leaves_changed": moved, "leaves": len(got),
+                           "curriculum_shipped_to": pc["shipped_to"]}
+        finally:
+            os.environ.pop("MAV_CHECKPOINT_PATH", None)
+            pretrained.clear_cache()
+    if _sha256_dir(ckpt_dir) != sha_before:
+        raise AssertionError("tools_eval: checkpoints/ changed during the phase")
+    out["checkpoints_sha256_unchanged"] = len(sha_before)
+    out["checks"] = checks.finish()
+    return {"results": out, "launches": launches, "seconds": secs}
+
+
+def _say_tools_eval(te: dict, smi: str, seconds: float) -> None:
+    r, n = te["results"], te["launches"]
+    cd = r["cross_domain_eval"]
+    say(f"[tools_eval] cross_domain_eval {cd['hw']} {cd['seeds']} seeds on {smi}: bench "
+        f"{json.dumps(cd['bench'])}; mock sim {json.dumps(cd['sim'])}")
+    ra = r["raft_advantage_probe"]
+    for row, host in zip(ra["rows"], r["raft_advantage_cpu"]["rows"]):
+        say(f"[tools_eval] raft_advantage_probe {ra['size']} {row['family']}: Farneback "
+            f"{row['farneback_epe']:.5f} px (CPU {host['farneback_epe']:.5f}), RAFT "
+            f"{row['raft_epe']:.5f} px (CPU {host['raft_epe']:.5f}), RAFT wins "
+            f"{row['raft_wins']}")
+    say(f"[tools_eval] raft_advantage_probe verdict: {ra['verdict']}")
+    he = r["hires_eval"]
+    for row in he["sky"] + [he["yolo"]]:
+        say(f"[tools_eval] hires_eval {he['size']} on {smi}: {json.dumps(row)}")
+    fr, fc = r["foe_reference_scale"], r["foe_reference_scale_cpu"]
+    say(f"[tools_eval] foe_reference_scale {fr['resolution']} {fr['frames']} frames on {smi}: "
+        f"mean {fr['ours_mean']} px, std {fr['ours_std']} px over {fr['scoring_frames']} "
+        f"scoring frames ({fr['outliers']} outliers); collect {fr['collect_s']:.1f} s, "
+        f"detect {fr['detect_s']:.1f} s; CPU on the same draws mean {fc['ours_mean']} px, "
+        f"std {fc['ours_std']} px")
+    ft = r["finetune_raft"]
+    say(f"[tools_eval] finetune_raft {ft['steps']} steps (chunk {ft['chunk']}) on {smi}: "
+        f"{ft['ms_per_step_with_selection']:.2f} ms per step with selection, train "
+        f"{ft['train_s']:.2f} s, loss {ft['first_loss']:.4f} -> {ft['last_loss']:.4f}; "
+        f"baseline {json.dumps(ft['baseline'])}; candidate {json.dumps(ft['candidate'])}; "
+        f"gates {json.dumps(ft['gates'])}")
+    for p in r["pan_curriculum"]["phases"]:
+        say(f"[tools_eval] pan_curriculum {p['phase']} ({p['steps']} steps): "
+            f"{p['seconds']:.1f} s, gates pass {p['all_pass']}, shipped {p['shipped_to']}")
+    say(f"[tools_eval] soup_raft between the shipped weights and {r['soup_raft']['candidate']}")
+    for row in r["soup_raft"]["alphas"]:
+        say(f"[tools_eval] soup_raft alpha {row['alpha']}: {json.dumps(row['evals'])}, all "
+            f"gates {row['all_pass']}")
+    say(f"[tools_eval] shipping {json.dumps(r['ship'])}; checkpoints/ unchanged "
+        f"({r['checkpoints_sha256_unchanged']} files, sha256); {r['checks']} checks")
+    say(f"[tools_eval] farneback_iterate_fused launches {json.dumps(n)}; seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in te['seconds'].items()})} ({seconds:.1f} s)")
 
 
 MULTI_SIZES = {
@@ -4310,6 +4673,11 @@ def main(argv=None) -> int:
     _say_tools_flow(tflow, smi, times["tools_flow"])
     _keep("tools_flow.json", tflow)
     t0 = time.perf_counter()
+    teval = phase_tools_eval(dev)
+    times["tools_eval"] = time.perf_counter() - t0
+    _say_tools_eval(teval, smi, times["tools_eval"])
+    _keep("tools_eval.json", teval)
+    t0 = time.perf_counter()
     multi = phase_multi(dev)
     times["multi"] = time.perf_counter() - t0
     _say_multi(multi, smi, times["multi"])
@@ -4347,6 +4715,7 @@ def main(argv=None) -> int:
         "launches_multi_spatial": sp["launches"][k],
         "launches_batch_overhead_probe": probes["fused_launches"],
         "launches_tools_flow": tflow["launches"],
+        "launches_tools_eval": teval["launches"],
         "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
         "per_batch": {f"{size} b={tb}": {
             key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
@@ -4393,7 +4762,8 @@ def main(argv=None) -> int:
                     "train": {key: tr[key] for key in ("card_vs_cpu", "runs", "evals")},
                     "tools": {"trace": trc, "foe_angular_error_map":
                               tools["foe_angular_error_map"], "demo": tools["demo"]},
-                    "tools_flow": _tools_flow_summary(tflow),
+                    "tools_flow": _tools_summary(tflow),
+                    "tools_eval": _tools_summary(teval),
                     "multi": {key: multi[key] for key in (
                         "backend", "world_size", "nccl", "data_parallel", "spatial",
                         "chunked", "train")},

@@ -19,6 +19,21 @@ multi-device layers::
     python -m mav_detection_tpu_torch.tools.hires_lk_probe [--batches 1,8]
     python -m mav_detection_tpu_torch.tools.spatial_probe [H W] [--meshes 2,4,8]
 
+The evaluation tools, over the learned nets, the mock simulator and the
+FoE loop::
+
+    python -m mav_detection_tpu_torch.tools.cross_domain_eval [--hw 240x320] [--seeds 3]
+    python -m mav_detection_tpu_torch.tools.raft_advantage_probe [--size 240x320]
+    python -m mav_detection_tpu_torch.tools.hires_eval [--size 1024x1920]
+    python -m mav_detection_tpu_torch.tools.foe_reference_scale [--frames 90] [--hw 1024x1920]
+
+The RAFT retraining tools (``--ship`` only under ``MAV_CHECKPOINT_PATH``;
+candidates under ``build/candidates/``)::
+
+    python -m mav_detection_tpu_torch.tools.finetune_raft [--steps 2000] [--pan-max 12]
+    python -m mav_detection_tpu_torch.tools.soup_raft --candidate PATH [--alphas 0.3 0.5 0.7]
+    python -m mav_detection_tpu_torch.tools.pan_curriculum [--steps 2000]
+
 Each takes the reference tool's algorithmic flags and defaults plus
 ``--device`` (the card by default, and it raises without one; ``cpu`` runs
 the plain versions and times them on the host clock, where no share of a

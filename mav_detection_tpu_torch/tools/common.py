@@ -8,8 +8,10 @@ not JSON).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -143,3 +145,42 @@ def flow_detect_ms(prev8: np.ndarray, curr8: np.ndarray, batch: int, params, dev
 
     return {"flow_ms": eager_ms(flow, dev, reps) / batch, "ms": eager_ms(both, dev, reps) / batch,
             "flow_device_ms": kernel_ms(flow, dev, reps) / batch}
+
+
+def masked_epe(flow, gt: np.ndarray, mask: np.ndarray) -> float:
+    """Mean end-point error of (h, w, 2) ``flow`` against ``gt`` over
+    ``mask``."""
+    return float(np.linalg.norm(np.asarray(flow) - gt, axis=-1)[mask].mean())
+
+
+def best_iou(boxes, gt_rect, sx: float = 1.0, sy: float = 1.0) -> float:
+    """The best IoU (``Rectangle.calculate_iou_safe``) against ``gt_rect``
+    of the valid boxes of a host ``Boxes`` (centre xywh), scaled by (sx,
+    sy); 0 without a valid box."""
+    from mav_detection_tpu_torch.core.rectangle import Rectangle
+
+    best = 0.0
+    for j in np.flatnonzero(np.asarray(boxes.valid)):
+        x, y, bw, bh = np.asarray(boxes.xywh[j])
+        rect = Rectangle(((x - bw / 2) * sx, (y - bh / 2) * sy), (bw * sx, bh * sy))
+        best = max(best, Rectangle.calculate_iou_safe(rect, gt_rect))
+    return float(best)
+
+
+def mean_or_none(values) -> Optional[float]:
+    """The mean of ``values``, None for none (the reference tools' rule)."""
+    return float(sum(values) / len(values)) if values else None
+
+
+@contextlib.contextmanager
+def simdata_path(root: str):
+    """``SIMDATA_PATH`` set to ``root`` for the block, then restored."""
+    before = os.environ.get("SIMDATA_PATH")
+    os.environ["SIMDATA_PATH"] = root
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("SIMDATA_PATH", None)
+        else:
+            os.environ["SIMDATA_PATH"] = before

@@ -28,7 +28,6 @@ measures no link.
 """
 from __future__ import annotations
 
-import contextlib
 import glob
 import os
 import shutil
@@ -38,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from mav_detection_tpu_torch.tools.common import dumps, hw, parser
+from mav_detection_tpu_torch.tools.common import dumps, hw, parser, simdata_path
 from mav_detection_tpu_torch.utils.device import resolve_device
 from mav_detection_tpu_torch.utils.timing import device_name
 
@@ -82,20 +81,6 @@ def materialize(root: str, size, frames: int) -> str:
     return os.path.relpath(seq_dir, root)
 
 
-@contextlib.contextmanager
-def _simdata_path(root: str):
-    """``SIMDATA_PATH`` set to ``root`` while the dataset opens."""
-    before = os.environ.get("SIMDATA_PATH")
-    os.environ["SIMDATA_PATH"] = root
-    try:
-        yield
-    finally:
-        if before is None:
-            os.environ.pop("SIMDATA_PATH", None)
-        else:
-            os.environ["SIMDATA_PATH"] = before
-
-
 def link_canary(dev: torch.device, nbytes: int = CANARY_BYTES) -> dict:
     """Host <-> device MB/s each way: a float32 host buffer of ``nbytes``
     uploaded (pageable), and a float32 tensor of ``nbytes`` computed on the
@@ -136,7 +121,7 @@ def run_probe(root: str, seq: str, batch: int, flow_source: str, save_images: bo
 
     cfg = RunConfig(dataset="simulation", sequence=seq, mode="FLOW_FOE_CLUSTERING",
                     flow_source=FlowSource[flow_source], batch_size=batch)
-    with _simdata_path(root):
+    with simdata_path(root):
         ds = SimDataset(sequence=seq, device=dev)
     if not use_gt_flow:
         ds.get_gt_of = lambda i: None     # no GT-flow fields staged or uploaded

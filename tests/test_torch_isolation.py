@@ -92,6 +92,13 @@ NEW_MODULES = [
     "mav_detection_tpu_torch.tools.hires_raft_probe",
     "mav_detection_tpu_torch.tools.hires_lk_probe",
     "mav_detection_tpu_torch.tools.spatial_probe",
+    "mav_detection_tpu_torch.tools.cross_domain_eval",
+    "mav_detection_tpu_torch.tools.raft_advantage_probe",
+    "mav_detection_tpu_torch.tools.hires_eval",
+    "mav_detection_tpu_torch.tools.foe_reference_scale",
+    "mav_detection_tpu_torch.tools.finetune_raft",
+    "mav_detection_tpu_torch.tools.soup_raft",
+    "mav_detection_tpu_torch.tools.pan_curriculum",
 ]
 
 
