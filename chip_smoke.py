@@ -11,17 +11,23 @@ Phases, each printing one line (plus its seconds):
                card.
   2. build   — compiles csrc/farneback_iter.cu with nvcc for sm_90a and
                runtime/native/loader.cpp with g++, both started together.
-  3. kernels — the fused iterate kernel against its plain PyTorch version
-               on the card, on coefficients of a seeded scene at the main
-               paths' shapes (480x752 b=8 S=8, 1024x1920 b=2 S=16, and the
-               scan engine's b=1 at both sizes): one
-               iteration (must be bit-exact) and the whole (2, 3, 8) level
-               schedule; then its time per launch (CUDA events around a
-               replayed CUDA graph of 50 launches) at every pyramid layer
-               (b=8 at 752x480, b=2 and b=4 at 1920x1024), kernel ms per
-               batch, its plain version's time, its bound, every tile
-               shape's time at each layer, and its shared memory,
-               registers and blocks per SM.
+  3. kernels — the iteration against its plain PyTorch version on the card,
+               on coefficients of a seeded scene at the main paths' shapes
+               (480x752 b=8 S=8, 1024x1920 b=2 S=16, and the scan engine's
+               b=1 at both sizes): farneback_iterate_fused as scheduled
+               (row-streaming strips, or the tile design's blocks on layers
+               too short to stream), and forced onto strips and onto tiles
+               (the yardstick) on every layer; one iteration of each bit-exact
+               (torch.equal) at every pyramid layer, and the whole (2, 3, 8)
+               level schedule; then timed in turns (tiled, fused, fused,
+               tiled, and the strips twice where the schedule gives a layer
+               tiles; CUDA events around a replayed CUDA graph of 50
+               launches) at every layer (b=8 at 752x480, b=2 and b=4 at
+               1920x1024, b=1 at both), each with the iteration's bound and
+               its share, geometry or tile, its operations with the halo,
+               registers, spills (ptxas), shared memory and blocks per SM,
+               the plain version's time, the ms per batch of each, and the
+               finest layers' shares against the 0.5 target.
  3b. probes  — the TPU probe kernels of tools/, ported as
                csrc/shift_probes.cu: shift_chain, shift_gather and the y
                stage in forms A, B, C, D and T, each equal (torch.equal) to
@@ -35,8 +41,8 @@ Phases, each printing one line (plus its seconds):
                in runs of 32); each kernel's time per launch (a replayed
                CUDA graph) beside its bound, the plain versions' and
                grid_sample's times, the y stage's forms T and A as shares
-               of a farneback_iterate_fused launch at b=8 480x752 (T on the
-               tile geometry against its prediction), and
+               of a launch of each design at b=8 480x752 (T on the tiles'
+               geometry against its prediction), and
                batch_overhead_probe (ms per frame per iteration, full,
                kernel and glue, at b=1 and b=8).
   4. accuracy — flow EPE with the product's tuned_flow_params on the
@@ -238,7 +244,6 @@ import numpy as np
 # the card's timing (CUDA events; a replayed CUDA graph), the H100 SXM peaks
 # and the bounds from them (the fused kernel's: bytes and operations)
 from mav_detection_tpu_torch.models.layers import conv_flops as _conv_flops
-from mav_detection_tpu_torch.ops.flow.farneback_iter import fused_bound
 from mav_detection_tpu_torch.utils.timing import bound_ms, fmt_share, graph_ms
 from mav_detection_tpu_torch.utils.timing import nbytes as _nbytes
 from mav_detection_tpu_torch.utils.timing import events_ms as time_ms
@@ -369,12 +374,49 @@ def level_inputs(dev, prev, curr, gt, params):
     return p, c, out
 
 
+def kernel_ptxas(log: str) -> dict:
+    """Registers and spill bytes of every instance of the iteration's two
+    designs, from nvcc's ``-Xptxas -v`` report: "strips m6" is the
+    row-streaming kernel with m = 6 compiled in (m-1: the run-time-m
+    kernel); "tiled 32x64 m6" the tile design on its 32x64 tile."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        fn = re.search(r"Compiling entry function '([^']+)'", ln)
+        if fn:
+            mangled = fn.group(1)
+            st = re.search(r"iterate_strip_kernelILi(n?\d+)EE", mangled)
+            tl = re.search(r"iterate_tiled_kernelILi(\d+)ELi(\d+)ELi(n?\d+)E", mangled)
+            name = (f"strips m{st.group(1).replace('n', '-')}"
+                    if st else f"tiled {tl.group(1)}x{tl.group(2)} m"
+                    f"{tl.group(3).replace('n', '-')}" if tl else None)
+            if name:
+                out[name] = {}
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if name and sp:
+            out[name].update(spill_stores=int(sp.group(1)), spill_loads=int(sp.group(2)))
+        rg = re.search(r"Used (\d+) registers", ln)
+        if name and rg:
+            out[name]["registers"] = int(rg.group(1))
+    return out
+
+
 def phase_kernels(dev, b: int, h: int, w: int, hires: bool,
-                  time_batches=None) -> dict:
-    """The fused kernel vs its plain version at one main-path size (one
-    iteration bit-exact, the whole level schedule within SCHEDULE_TOL_PX),
-    then its time at every layer of the pyramid for each batch size in
-    ``time_batches``, and every tile shape's time at the finest layer."""
+                  time_batches=None, ptxas=None) -> dict:
+    """The iteration against the plain version at one main-path size:
+    farneback_iterate_fused as scheduled (``fused_schedule``: row-streaming
+    strips, or the tile design's blocks on layers too short to stream), and
+    forced onto strips and onto tiles on every layer; one iteration of each
+    ``torch.equal`` at every pyramid layer, the whole level schedule within
+    SCHEDULE_TOL_PX. Then,
+    for each batch size in ``time_batches``, every layer timed in turns (the
+    tile design, farneback_iterate_fused twice, the tile design again; and
+    the strips twice where the schedule gives the layer tiles; a replayed
+    CUDA graph of 50 launches each), each with the iteration's bound and its
+    share, geometry or tile, its operations with the halo against the
+    iteration's, registers, spills, shared memory and blocks per SM
+    (``ptxas``: kernel_ptxas of the build), the plain version's time, and
+    the ms per batch of each."""
     import torch
 
     from mav_detection_tpu_torch.ops.flow import farneback as fb
@@ -382,20 +424,33 @@ def phase_kernels(dev, b: int, h: int, w: int, hires: bool,
 
     params = fb.tuned_flow_params(h, w)
     S, win = params.max_shift, params.winsize
+    m = win // 2
     nb = max([b, *(time_batches or ())])
     prev, curr, gt = scene_batch(nb, h, w, hires)
     p, c, levels = level_inputs(dev, prev[:b], curr[:b], gt[:b], params)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    # one iteration at the finest layer, kernel and plain version on the
+    def launcher(design, bb, lh, lw):
+        geo = {"fused": None, "strips": fi.strip_geometry(bb, lh, lw, win, S, sms),
+               "tiled": fi.tile_for(bb, lh, lw, sms)}[design]
+        return lambda *a: fi.iterate_fused_cuda(*a, geometry=geo)
+
+    # one iteration at every layer, each way and the plain version on the
     # same inputs
-    R0, R1, flow0, border, _ = levels[0]
-    out = torch.empty_like(flow0)
-    fi.iterate_fused_cuda(R0, R1, flow0, border, out, win, S)
-    out_ref = fi.box_solve_ref(fi.update_matrices_ref(R0, R1, flow0, border, S), win)
-    torch.cuda.synchronize()
-    err = float((out - out_ref).abs().max())
-    if not torch.equal(out, out_ref):
-        raise AssertionError(f"{h}x{w}: one iteration not bit-exact ({err})")
+    exact = []
+    for R0, R1, flow0, border, _ in levels:
+        lh, lw = flow0.shape[-2:]
+        ref = fi.box_solve_ref(fi.update_matrices_ref(R0, R1, flow0, border, S), win)
+        errs = {}
+        for design in ("fused", "strips", "tiled"):
+            out = torch.empty_like(flow0)
+            launcher(design, b, lh, lw)(R0, R1, flow0, border, out, win, S)
+            torch.cuda.synchronize()
+            errs[design] = float((out - ref).abs().max())
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{design} b={b} {lh}x{lw}: one iteration "
+                                     f"not bit-exact ({errs[design]})")
+        exact.append({"shape": f"b={b} {lh}x{lw}", "max_abs_err": errs})
 
     # the whole level schedule through the pyramid, kernel vs plain: the
     # second run swaps the solver's iterate for its plain version
@@ -409,41 +464,61 @@ def phase_kernels(dev, b: int, h: int, w: int, hires: bool,
     if not err_sched <= SCHEDULE_TOL_PX:
         raise AssertionError(f"{h}x{w}: level schedule differs by {err_sched} px")
 
-    def time_layer(lv, tile=None):
-        R0, R1, flow, border, _ = lv
-        o = torch.empty_like(flow)
-        return graph_ms(lambda: fi.iterate_fused_cuda(
-            R0, R1, flow, border, o, win, S, tile=tile), 50)
-
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
+    ptxas = ptxas or {}
+    mm = 6 if m == 6 else -1
     timings = {}
     for tb in (time_batches or (b,)):
         lvs = levels if tb == b else level_inputs(
             dev, prev[:tb], curr[:tb], gt[:tb], params)[2]
         rows = []
-        for lv in lvs:
-            R0, R1, flow, border, iters = lv
+        for R0, R1, flow, border, iters in lvs:
             lh, lw = flow.shape[-2:]
+            o = torch.empty_like(flow)
+
+            def timed(design):
+                launch = launcher(design, tb, lh, lw)
+                return graph_ms(lambda: launch(R0, R1, flow, border, o, win, S), 50)
+
+            geo = fi.strip_geometry(tb, lh, lw, win, S, sms)
+            sched = fi.fused_schedule(tb, lh, lw, win, S, sms)
             tile = fi.tile_for(tb, lh, lw, sms)
-            bound, by = fused_bound(tb, lh, lw, win, S, tile)
+            turns = [("tiled", timed("tiled")), ("fused", timed("fused")),
+                     ("fused", timed("fused")), ("tiled", timed("tiled"))]
+            if sched != geo:
+                turns += [("strips", timed("strips")), ("strips", timed("strips"))]
             plain = time_ms(lambda: fi.box_solve_ref(fi.update_matrices_ref(
                 R0, R1, flow, border, S), win), 5, 1)
-            rows.append({"shape": f"b={tb} {lh}x{lw} S={S}", "iterations": iters,
-                         "tile": "x".join(map(str, tile)), "ms": time_layer(lv),
-                         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                         "tiles_ms": {f"{th}x{tw}": time_layer(lv, (th, tw))
-                                      for th, tw in sorted(fi.TILES)}})
-        timings[tb] = {
-            "layers": rows,
-            "ms_per_batch": sum(r["iterations"] * r["ms"] for r in rows),
-            "bound_ms_per_batch": sum(r["iterations"] * r["bound_ms"] for r in rows),
-            "plain_ms_per_batch": sum(r["iterations"] * r["plain_ms"] for r in rows),
-        }
-    return {"shape": f"b={b} {h}x{w} S={S}", "max_abs_err": err,
-            "schedule_err_px": err_sched, "timings": timings,
-            "resources": {f"{th}x{tw}": fi.fused_kernel_info(win, S, (th, tw))
-                          for th, tw in sorted(fi.TILES)}}
+            bound = fi.fused_bound(tb, lh, lw, win)
+            ops = fi.fused_ops(tb, lh, lw, win)
+            strip_row = {"geometry": str(geo),
+                         "ops_with_halo": fi.strip_ops(tb, lh, lw, win, S, geo),
+                         **fi.fused_kernel_info(win, S, geo),
+                         **{k: v for k, v in ptxas.get(f"strips m{mm}", {}).items()
+                            if k.startswith("spill")}}
+            tile_row = {"tile": "x".join(map(str, tile)),
+                        "ops_with_halo": fi.tiled_ops(tb, lh, lw, win, S, tile),
+                        **fi.fused_kernel_info(win, S, tile),
+                        **{k: v for k, v in ptxas.get(
+                            f"tiled {tile[0]}x{tile[1]} m{mm}", {}).items()
+                           if k.startswith("spill")}}
+            row = {"shape": f"b={tb} {lh}x{lw} S={S}", "iterations": iters,
+                   "plain_ms": plain, "turns": [[d, t] for d, t in turns],
+                   "ops": ops, "schedule": "strips" if sched == geo else "tiles"}
+            for design, info in (("fused", strip_row if sched == geo else tile_row),
+                                 ("strips", strip_row), ("tiled", tile_row)):
+                ts = [t for d, t in turns if d == design] or [
+                    t for d, t in turns if d == "fused"]
+                ms = sum(ts) / len(ts)
+                row[design] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1],
+                               "share": bound[0] / ms, **info}
+            rows.append(row)
+        timings[tb] = {"layers": rows,
+                       "plain_ms_per_batch": sum(r["iterations"] * r["plain_ms"] for r in rows),
+                       **{f"{d}_{k}_per_batch": sum(r["iterations"] * r[d][k] for r in rows)
+                          for d in ("fused", "strips", "tiled") for k in ("ms", "bound_ms")}}
+    return {"shape": f"b={b} {h}x{w} S={S}", "exact": exact,
+            "max_abs_err": max(e["max_abs_err"]["fused"] for e in exact),
+            "schedule_err_px": err_sched, "timings": timings}
 
 
 def _library_lerp(x, sy, fy, S: int, axis: int):
@@ -464,7 +539,8 @@ def _library_lerp(x, sy, fy, S: int, axis: int):
                                  align_corners=True)
 
 
-def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440)) -> dict:
+def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440),
+                 tiled_ms_b8=None) -> dict:
     """The probe kernels of csrc/shift_probes.cu against their plain
     versions (torch.equal): both axes, S = 1 and 8 (compiled in) and 16 (the
     run-time-S instance), sizes on and off the block; then, with the launch
@@ -475,7 +551,10 @@ def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440)) -> dict:
     and in runs of 32 columns), the y stage on the fused kernel's own tile
     geometry (``tile``: rows, columns, tiles; the same A-window cells per
     output, sy in runs of 32 columns), and batch_overhead_probe; then
-    grid_sample's time at the finest layer."""
+    grid_sample's time at the finest layer. The y stage's shares are of
+    farneback_iterate_fused's launch at b=8 480x752 (batch_overhead_probe)
+    and of the tile design there (``tiled_ms_b8``, phase 3), whose tile
+    geometry the probe was built to split."""
     import torch
 
     from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
@@ -572,13 +651,14 @@ def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440)) -> dict:
     resources = {k: sp.kernel_info(k, 8) for k in sp.KERNELS}
 
     fused_ms = runs["batch_overhead"]["batches"][1]["kernel_ms_per_launch"]
-    shares = {f"{v} {r}": runs[r]["variants"][v]["us"] / 1e3 / fused_ms
-              for r in ("chain_fine", "chain_fine_runs", "chain_tile") for v in ("T", "A")}
+    launch_ms = {"fused": fused_ms, **({"tiled": tiled_ms_b8} if tiled_ms_b8 else {})}
+    shares = {d: {f"{v} {r}": runs[r]["variants"][v]["us"] / 1e3 / ms
+                  for r in ("chain_fine", "chain_fine_runs", "chain_tile")
+                  for v in ("T", "A")} for d, ms in launch_ms.items()}
     return {"checks": checks, "max_abs_err": errs, "launches": launches,
             "fused_launches": fused_launches, "runs": runs,
             "library_ms": library, "library_max_abs_diff": lib_err,
-            "resources": resources, "fused_ms_b8": fused_ms,
-            "shares_of_fused": shares}
+            "resources": resources, "launch_ms_b8": launch_ms, "shares": shares}
 
 
 def phase_accuracy(dev) -> dict:
@@ -4269,7 +4349,9 @@ def _probe_rows(pr: dict) -> list:
             fine = cf["variants"][v]
             shape = f"bands={cf['bands']} th={cf['th']} tw={cf['tw']} m={cf['m']} S={cf['S']}"
             extra = {"ms_tool_default": runs["chain_default"]["variants"][v]["us"] / 1e3,
-                     "share_of_fused_launch": pr["shares_of_fused"].get(f"{v} chain_fine"),
+                     "share_of_fused_launch": pr["shares"]["fused"].get(f"{v} chain_fine"),
+                     "share_of_tiled_launch": pr["shares"].get("tiled", {}).get(
+                         f"{v} chain_fine"),
                      "ms_sy_in_runs_of_32": runs["chain_fine_runs"]["variants"][v]["us"] / 1e3,
                      "ms_tile_geometry": ct["variants"][v]["us"] / 1e3,
                      "bound_ms_tile_geometry": ct["variants"][v]["bound_us"] / 1e3,
@@ -4315,10 +4397,10 @@ def _say_probes(pr: dict, smi: str, seconds: float) -> None:
             f"grid_sample {lib}; {row['registers']} registers, "
             f"{row['blocks_per_sm']} blocks of 256 per SM; launches {row['launches']}")
     hw = f"{runs['batch_overhead']['H']}x{runs['batch_overhead']['W']}"
-    sh = pr["shares_of_fused"]
-    say(f"[probes] at b=8 {hw} on {smi}: farneback_iterate_fused "
-        f"{pr['fused_ms_b8']:.5f} ms per launch; the y stage alone as shares of "
-        f"it: {json.dumps(sh)}")
+    for d, ms in pr["launch_ms_b8"].items():
+        say(f"[probes] at b=8 {hw} on {smi}: farneback_iterate_{d} {ms:.5f} ms per "
+            f"launch; the y stage alone as shares of it: {json.dumps(pr['shares'][d])}")
+    sh = pr["shares"].get("tiled", pr["shares"]["fused"])
     for name in ("chain_fine", "chain_fine_runs", "chain_tile"):
         r = runs[name]
         say(f"[probes]   {name}: {r['bands']} bands of {r['th']}x{r['tw']}, sy-run "
@@ -4328,19 +4410,90 @@ def _say_probes(pr: dict, smi: str, seconds: float) -> None:
             f"the fused kernel's y stage must read {r['fused_y_bytes']} B")
     lo, hi = Y_STAGE_SHARE_PREDICTED
     t = sh["T chain_tile"]
-    say(f"[probes] the y stage's share of a fused launch (T on the kernel's tile "
-        f"geometry, sy in runs of 32): {t:.3f}; predicted {lo}-{hi}: "
+    say(f"[probes] the y stage's share of a launch of the tile design (T on its "
+        f"tile geometry, sy in runs of 32): {t:.3f}; predicted {lo}-{hi}: "
         f"{'held' if lo <= t <= hi else 'missed'}")
     for row in runs["batch_overhead"]["batches"]:
         say(f"[probes] batch_overhead b={row['b']} {hw} on {smi}: full "
             f"{row['full_ms']:.5f} ms/frame/iter, kernel {row['kernel_ms']:.5f}, "
             f"glue {row['glue_ms']:.5f} ({row['glue_ms'] / row['full_ms']:.3f} of "
             f"full); bound {row['bound_ms_per_launch']:.5f} ms per launch "
-            f"({row['bound_by']}, tile {row['tile']})")
+            f"({row['bound_by']}, {row['geometry']})")
     say(f"[probes] launches on the probe paths {json.dumps(pr['launches'])}, "
         f"farneback_iterate_fused {pr['fused_launches']}; grid_sample against "
         f"shift_gather max {json.dumps(pr['library_max_abs_diff'])} "
         f"({seconds:.1f} s)")
+
+
+def _say_kernels(shapes, smi: str) -> None:
+    main_shape, hires_shape, scan_shape, _ = shapes
+
+    def way(name, d, lv, place):
+        return (f"{name} {d['ms']:.5f} ms, share {d['share']:.3f}, {place}, "
+                f"{d['registers']} registers, spills {d.get('spill_stores')}/"
+                f"{d.get('spill_loads')} B, {d['smem_bytes']} B shared, "
+                f"{d['blocks_per_sm']} blocks per SM, "
+                f"{d['ops_with_halo'] / lv['ops']:.2f}x the operations with its halo")
+
+    for r in shapes:
+        say(f"[kernels] {r['shape']}: one iteration equal to the plain version "
+            f"(torch.equal) at every layer, as scheduled, on strips and on "
+            f"tiles, max_abs_err {json.dumps([e['max_abs_err'] for e in r['exact']])}; "
+            f"the whole schedule {r['schedule_err_px']} px (tol {SCHEDULE_TOL_PX})")
+        for tb, t in r["timings"].items():
+            for lv in t["layers"]:
+                st, tl = lv["strips"], lv["tiled"]
+                say(f"[kernels]   {lv['shape']} x{lv['iterations']} on {smi}: "
+                    f"farneback_iterate_fused on {lv['schedule']} "
+                    f"{lv['fused']['ms']:.5f} ms against the bound "
+                    f"{lv['fused']['bound_ms']:.5f} ms ({lv['fused']['bound_by']}, "
+                    f"{lv['ops']} fp32 operations); "
+                    f"{way('strips', st, lv, st['geometry'])}; "
+                    f"{way('tiles', tl, lv, 'tile ' + tl['tile'])}; in turns "
+                    f"{json.dumps([[d, round(x, 5)] for d, x in lv['turns']])}; "
+                    f"plain {lv['plain_ms']:.4f} ms")
+            say(f"[kernels]   b={tb} per batch of {sum(lv['iterations'] for lv in t['layers'])} "
+                f"launches: farneback_iterate_fused {t['fused_ms_per_batch']:.5f} ms "
+                f"(strips everywhere {t['strips_ms_per_batch']:.5f}), tile design "
+                f"{t['tiled_ms_per_batch']:.5f} ms (bound "
+                f"{t['fused_bound_ms_per_batch']:.5f}, plain {t['plain_ms_per_batch']:.4f})")
+    for r, tb in ((main_shape, 8), (hires_shape, 2), (scan_shape, 1)):
+        lv = r["timings"][tb]["layers"][0]
+        say(f"[kernels] farneback_iterate_fused at the finest layer, {lv['shape']}, "
+            f"on {lv['schedule']}: share of the byte bound {lv['fused']['share']:.3f} "
+            f"against the 0.5 target: "
+            f"{'met' if lv['fused']['share'] >= 0.5 else 'missed'} on {smi}")
+
+
+def _fused_row(shape: dict, tb: int, launches: int, extra: dict) -> dict:
+    """The kernels-line row of farneback_iterate_fused at one phase-3 shape
+    and batch size: the finest layer's numbers, every layer as scheduled,
+    on strips and on tiles beside, and the ms per batch of each; the tile
+    design at the finest layer under ``yardstick_tiled``."""
+    k = "farneback_iterate_fused"
+    t = shape["timings"][tb]
+    fine = t["layers"][0]
+    f = fine["fused"]
+    return {"name": k, **KERNEL_ROWS[k], "launches": launches,
+            "max_abs_err": shape["max_abs_err"], "ms": f["ms"],
+            "plain_ms": fine["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": None,
+            "library_note": "no one PyTorch call: warp, normal equations, box "
+                            "mean and 2x2 solve",
+            "shape": fine["shape"], "tolerance": 0.0, "check": "pass",
+            "schedule_err_px": shape["schedule_err_px"], "schedule": fine["schedule"],
+            **{key: f.get(key) for key in ("geometry", "tile", "registers", "smem_bytes",
+                                           "blocks_per_sm", "local_bytes")},
+            "yardstick_tiled": {key: fine["tiled"][key] for key in (
+                "ms", "bound_ms", "tile", "registers", "smem_bytes", "blocks_per_sm")},
+            "per_batch": {key: t[key] for key in (
+                "fused_ms_per_batch", "strips_ms_per_batch", "tiled_ms_per_batch",
+                "fused_bound_ms_per_batch", "plain_ms_per_batch")},
+            "layers": [{"shape": lv["shape"], "iterations": lv["iterations"],
+                        "plain_ms": lv["plain_ms"], "schedule": lv["schedule"],
+                        **{d: {key: lv[d][key] for key in ("ms", "bound_ms", "share")}
+                           for d in ("fused", "strips", "tiled")}} for lv in t["layers"]],
+            **extra}
 
 
 def main(argv=None) -> int:
@@ -4371,50 +4524,35 @@ def main(argv=None) -> int:
         f"{torch.backends.cudnn.allow_tf32} ({times['device']:.1f} s)")
 
     build_s = _build.build_seconds()
-    regs = [ln.strip() for ln in _build.BUILD_LOGS["farneback_iter"].splitlines()
-            if "registers" in ln]
+    ptxas = kernel_ptxas(_build.BUILD_LOGS["farneback_iter"])
     probe_regs = [int(n) for n in re.findall(r"Used (\d+) registers",
                                              _build.BUILD_LOGS["shift_probes"])]
     times["build"] = build_s
     say(f"[build] csrc/farneback_iter.cu and csrc/shift_probes.cu (nvcc), "
         f"runtime/native/loader.cpp and runtime/native/png.cpp (g++), started "
         f"together, built and loaded in {build_s:.2f} s; ptxas farneback_iter: "
-        f"{regs}; ptxas shift_probes, registers of its {len(probe_regs)} "
-        f"instances: {probe_regs}")
+        f"{json.dumps(ptxas)}; ptxas shift_probes, registers of its "
+        f"{len(probe_regs)} instances: {probe_regs}")
 
     if ranks:
         return main_multi(dev, ranks, smi)
 
     t0 = time.perf_counter()
-    main_shape = phase_kernels(dev, 8, 480, 752, hires=False)
+    main_shape = phase_kernels(dev, 8, 480, 752, hires=False, ptxas=ptxas)
     hires_shape = phase_kernels(dev, 2, 1024, 1920, hires=True,
-                                time_batches=(2, 4))
+                                time_batches=(2, 4), ptxas=ptxas)
     # the scan engine's and entry()'s shape: one frame pair per launch
-    scan_shape = phase_kernels(dev, 1, 480, 752, hires=False)
-    scan_hires_shape = phase_kernels(dev, 1, 1024, 1920, hires=True)
+    scan_shape = phase_kernels(dev, 1, 480, 752, hires=False, ptxas=ptxas)
+    scan_hires_shape = phase_kernels(dev, 1, 1024, 1920, hires=True, ptxas=ptxas)
     times["kernels"] = time.perf_counter() - t0
-    for r in (main_shape, hires_shape, scan_shape, scan_hires_shape):
-        say(f"[kernels] farneback_iterate_fused {r['shape']}: one iteration "
-            f"max_abs_err {r['max_abs_err']} (tol 0, bit-exact), whole "
-            f"schedule {r['schedule_err_px']} px (tol {SCHEDULE_TOL_PX}); "
-            f"resources per tile {json.dumps(r['resources'])}")
-        for tb, t in r["timings"].items():
-            for lv in t["layers"]:
-                say(f"[kernels]   {lv['shape']} x{lv['iterations']}: tile "
-                    f"{lv['tile']} {lv['ms']:.5f} ms/launch, plain "
-                    f"{lv['plain_ms']:.4f} ms, bound {lv['bound_ms']:.5f} ms "
-                    f"({lv['bound_by']}), share of bound "
-                    f"{lv['bound_ms'] / lv['ms']:.3f}; every tile "
-                    f"{json.dumps(lv['tiles_ms'])}")
-            say(f"[kernels]   b={tb}: kernel {t['ms_per_batch']:.5f} ms per "
-                f"batch (bound {t['bound_ms_per_batch']:.5f}, plain "
-                f"{t['plain_ms_per_batch']:.4f})")
+    _say_kernels((main_shape, hires_shape, scan_shape, scan_hires_shape), smi)
     say(f"[kernels] ({times['kernels']:.1f} s)")
 
     t0 = time.perf_counter()
     say("[probes] the TPU probe kernels of tools/, ported (csrc/shift_probes.cu), "
         "through their probe entry points:")
-    probes = phase_probes(dev)
+    probes = phase_probes(dev, tiled_ms_b8=main_shape["timings"][8]["layers"][0]
+                          ["tiled"]["ms"])
     times["probes"] = time.perf_counter() - t0
     _say_probes(probes, smi, times["probes"])
 
@@ -4685,16 +4823,7 @@ def main(argv=None) -> int:
     say(f"[phases] seconds {json.dumps(times)}")
 
     k = "farneback_iterate_fused"
-    main_t = main_shape["timings"][8]
-    fine = main_t["layers"][0]
-    rows = [{
-        "name": k, **KERNEL_ROWS[k],
-        "launches": runs[0]["launches"][k],
-        "max_abs_err": main_shape["max_abs_err"], "ms": fine["ms"],
-        "plain_ms": fine["plain_ms"], "bound_ms": fine["bound_ms"],
-        "bound_by": fine["bound_by"], "library_ms": None,
-        "shape": fine["shape"], "tolerance": 0.0, "check": "pass",
-        "schedule_err_px": main_shape["schedule_err_px"],
+    rows = [_fused_row(main_shape, 8, runs[0]["launches"][k], {
         "launches_1920x1024": runs[1]["launches"][k],
         "launches_artifacts": art["launches"][k],
         "launches_homography": hom["plain"]["launches"][k],
@@ -4716,43 +4845,12 @@ def main(argv=None) -> int:
         "launches_batch_overhead_probe": probes["fused_launches"],
         "launches_tools_flow": tflow["launches"],
         "launches_tools_eval": teval["launches"],
-        "tile": fine["tile"], **main_shape["resources"][fine["tile"]],
-        "per_batch": {f"{size} b={tb}": {
-            key: t[key] for key in ("ms_per_batch", "bound_ms_per_batch",
-                                    "plain_ms_per_batch")}
-            for size, r in (("480x752", main_shape), ("1024x1920", hires_shape))
-            for tb, t in r["timings"].items()},
-        "hires": {"shape": hires_shape["timings"][2]["layers"][0]["shape"],
-                  **{key: hires_shape["timings"][2]["layers"][0][key] for key in
-                     ("ms", "plain_ms", "bound_ms")},
-                  "max_abs_err": hires_shape["max_abs_err"],
-                  "schedule_err_px": hires_shape["schedule_err_px"]},
-    }]
+        "hires": _fused_row(hires_shape, 2, runs[1]["launches"][k], {}),
+        "hires_b4": _fused_row(hires_shape, 4, runs[1]["launches"][k], {})})]
     # the same kernel at the scan engine's shape, b = 1
-    scan_fine = scan_shape["timings"][1]["layers"][0]
-    scan_hires_fine = scan_hires_shape["timings"][1]["layers"][0]
-    rows.append({
-        "name": k, **KERNEL_ROWS[k],
-        "launches": scan["752x480"]["launches"][k],
-        "max_abs_err": scan_shape["max_abs_err"], "ms": scan_fine["ms"],
-        "plain_ms": scan_fine["plain_ms"], "bound_ms": scan_fine["bound_ms"],
-        "bound_by": scan_fine["bound_by"], "library_ms": None,
-        "shape": scan_fine["shape"], "tolerance": 0.0, "check": "pass",
-        "path": "scan engine", "tile": scan_fine["tile"],
-        "schedule_err_px": scan_shape["schedule_err_px"],
-        "layers": [{key: lv[key] for key in ("shape", "iterations", "tile", "ms",
-                                             "plain_ms", "bound_ms", "bound_by")}
-                   for lv in scan_shape["timings"][1]["layers"]],
-        "per_transition": {key: scan_shape["timings"][1][key] for key in
-                           ("ms_per_batch", "bound_ms_per_batch", "plain_ms_per_batch")},
-        "hires": {"shape": scan_hires_fine["shape"],
-                  **{key: scan_hires_fine[key] for key in ("ms", "plain_ms", "bound_ms")},
-                  "max_abs_err": scan_hires_shape["max_abs_err"],
-                  "schedule_err_px": scan_hires_shape["schedule_err_px"],
-                  "per_transition": {key: scan_hires_shape["timings"][1][key] for key in
-                                     ("ms_per_batch", "bound_ms_per_batch",
-                                      "plain_ms_per_batch")}},
-    })
+    rows.append(_fused_row(scan_shape, 1, scan["752x480"]["launches"][k], {
+        "path": "scan engine",
+        "hires": _fused_row(scan_hires_shape, 1, scan["1920x1024"]["launches"][k], {})}))
     rows += _probe_rows(probes)
     say(json.dumps({"nets": {k: nets[k] for k in ("load", "sky", "raft", "stages")},
                     "datasets": {key: dsets[key] for key in (

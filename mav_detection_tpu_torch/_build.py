@@ -3,9 +3,11 @@
 Four sources, each compiled at first use into a shared library with a
 plain C interface and loaded with ``ctypes``:
 
-* ``"farneback_iter"``: ``csrc/farneback_iter.cu``, the CUDA kernels, with
-  ``nvcc`` for ``sm_90a`` into ``build/kernels/``. The wrappers pass
-  ``tensor.data_ptr()`` and the current stream's handle as ``c_void_p``.
+* ``"farneback_iter"``: ``csrc/farneback_iter.cu``, the solver iteration's
+  CUDA kernels (``farneback_iterate_fused`` on row-streaming strips or on
+  tiles), with ``nvcc`` for ``sm_90a`` into ``build/kernels/``. The
+  wrappers pass ``tensor.data_ptr()`` and the current stream's handle as
+  ``c_void_p``.
 * ``"shift_probes"``: ``csrc/shift_probes.cu``, the probe kernels of the
   warp's shifted reads (``ops/flow/shift_probes.py``), the same way and with
   the same flags.
@@ -81,9 +83,9 @@ def _gxx() -> str:
 def _bind_kernels(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.farneback_iterate_fused.argtypes = [p, p, p, p, p, i, i, i, i, i, f,
-                                            i, p]
+                                            i, i, i, i, p]
     lib.farneback_iterate_fused.restype = i
-    lib.farneback_iterate_fused_info.argtypes = [i, i, i, p]
+    lib.farneback_iterate_fused_info.argtypes = [i, i, i, i, p]
     lib.farneback_iterate_fused_info.restype = i
 
 
@@ -154,8 +156,9 @@ SOURCES: Dict[str, _Source] = {
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# compiler output of the last build of each source (for the kernels, the
-# ptxas register report)
+# compiler output of the build of each source (for the kernels, the ptxas
+# register report), kept beside its library so that a later process that
+# finds the library built reads it too
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -169,6 +172,8 @@ def _build_locked(names: Sequence[str]) -> Dict[str, Path]:
     running = []
     for n, out in targets.items():
         if out.exists():
+            if n not in BUILD_LOGS and out.with_suffix(".log").exists():
+                BUILD_LOGS[n] = out.with_suffix(".log").read_text()
             continue
         src = SOURCES[n]
         compiler = src.compiler()
@@ -185,6 +190,7 @@ def _build_locked(names: Sequence[str]) -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
             failed.append(f"{SOURCES[n].path.name}:\n{BUILD_LOGS[n]}")
         else:
+            out.with_suffix(".log").write_text(BUILD_LOGS[n])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("build failed for " + "\n".join(failed))

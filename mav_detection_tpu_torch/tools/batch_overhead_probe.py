@@ -15,8 +15,9 @@ planes (S = 8, winsize 12, 6 iterations):
           counterpart of the tool's restack;
 
 beside the kernel's bound (``farneback_iter.fused_bound``: R0, R1, flow
-in and out once each, the border once; the operations with the halo
-recompute). The tool's element-halo column is a TPU-only knob with no
+in and out once each, the border once; the operations the iteration needs,
+no halo) and the blocks the launch runs on (``fused_schedule``; an H100's
+132 SMs on the CPU). The tool's element-halo column is a TPU-only knob with no
 counterpart here::
 
     python -m mav_detection_tpu_torch.tools.batch_overhead_probe [H W]
@@ -69,16 +70,17 @@ def main(argv=None, device=None) -> dict:
             o = torch.empty_like(flow)
             launch = kernel_ms(lambda: fi.iterate_fused_cuda(R0, R1, flow, border, o, WIN, S),
                                dev, KERNEL_REPS)
-            tile = fi.tile_for(b, H, W, fi._sm_count(R0.device.index))
+            sms = fi._sm_count(R0.device.index)
         else:
             launch = kernel_ms(lambda: fi.box_solve_ref(fi.update_matrices_ref(
                 R0, R1, flow, border, S), WIN), dev, FULL_REPS)
-            tile = fi.TILE
-        bound, by = fi.fused_bound(b, H, W, WIN, S, tile)
+            sms = fi.H100_SMS
+        geo = fi.fused_schedule(b, H, W, WIN, S, sms)
+        bound, by = fi.fused_bound(b, H, W, WIN)
         row = {"b": b, "full_ms": full / (b * ITERS), "kernel_ms": launch / b,
                "glue_ms": full / (b * ITERS) - launch / b,
                "kernel_ms_per_launch": launch, "bound_ms_per_launch": bound,
-               "tile": "x".join(map(str, tile)),
+               "geometry": str(geo),
                "bound_by": by,
                "kernel_share_of_bound": share_of_bound(bound, launch, dev)}
         res["batches"].append(row)

@@ -17,8 +17,8 @@ stage replayed (the tool's amortised in-program repetition):
              device clock, the work no stage above holds; eager, also the
              host's share);
 
-each beside its bound: ``fused_bound`` per launch of the iterate (at the
-tile the kernel picks), and for preproc the fp32 matmul operations and the
+each beside its bound: ``fused_bound`` per launch of the iterate (with
+the blocks the kernel runs on beside it, ``fused_schedule``), and for preproc the fp32 matmul operations and the
 bytes of ``_poly_pyr_mats_np``'s matrices, the frames and the coefficients.
 The layers are the shapes ``_farneback_cf`` launches on
 (``_pyramid_scales``); the JAX tool's ``round(H * 0.5**k)`` is printed
@@ -170,15 +170,16 @@ def main(argv=None, device=None) -> dict:
                 return fi.farneback_iterate(R0, R1, fl, bor, n, params.winsize,
                                             params.max_shift)
 
-            tile = (fi.tile_for(b, lh, lw, fi._sm_count(dev.index)) if dev.type == "cuda"
-                    else fi.TILE)
-            per_launch, by = fi.fused_bound(b, lh, lw, params.winsize, params.max_shift, tile)
+            geo = fi.fused_schedule(b, lh, lw, params.winsize, params.max_shift,
+                                    fi._sm_count(dev.index) if dev.type == "cuda"
+                                    else fi.H100_SMS)
+            per_launch, by = fi.fused_bound(b, lh, lw, params.winsize)
             eager = eager_ms(iterate, dev, REPS)
             graph = kernel_ms(iterate, dev, REPS)
             layers.append({"layer": f"L{k}", "shape": f"{lh}x{lw}", "iterations": n,
                            "ms": eager / b, "device_ms": graph / b,
                            "bound_ms": n * per_launch / b, "bound_by": by,
-                           "tile": "x".join(map(str, tile)),
+                           "geometry": str(geo),
                            "share_of_bound": share_of_bound(n * per_launch, graph, dev)})
 
         # every layer's preprocessing, with flows of the shapes the

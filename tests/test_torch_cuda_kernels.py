@@ -1,4 +1,6 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch version, on the card:
+``farneback_iterate_fused`` as scheduled, on its row-streaming strips and on
+the tile design's blocks.
 
 These need an NVIDIA card with nvcc (they build csrc/ at first use) and skip
 elsewhere. On a machine with one (``--noconftest`` where jax is not
@@ -50,15 +52,71 @@ def test_kernels_bit_exact_with_plain_version(dev, b, h, w, S, win):
 
 @pytest.mark.parametrize("tile", sorted(ti.TILES))
 def test_every_tile_bit_exact(dev, tile):
+    """The tile design's blocks on each of their tiles."""
     R0, R1, flow, border = _inputs(dev, 2, 75, 150)
     out = torch.empty_like(flow)
-    ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 8, tile=tile)
+    ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 8, geometry=tile)
     torch.cuda.synchronize()
     ref = ti.box_solve_ref(ti.update_matrices_ref(R0, R1, flow, border, 8), 12)
     assert torch.equal(out, ref)
     info = ti.fused_kernel_info(12, 8, tile)
-    assert info["smem_bytes"] == ti.fused_smem_bytes(tile, 6, 8)
+    assert info["smem_bytes"] == ti.tiled_smem_bytes(tile, 6, 8)
     assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
+
+
+@pytest.mark.parametrize("design", ["fused", "strips", "tiled"])
+@pytest.mark.parametrize("b,h,w,S,win", [
+    (2, 75, 150, 8, 12), (1, 24, 32, 8, 12), (8, 120, 188, 8, 12), (8, 480, 752, 8, 12),
+    (2, 75, 150, 16, 12), (1, 120, 188, 16, 12), (2, 75, 150, 8, 9), (2, 75, 150, 8, 15),
+    (1, 24, 32, 16, 15)])
+def test_both_designs_bit_exact(dev, design, b, h, w, S, win):
+    """farneback_iterate_fused as scheduled, its row-streaming strips on
+    every shape, and the tile design, each against the plain version: a row
+    pitch that is no multiple of 16 B (75x150), an image shorter than 2S + 2
+    rows (24x32), the coarsest layer at b=8, the finest, S=16 and the
+    run-time-m kernel (winsize 9 and 15)."""
+    R0, R1, flow, border = _inputs(dev, b, h, w)
+    out = torch.empty_like(flow)
+    sms = ti._sm_count(dev.index)
+    geo = {"fused": None, "strips": ti.strip_geometry(b, h, w, win, S, sms),
+           "tiled": ti.tile_for(b, h, w, sms)}[design]
+    ti.iterate_fused_cuda(R0, R1, flow, border, out, win, S, geometry=geo)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ti.box_solve_ref(
+        ti.update_matrices_ref(R0, R1, flow, border, S), win))
+
+
+@pytest.mark.parametrize("strip,rows", [(1, 3), (16, 1), (37, 5), (75, 40), (116, 7),
+                                        (150 // 2, 150), (108, 120)])
+def test_fused_geometries_bit_exact(dev, strip, rows):
+    """Strips of one column up to the widest, odd and even, runs of one row
+    up to runs that cross from one strip column into the next: the same
+    result."""
+    R0, R1, flow, border = _inputs(dev, 2, 75, 150)
+    geo = ti.strip_geometry(2, 75, 150, 12, 8, 132, strip=strip, rows=rows)
+    out = torch.empty_like(flow)
+    ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 8, geometry=geo)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ti.box_solve_ref(
+        ti.update_matrices_ref(R0, R1, flow, border, 8), 12))
+
+
+@pytest.mark.parametrize("h,w,win,S", [(480, 752, 12, 8), (1024, 1920, 12, 16),
+                                       (120, 188, 9, 8), (75, 150, 15, 16)])
+def test_fused_kernel_info(dev, h, w, win, S):
+    """The card's resources agree with the Python reckoning the geometry is
+    chosen from: shared memory, and one block an SM."""
+    sms = ti._sm_count(dev.index)
+    geo = ti.strip_geometry(8, h, w, win, S, sms)
+    info = ti.fused_kernel_info(win, S, geo)
+    assert info["smem_bytes"] == geo.smem_bytes == ti.strip_smem_bytes(
+        geo.strip, win // 2, S)
+    assert info["blocks_per_sm"] == 1
+    tile = ti.fused_kernel_info(win, S, (32, 32))
+    assert tile["smem_bytes"] == ti.tiled_smem_bytes((32, 32), win // 2, S)
+    assert tile["blocks_per_sm"] >= 1
+    # the kernels' __launch_bounds__: 65536 registers over 512 threads
+    assert 0 < info["registers"] <= 128
 
 
 def test_launch_counters_and_validation(dev):
@@ -76,6 +134,14 @@ def test_launch_counters_and_validation(dev):
     with pytest.raises(ValueError, match="must not be flow"):
         ti.iterate_fused_cuda(R0, R1, flow, border, flow, 12, 8)
     assert ti.LAUNCHES["farneback_iterate_fused"] == 3
+    strips = ti.strip_geometry(1, 24, 32, 12, 8, 132)
+    ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 8, geometry=strips)
+    ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 8, geometry=(32, 64))
+    with pytest.raises(ValueError, match="shared memory"):
+        ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 300, geometry=(32, 64))
+    with pytest.raises(ValueError, match="tiles"):
+        ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 8, geometry=(8, 8))
+    assert ti.LAUNCHES == {"farneback_iterate_fused": 5}
 
 
 def test_flow_on_card_matches_cpu(dev):

@@ -197,41 +197,42 @@ class TestIterate:
         assert ti.farneback_iterate(R0, R1, flow0, border, 0, 12, 8) is flow0
 
 
-class TestFusedKernelBudget:
-    """Shared memory of the fused CUDA kernel's block, reckoned in Python
+class TestTiledKernelBudget:
+    """Shared memory of the tile design's block (farneback_iterate_fused on
+    the layers too short to stream, and the yardstick), reckoned in Python
     (the wrapper refuses a launch from this before any CUDA call)."""
 
     @pytest.mark.parametrize("h,w", [(480, 752), (1024, 1920)])
     def test_tuned_shapes_fit_two_blocks_per_sm(self, h, w):
         p = tf.tuned_flow_params(h, w)
-        nbytes = ti.fused_launch_smem(ti.TILE, p.winsize, p.max_shift)
+        nbytes = ti.tiled_launch_smem(ti.TILE, p.winsize, p.max_shift)
         assert nbytes <= 113 * 1024
 
     def test_bytes_count_every_buffer(self):
         # 32x64 tile, m=6: M region 44x76 (row stride 76, float4 reads),
         # A window 109 columns at S=16 and 93 at S=8; 5 planes of two 8-row
         # A chunks and of M
-        assert ti.fused_smem_bytes((32, 64), 6, 16) == 4 * 5 * (2 * 8 * 109 + 44 * 76)
-        assert ti.fused_smem_bytes((32, 64), 6, 8) == 4 * 5 * (2 * 8 * 93 + 44 * 76)
+        assert ti.tiled_smem_bytes((32, 64), 6, 16) == 4 * 5 * (2 * 8 * 109 + 44 * 76)
+        assert ti.tiled_smem_bytes((32, 64), 6, 8) == 4 * 5 * (2 * 8 * 93 + 44 * 76)
         # 32x32 (2 outputs per thread): odd row stride 45 for M 44x44
-        assert ti.fused_smem_bytes((32, 32), 6, 8) == 4 * 5 * (2 * 8 * 61 + 44 * 45)
+        assert ti.tiled_smem_bytes((32, 32), 6, 8) == 4 * 5 * (2 * 8 * 61 + 44 * 45)
 
     @pytest.mark.parametrize("win,S", [(12, 300), (12, 500), (60, 64)])
     def test_overrun_refused(self, win, S):
-        assert ti.fused_smem_bytes(ti.TILE, win // 2, S) > ti.MAX_SMEM_BYTES
+        assert ti.tiled_smem_bytes(ti.TILE, win // 2, S) > ti.MAX_SMEM_BYTES
         with pytest.raises(ValueError, match="shared memory"):
-            ti.fused_launch_smem(ti.TILE, win, S)
+            ti.tiled_launch_smem(ti.TILE, win, S)
 
     @pytest.mark.parametrize("tile", sorted(ti.TILES))
     def test_free_max_shift_up_to_the_limit(self, tile):
         """max_shift is a free parameter: S=32 fits every tile, and the
         largest S that fits is taken, the next one refused."""
-        assert ti.fused_launch_smem(tile, 12, 32) <= ti.MAX_SMEM_BYTES
+        assert ti.tiled_launch_smem(tile, 12, 32) <= ti.MAX_SMEM_BYTES
         S = max(s for s in range(512)
-                if ti.fused_smem_bytes(tile, 6, s) <= ti.MAX_SMEM_BYTES)
-        assert ti.fused_launch_smem(tile, 12, S) <= ti.MAX_SMEM_BYTES
+                if ti.tiled_smem_bytes(tile, 6, s) <= ti.MAX_SMEM_BYTES)
+        assert ti.tiled_launch_smem(tile, 12, S) <= ti.MAX_SMEM_BYTES
         with pytest.raises(ValueError, match="shared memory"):
-            ti.fused_launch_smem(tile, 12, S + 1)
+            ti.tiled_launch_smem(tile, 12, S + 1)
 
     @pytest.mark.parametrize("b,h,w,tile", [
         (8, 480, 752, (32, 64)), (8, 240, 376, (32, 64)), (8, 120, 188, (32, 32)),
@@ -243,7 +244,136 @@ class TestFusedKernelBudget:
 
     def test_unknown_tile_refused(self):
         with pytest.raises(ValueError, match="tiles"):
-            ti.fused_launch_smem((8, 8), 12, 8)
+            ti.tiled_launch_smem((8, 8), 12, 8)
+
+
+def _product_layers():
+    """Every pyramid layer of the product's two frame sizes, with the
+    max_shift the product runs there: 752x480 at S = 8, 1920x1024 at 16."""
+    out = []
+    for h, w in ((480, 752), (1024, 1920)):
+        p = tf.tuned_flow_params(h, w)
+        out += [(int(round(h * sc)), int(round(w * sc)))
+                for sc in tf._pyramid_scales(h, w, p)]
+    return out
+
+
+STRIP_CASES = [(b, h, w, S, win) for h, w in _product_layers() for b in (1, 2, 4, 8)
+               for S in (8, 16) for win in (12, 9)]
+
+
+def _first_at_least(n, residue):
+    v = n
+    while v % 32 != residue:
+        v += 1
+    return v
+
+
+class TestStripGeometry:
+    """The row-streaming kernel's launch geometry and shared memory
+    (farneback_iterate_fused), reckoned in Python, at every layer of the
+    product shapes, b = 1, 2, 4, 8, S = 8 and 16, winsize 12 (m = 6, compiled
+    in) and 9 (the run-time-m kernel), on an H100's 132 SMs."""
+
+    @pytest.mark.parametrize("b,h,w,S,win", STRIP_CASES)
+    def test_ring_bytes_by_hand(self, b, h, w, S, win):
+        """R1 ring of 2S + 1 + 2 x 4 rows (4 rows a step, one step of
+        prefetch) and two A groups of 4 rows, 5 planes of the A window (strip
+        + 2m + 2S + 1 columns and 6 for aligned copies, padded to 8 mod 32),
+        two V groups of 4 rows x 5 planes (strip + 2m + 1 columns: the h
+        stage's 2 outputs a thread; padded the same)."""
+        g = ti.strip_geometry(b, h, w, win, S, 132)
+        m = win // 2
+        aw = g.strip + 2 * m + 2 * S + 1
+        awp = _first_at_least(aw + 6, 8)
+        vs = _first_at_least(g.strip + 2 * m + 1, 8)
+        want = 4 * (5 * awp * (2 * S + 1 + 8) + 5 * awp * 8 + 5 * vs * 8)
+        assert g.smem_bytes == want == ti.strip_smem_bytes(g.strip, m, S)
+        assert g.smem_bytes <= ti.MAX_SMEM_BYTES
+
+    def test_ring_bytes_of_the_main_shapes(self):
+        # 752x480 b=8 S=8: 7 strips of 108: A window 137 + 6 -> 168 floats,
+        # ring 25 rows, V 121 -> 136; 1920x1024 b=2 S=16: 17 strips of 113:
+        # 158 + 6 -> 168, ring 41 rows, V 126 -> 136
+        g = ti.strip_geometry(8, 480, 752, 12, 8, 132)
+        assert g.strip == 108
+        assert g.smem_bytes == 4 * 5 * (168 * (25 + 8) + 8 * 136) == 132_640
+        g = ti.strip_geometry(2, 1024, 1920, 12, 16, 132)
+        assert g.strip == 113
+        assert g.smem_bytes == 4 * 5 * (168 * (41 + 8) + 8 * 136) == 186_400
+
+    @pytest.mark.parametrize("b,h,w,S,win", STRIP_CASES)
+    def test_every_row_once_no_wave_tail(self, b, h, w, S, win):
+        g = ti.strip_geometry(b, h, w, win, S, 132)
+        assert g.strips * g.strip >= w > (g.strips - 1) * g.strip
+        assert g.strip + 2 * (win // 2) <= ti.STRIP_COLS
+        runs = ti.strip_segments(b, h, g.strips, g.rows, g.runs_per_col)
+        assert len(runs) == g.blocks <= 132
+        assert sum(n for run in runs for n in run) == b * g.strips * h
+        assert all(0 < n <= h for run in runs for n in run)
+
+    @pytest.mark.parametrize("b,h,w,S,win", STRIP_CASES)
+    def test_every_sm_has_work_where_the_layer_allows(self, b, h, w, S, win):
+        """As many blocks as an even cut of the rows into whole runs over
+        the 132 SMs gives (a block on every SM where the layer has enough
+        rows), but for less than one block per strip column, the remainder
+        of cutting each column evenly."""
+        g = ti.strip_geometry(b, h, w, win, S, 132)
+        total, cols = b * g.strips * h, b * g.strips
+        assert g.blocks >= -(-total // -(-total // 132)) - cols
+
+    @pytest.mark.parametrize("win", [12, 9])
+    @pytest.mark.parametrize("S", [8, 16])
+    def test_overrun_refused(self, S, win):
+        """S = 8 and 16 fit at the widest strip; the first max_shift past
+        227 KB is refused before any launch, the one before it taken."""
+        m = win // 2
+        widest = ti.STRIP_COLS - 2 * m
+        assert ti.strip_launch_smem(widest, win, S) <= ti.MAX_SMEM_BYTES
+        over = min(s for s in range(S, 512)
+                   if ti.strip_smem_bytes(widest, m, s) > ti.MAX_SMEM_BYTES)
+        ti.strip_launch_smem(widest, win, over - 1)
+        with pytest.raises(ValueError, match="shared memory"):
+            ti.strip_launch_smem(widest, win, over)
+
+    @pytest.mark.parametrize("strip,win,match", [
+        (117, 12, "columns"), (0, 12, "columns"), (60, 66, "winsize"), (60, 0, "winsize")])
+    def test_shapes_the_kernel_does_not_take(self, strip, win, match):
+        with pytest.raises(ValueError, match=match):
+            ti.strip_launch_smem(strip, win, 8)
+
+
+class TestFusedSchedule:
+    """Which blocks farneback_iterate_fused runs a layer on: strips where
+    its runs hold at least 3 x max_shift rows, else the tile design's."""
+
+    @pytest.mark.parametrize("b,h,w,S,win", STRIP_CASES)
+    def test_strips_where_the_runs_are_long_enough(self, b, h, w, S, win):
+        g = ti.strip_geometry(b, h, w, win, S, 132)
+        sched = ti.fused_schedule(b, h, w, win, S, 132)
+        if g.rows >= 3 * S:
+            assert sched == g
+        else:
+            assert sched == ti.tile_for(b, h, w, 132)
+            ti.tiled_launch_smem(sched, win, S)
+
+    @pytest.mark.parametrize("b,h,w,S,want", [
+        (8, 480, 752, 8, "strips"), (8, 240, 376, 8, "strips"), (8, 120, 188, 8, (32, 32)),
+        (2, 1024, 1920, 16, "strips"), (2, 512, 960, 16, "strips"),
+        (2, 256, 480, 16, (32, 32)), (4, 1024, 1920, 16, "strips"),
+        (4, 512, 960, 16, "strips"), (4, 256, 480, 16, (32, 64)),
+        (1, 480, 752, 8, "strips"), (1, 240, 376, 8, (32, 32)), (1, 120, 188, 8, (32, 32)),
+        (1, 1024, 1920, 16, "strips"), (1, 512, 960, 16, (32, 64)),
+        (1, 256, 480, 16, (32, 32))])
+    def test_the_product_layers(self, b, h, w, S, want):
+        """The layers timed in chip_smoke.py phase 3, at the product's
+        max_shift: every finest layer streams; the coarse ones at b = 1,
+        and the coarsest at every b, take tiles."""
+        sched = ti.fused_schedule(b, h, w, 12, S, 132)
+        if want == "strips":
+            assert isinstance(sched, ti.StripGeometry)
+        else:
+            assert sched == want
 
 
 def _chain_update_matrices(R0, R1, flow, border, S):

@@ -111,6 +111,21 @@ class TestBuild:
         assert events == ["start", "start", "wait", "wait"]
         assert all(p.exists() for p in out.values())
 
+    def test_compiler_output_kept_beside_the_library(self, monkeypatch, tmp_path):
+        """The compiler's output is kept beside the library, so a process
+        that finds the library built (a second run in the same checkout)
+        still has it in BUILD_LOGS."""
+        monkeypatch.setitem(_build.SOURCES, "logged", _build.SOURCES["loader"]._replace(
+            flags=_build.SOURCES["loader"].flags + ("-v",), out_dir=tmp_path))
+        monkeypatch.setattr(_build, "BUILD_LOGS", {})
+        lib = _build.build(["logged"])["logged"]
+        first = _build.BUILD_LOGS["logged"]
+        assert "-v" in first or "gcc version" in first
+        assert lib.with_suffix(".log").read_text() == first
+        monkeypatch.setattr(_build, "BUILD_LOGS", {})
+        assert _build.build(["logged"])["logged"] == lib
+        assert _build.BUILD_LOGS == {"logged": first}
+
     def test_available_says_native_once(self, monkeypatch, caplog):
         monkeypatch.setattr(native, "_AVAILABLE", None)
         with caplog.at_level(logging.INFO, logger="mav_detection_tpu_torch.runtime"):

@@ -178,17 +178,50 @@ def test_bounds_against_hand_counts():
     assert sp.y_stage_ops(g, 160, "A") / 67e12 < sp.y_stage_bytes(g, 160) / 3.35e12
 
 
-def test_fused_bound_against_hand_counts():
-    """The fused kernel's bound at b=8 480x752 S=8 on 32x64 tiles: bytes
-    4 (14 b H W + H W); operations per tile 36 per A-window cell (44x93), 73
-    per M-region cell (44x76), 5 x 13 taps per vertical (32x76) and
-    horizontal (32x64) box sum, 18 per output, over 8 x 15 x 12 tiles."""
+def test_tiled_bound_against_hand_counts():
+    """The tile design at b=8 480x752 S=8 on 32x64 tiles is held to the
+    iteration's own bound: bytes 4 (14 b H W + H W). Its operations with
+    the halo it recomputes (a diagnostic, not the bound): per tile 36 per
+    A-window cell (44x93), 73 per M-region cell (44x76), 5 x 13 taps per
+    vertical (32x76) and horizontal (32x64) box sum, 18 per output, over 8 x
+    15 x 12 tiles."""
     assert fi.fused_bytes(8, 480, 752) == 4 * (14 * 8 * 480 * 752 + 480 * 752) == 163_153_920
     per_tile = 36 * 44 * 93 + 73 * 44 * 76 + 5 * 13 * (32 * 76 + 32 * 64) + 18 * 32 * 64
-    assert fi.fused_ops(8, 480, 752, 12, 8, (32, 64)) == per_tile * 8 * 15 * 12
-    ms, by = fi.fused_bound(8, 480, 752, 12, 8, (32, 64))
+    assert fi.tiled_ops(8, 480, 752, 12, 8, (32, 64)) == per_tile * 8 * 15 * 12
+    assert fi.tiled_ops(8, 480, 752, 12, 8, (32, 64)) > 1.3 * fi.fused_ops(8, 480, 752, 12)
+    ms, by = fi.fused_bound(8, 480, 752, 12)
     assert by == "bytes" and ms == pytest.approx(163_153_920 / 3.35e12 * 1e3)
     assert round(ms, 5) == 0.04870
+
+
+def test_fused_bound_against_hand_counts():
+    """The iteration's own bound, the same for both designs: per output
+    pixel 36 operations of the y stage, 53 of the x stage and normal
+    equations, 5 x 13 adds of the vertical and of the horizontal box sum,
+    18 of the mean and solve; no halo. At b=8 480x752 it is bound by bytes,
+    and at the coarsest b=1 layer too. The row-streaming design's own count
+    with its halo (a diagnostic): 7 strips of 108 columns, the 56 strip
+    columns of 480 rows laid end to end and cut every 204 rows (132
+    blocks); the 55 column boundaries split a block's run but at 480 k =
+    8160 k' (k = 17, 34, 51), so 132 + 52 = 184 segments, all a multiple of
+    4 rows long: 26880 + 12 x 184 A and M rows, each 137 A-window cells x 36
+    and 120 M cells x (53 + 5 x 13 vertical adds), and 26880 output rows of
+    108 outputs x (5 x 13 horizontal adds + 18)."""
+    assert fi.fused_ops(8, 480, 752, 12) == 8 * 480 * 752 * (36 + 53 + 130 + 18) == 684_380_160
+    assert fi.fused_ops(1, 120, 188, 12) == 120 * 188 * 237
+    ms, by = fi.fused_bound(8, 480, 752, 12)
+    assert by == "bytes" and round(ms, 5) == 0.04870
+    ms, by = fi.fused_bound(1, 120, 188, 12)
+    assert by == "bytes" and ms == pytest.approx(4 * 15 * 120 * 188 / 3.35e12 * 1e3)
+    # the operations alone take under a quarter of the bytes' time
+    assert 684_380_160 / 67e12 < 0.25 * 163_153_920 / 3.35e12
+    g = fi.strip_geometry(8, 480, 752, 12, 8, 132)
+    assert (g.strip, g.strips, g.rows, g.runs_per_col, g.blocks) == (108, 7, 204, 0, 132)
+    segs = [n for run in fi.strip_segments(8, 480, 7, 204) for n in run]
+    assert len(segs) == 184 and all(n % 4 == 0 for n in segs)
+    per_row = 137 * 36 + 120 * (53 + 5 * 13)
+    assert fi.strip_ops(8, 480, 752, 12, 8, g) == (
+        (26880 + 12 * 184) * per_row + 26880 * 108 * (5 * 13 + 18)) == 796_300_416
 
 
 def test_wrappers_on_cpu_take_the_plain_versions(probe_rng):
@@ -269,9 +302,9 @@ def test_batch_overhead_probe_on_cpu():
     for r in res["batches"]:
         assert r["full_ms"] > 0 and r["kernel_ms"] > 0
         assert r["glue_ms"] == pytest.approx(r["full_ms"] - r["kernel_ms"])
-        assert r["tile"] == "32x64"
+        assert r["geometry"] == str(fi.fused_schedule(r["b"], 24, 32, 12, 8, fi.H100_SMS))
         assert (r["bound_ms_per_launch"], r["bound_by"]) == fi.fused_bound(
-            r["b"], 24, 32, 12, 8, (32, 64))
+            r["b"], 24, 32, 12)
         assert r["bound_ms_per_launch"] >= fi.fused_bytes(r["b"], 24, 32) / 3.35e12 * 1e3
         assert r["kernel_share_of_bound"] is None
 
