@@ -220,6 +220,17 @@ Phases, each printing one line (plus its seconds):
                rtol 2e-2 / atol 1e-3). Frames/s, ms per pair, transition
                and step on the host clock; the fused kernel's launches on
                each path (none on spatial: tensor-code separable warp).
+ 19. bench   — python -m mav_detection_tpu_torch.bench (its main) at bench.py's
+               sizes, bench.py's cv2 oracle and baseline call passed in, the
+               fused kernel's counter zeroed just before: the chip-health
+               canaries (a chained 2048^3 bf16 matmul and the bare iterate
+               kernel at b=8 480x752, each a replayed CUDA graph, against this
+               card's healthy bands; a DEGRADED verdict is printed), then the
+               flow + detect headline at 752x480 b=8 and b=1 and 1920x1024 b=8
+               from replayed CUDA graphs of the step, eager beside them; the
+               bench's own gates (EPE vs cv2 < 0.1 px at 752x480, vs GT < 0.55
+               px at 1920x1024); its one strict JSON line printed after its
+               seconds. A null headline, a failed gate or no launch fails it.
 ``--multi N`` also runs spatial_probe on N cards (P = 2, 4, 8 up to N).
 Then the nets, datasets, yolo, train, tools, tools_flow, tools_eval and
 multi JSON line, the kernels JSON line, the nvidia-smi line, and as the last line
@@ -4263,6 +4274,66 @@ def phase_multi(dev, sizes=MULTI_SIZES, ranks: int = 1) -> dict:
     return out
 
 
+def _strict_json(text: str) -> dict:
+    def refuse(token):
+        raise AssertionError(f"not strict JSON: {token}")
+    return json.loads(text, parse_constant=refuse)
+
+
+def phase_bench(dev) -> dict:
+    """``python -m mav_detection_tpu_torch.bench`` (its ``main``) on the card
+    at bench.py's sizes, with bench.py's cv2 oracle and baseline call given
+    as ``cv2_flow``, the fused kernel's counter zeroed just before: one line
+    of strict JSON with the keys bench.py's line has; the headline (752x480,
+    b=8) and the 1920x1024 figure non-null, from a replayed CUDA graph; EPE
+    vs cv2 < CV2_GATE_PX at 752x480 and vs GT < 0.55 px at 1920x1024 (the
+    bench raises on either itself); the kernel launched."""
+    import contextlib
+    import io
+
+    import cv2
+
+    from mav_detection_tpu_torch import bench
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+
+    def cv2_flow(prev8, curr8):
+        return cv2.calcOpticalFlowFarneback(prev8, curr8, None, *CV2_ORACLE_ARGS)
+
+    buf = io.StringIO()
+    fi.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = bench.main([], device=dev, cv2_flow=cv2_flow)
+    seconds = time.perf_counter() - t0
+    launches = fi.LAUNCHES["farneback_iterate_fused"]
+    lines = buf.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench: {len(lines)} lines printed, expected one")
+    line = _strict_json(lines[0])
+    missing = {"metric", "value", "unit", "vs_baseline", "fps_batch8", "fps_single",
+               "config", "canary_matmul_tflops", "kernel_ms_per_iter", "chip_health",
+               "host", "hires", "eager", "device"} ^ set(line)
+    if missing or line != _strict_json(json.dumps(res)):
+        raise AssertionError(f"bench: keys {sorted(missing)} off bench.py's line")
+    for tag, fps in (("headline", line["value"]), ("single", line["fps_single"]),
+                     ("hires", (line["hires"] or {}).get("fps_batch8")),
+                     ("vs_baseline", line["vs_baseline"])):
+        if fps is None or not fps > 0:
+            raise AssertionError(f"bench: {tag} {fps}")
+    if line["config"]["timer"] != "cuda graph":
+        raise AssertionError(f"bench: headline timed by {line['config']['timer']}")
+    found = re.search(r"EPE vs cv2 ([0-9.]+)px", line["metric"])
+    epe_cv2 = float(found.group(1)) if found else None
+    if epe_cv2 is None or not epe_cv2 < CV2_GATE_PX:
+        raise AssertionError(f"bench: EPE vs cv2 {epe_cv2} (gate {CV2_GATE_PX} px)")
+    if not line["hires"]["epe_gt"] < bench.HIRES_GATE_PX:
+        raise AssertionError(f"bench: hires EPE vs GT {line['hires']['epe_gt']}")
+    if launches == 0:
+        raise AssertionError("bench: farneback_iterate_fused launched no time")
+    return {"line": lines[0], "result": line, "seconds": seconds, "launches": launches,
+            "epe_cv2_px": epe_cv2}
+
+
 def main_multi(dev, ranks: int, smi: str) -> int:
     """``--multi N``: phase ``multi`` on N cards, then ``dryrun_multichip``
     on N cards."""
@@ -4820,6 +4891,14 @@ def main(argv=None) -> int:
     times["multi"] = time.perf_counter() - t0
     _say_multi(multi, smi, times["multi"])
     dp, sp, chk = (multi[k] for k in ("data_parallel", "spatial", "chunked"))
+    t0 = time.perf_counter()
+    bn = phase_bench(dev)
+    times["bench"] = time.perf_counter() - t0
+    say(f"[bench] python -m mav_detection_tpu_torch.bench on {smi} (cv2 oracle and "
+        f"baseline given): {bn['seconds']:.1f} s, farneback_iterate_fused launched "
+        f"{bn['launches']} times, EPE vs cv2 {bn['epe_cv2_px']} px, chip health "
+        f"{bn['result']['chip_health']} ({times['bench']:.1f} s)")
+    say(bn["line"])
     say(f"[phases] seconds {json.dumps(times)}")
 
     k = "farneback_iterate_fused"

@@ -1,5 +1,6 @@
 from mav_detection_tpu_torch.ops.flow.farneback import (
     FarnebackParams,
+    effective_fused_config,
     farneback_flow,
     farneback_flow_batch,
     jacobi_level,
@@ -14,6 +15,7 @@ from mav_detection_tpu_torch.ops.flow.farneback_iter import (
 
 __all__ = [
     "FarnebackParams",
+    "effective_fused_config",
     "farneback_flow",
     "farneback_flow_batch",
     "jacobi_level",

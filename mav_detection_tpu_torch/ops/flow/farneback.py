@@ -31,9 +31,16 @@ import numpy as np
 import torch
 
 from mav_detection_tpu_torch.ops.flow.farneback_iter import (
+    CHUNK_ROWS,
+    H100_SMS,
+    STRIP_ROWS,
+    StripGeometry,
+    _sm_count,
     _warp_coords,
     farneback_iterate,
+    fused_schedule,
     normal_equations,
+    tiled_smem_bytes,
     warp_separable,
 )
 from mav_detection_tpu_torch.utils.device import resolve_device
@@ -81,6 +88,49 @@ def tuned_flow_params(h: int, w: int) -> FarnebackParams:
     return FarnebackParams(levels=2, pyr_scale=0.5, warp="fused",
                            iterations=6, max_shift=16, level_iters=sched)
 
+
+
+def effective_fused_config(params: FarnebackParams, h: int, w: int,
+                           batch: int) -> dict:
+    """The launches ``farneback_iterate_fused`` actually makes for a run of
+    ``batch`` (h, w) frame pairs under ``params``: the counterpart of the
+    reference's ``effective_pallas_config``, so that a benchmarked
+    configuration is always identifiable. Per pyramid layer (``"layers"``,
+    finest first), from ``fused_schedule`` on the current card's SMs
+    (``"sm_count"``; without a card, an H100 SXM's 132): the layer's shape and
+    iterations, and its blocks: row-streaming ``"strips"`` (their count,
+    width in columns, the rows of a run, runs per column with 0 for the
+    columns laid end to end, rows per step) or ``"tiles"`` (the tile's rows
+    and columns, rows per chunk of its y and x stages), with the block
+    count and shared-memory bytes. The finest layer's fields also stand at
+    the top level. A non-fused warp gives ``{"warp": ...}`` alone.
+
+    The reference's TPU knobs (``halo``, ``halo_requested``,
+    ``band_rows_effective``, ``tile_cols_effective``, ``n_bands``,
+    ``n_col_tiles``) have no counterpart here."""
+    if params.warp != "fused":
+        return {"warp": params.warp}
+    sm_count = (_sm_count(torch.cuda.current_device())
+                if torch.cuda.is_available() else H100_SMS)
+    m = params.winsize // 2
+    layers = []
+    for k_level, scale in enumerate(_pyramid_scales(h, w, params)):
+        lh, lw = int(round(h * scale)), int(round(w * scale))
+        g = fused_schedule(batch, lh, lw, params.winsize, params.max_shift, sm_count)
+        layer = {"shape": [batch, lh, lw],
+                 "iterations": _level_iter_count(params, k_level)}
+        if isinstance(g, StripGeometry):
+            layer.update(design="strips", strips=g.strips, strip_cols=g.strip,
+                         run_rows=g.rows, runs_per_col=g.runs_per_col,
+                         rows_per_step=STRIP_ROWS, blocks=g.blocks,
+                         smem_bytes=g.smem_bytes)
+        else:
+            th, tw = g
+            layer.update(design="tiles", tile=[th, tw], rows_per_step=CHUNK_ROWS,
+                         blocks=batch * -(-lh // th) * -(-lw // tw),
+                         smem_bytes=tiled_smem_bytes(g, m, params.max_shift))
+        layers.append(layer)
+    return {"warp": "fused", "sm_count": sm_count, **layers[0], "layers": layers}
 
 # ----------------------------------------------------------------- helpers
 def _poly_exp_moments(n: int, sigma: float) -> Tuple[np.ndarray, np.ndarray, np.ndarray, float, float, float, float]:

@@ -104,45 +104,18 @@ def fmt(v, spec: str = ".4f") -> str:
     return "null" if v is None else format(v, spec)
 
 
-DT = 0.05     # bench.py's frame interval
-
-
 def flow_detect_ms(prev8: np.ndarray, curr8: np.ndarray, batch: int, params, dev,
                    reps: int = 5) -> dict:
-    """ms per frame of ``batch`` copies of the pair, as
-    ``bench.tpu_ms_per_frame`` times the step: ``"ms"`` the batched flow,
-    then ``detect_frame_batch_scalars`` on zero GT flow and IMU rates, empty
-    masks, unit depth and a centred GT FoE; ``"flow_ms"`` the flow alone;
-    both CUDA events on a card, the host clock on the CPU. And
-    ``"flow_device_ms"``, the flow's device time from a replayed CUDA graph
-    (the host clock on the CPU)."""
-    import torch
-
-    from mav_detection_tpu_torch.ops.flow.farneback import farneback_flow_batch
-    from mav_detection_tpu_torch.pipeline.detector import (
-        DetectionStep,
-        detect_frame_batch_scalars,
-    )
+    """ms per frame of ``batch`` copies of the pair through the bench's step
+    (``bench.make_step``): ``"ms"`` the batched flow, then
+    ``detect_frame_batch_scalars`` on ``bench.py``'s inputs; ``"flow_ms"``
+    the flow alone; both CUDA events on a card, the host clock on the CPU.
+    And ``"flow_device_ms"``, the flow's device time from a replayed CUDA
+    graph (the host clock on the CPU)."""
+    from mav_detection_tpu_torch.bench import make_step
     from mav_detection_tpu_torch.utils.timing import eager_ms, kernel_ms
 
-    h, w = prev8.shape
-    a = torch.as_tensor(np.repeat(prev8[None], batch, 0), dtype=torch.float32).to(dev)
-    b = torch.as_tensor(np.repeat(curr8[None], batch, 0), dtype=torch.float32).to(dev)
-    aux = (torch.zeros((batch, h, w, 2), device=dev), torch.zeros((batch, 3), device=dev),
-           torch.full((batch,), DT, device=dev),
-           torch.zeros((batch, h, w), dtype=torch.uint8, device=dev),
-           torch.zeros((batch, h, w), dtype=torch.bool, device=dev),
-           torch.ones((batch, h, w), device=dev),
-           torch.tensor([[w / 2.0, h / 2.0]], device=dev).repeat(batch, 1))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    step = DetectionStep()
-
-    def flow():
-        return farneback_flow_batch(a, b, params, dev)
-
-    def both():
-        return detect_frame_batch_scalars(flow(), *aux, generator=gen, config=step)
-
+    flow, both = make_step(prev8, curr8, batch, params, dev)
     return {"flow_ms": eager_ms(flow, dev, reps) / batch, "ms": eager_ms(both, dev, reps) / batch,
             "flow_device_ms": kernel_ms(flow, dev, reps) / batch}
 

@@ -11,9 +11,11 @@ scene, so the single-level cv2 oracle is recorded for information only)
 and against the oracle (``--oracle PATH.npy`` or ``main(..., oracle=...)``,
 the reference's ``cv2.calcOpticalFlowFarneback(..., 0.4, 1, 12, 10, 8, 1.2,
 0)``; ``null`` without it); then, for the points inside the gate, ms per
-frame of the flow alone and of flow + detection (CUDA events, ``--batch``
-copies of the pair) and the flow's device time (a replayed CUDA graph),
-and a table ranked by the last batch's flow + detection time. The
+frame of flow + detection at ``--batch`` copies of the pair as the bench
+times it (``bench.gpu_ms_per_frame``: a replayed CUDA graph of the step,
+``ms_b*``, with the same step eager beside it, ``eager_ms_b*``), of the
+flow alone (CUDA events) and the flow's device time (a replayed CUDA
+graph), and a table ranked by the last batch's flow + detection time. The
 tool's cv2-on-the-CPU baseline has no counterpart (the package runs no
 cv2)::
 
@@ -28,6 +30,7 @@ import itertools
 
 import numpy as np
 
+from mav_detection_tpu_torch.bench import gpu_ms_per_frame
 from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
 from mav_detection_tpu_torch.ops.flow.farneback import FarnebackParams, farneback_flow
 from mav_detection_tpu_torch.tools.common import (
@@ -90,8 +93,10 @@ def main(argv=None, device=None, oracle=None) -> dict:
               + ("" if pt["gate_pass"] else f": EPE GATE FAIL (>= {EPE_GT_GATE_PX})"))
         if pt["gate_pass"]:
             for b in batches:
+                g = gpu_ms_per_frame(prev8, curr8, b, p, dev)
+                pt[f"ms_b{b}"], pt[f"eager_ms_b{b}"] = g["ms"], g["eager_ms"]
                 t = flow_detect_ms(prev8, curr8, b, p, dev)
-                pt[f"flow_ms_b{b}"], pt[f"ms_b{b}"] = t["flow_ms"], t["ms"]
+                pt[f"flow_ms_b{b}"] = t["flow_ms"]
                 pt[f"flow_device_ms_b{b}"] = t["flow_device_ms"]
             print(dumps(pt))
         points.append(pt)

@@ -99,6 +99,7 @@ NEW_MODULES = [
     "mav_detection_tpu_torch.tools.finetune_raft",
     "mav_detection_tpu_torch.tools.soup_raft",
     "mav_detection_tpu_torch.tools.pan_curriculum",
+    "mav_detection_tpu_torch.bench",
 ]
 
 
