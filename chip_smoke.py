@@ -659,7 +659,9 @@ def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440),
         library.append(time_ms(lib, 10, 2))
         lib_err[axis] = float((lib()[0, 0] - sp.shift_gather(x, sy, fy, 8, axis)).abs().max())
     sp.reset_launch_counts()   # the comparisons' launches do not count
-    resources = {k: sp.kernel_info(k, 8) for k in sp.KERNELS}
+    # at the finest layer's shapes (the y stage's block follows its rows)
+    fine_mrows = sp.YGeometry(8, 24, 752, 6).mrows
+    resources = {k: sp.kernel_info(k, 8, mrows=fine_mrows) for k in sp.KERNELS}
 
     fused_ms = runs["batch_overhead"]["batches"][1]["kernel_ms_per_launch"]
     launch_ms = {"fused": fused_ms, **({"tiled": tiled_ms_b8} if tiled_ms_b8 else {})}
@@ -4465,8 +4467,9 @@ def _say_probes(pr: dict, smi: str, seconds: float) -> None:
             f"us/launch, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
             f"share of bound {row['bound_ms'] / row['ms']:.3f}; tool default "
             f"{row['ms_tool_default'] * 1e3:.2f} us; plain {row['plain_ms']:.4f} ms; "
-            f"grid_sample {lib}; {row['registers']} registers, "
-            f"{row['blocks_per_sm']} blocks of 256 per SM; launches {row['launches']}")
+            f"grid_sample {lib}; blocks of {row['threads']} threads, "
+            f"{row['registers']} registers, {row['dyn_smem_bytes']} B dynamic shared "
+            f"memory, {row['blocks_per_sm']} blocks per SM; launches {row['launches']}")
     hw = f"{runs['batch_overhead']['H']}x{runs['batch_overhead']['W']}"
     for d, ms in pr["launch_ms_b8"].items():
         say(f"[probes] at b=8 {hw} on {smi}: farneback_iterate_{d} {ms:.5f} ms per "
@@ -4482,8 +4485,8 @@ def _say_probes(pr: dict, smi: str, seconds: float) -> None:
     lo, hi = Y_STAGE_SHARE_PREDICTED
     t = sh["T chain_tile"]
     say(f"[probes] the y stage's share of a launch of the tile design (T on its "
-        f"tile geometry, sy in runs of 32): {t:.3f}; predicted {lo}-{hi}: "
-        f"{'held' if lo <= t <= hi else 'missed'}")
+        f"tile geometry, sy in runs of 32; the staged y-stage kernel): {t:.3f}; "
+        f"predicted {lo}-{hi}: {'held' if lo <= t <= hi else 'missed'}")
     for row in runs["batch_overhead"]["batches"]:
         say(f"[probes] batch_overhead b={row['b']} {hw} on {smi}: full "
             f"{row['full_ms']:.5f} ms/frame/iter, kernel {row['kernel_ms']:.5f}, "

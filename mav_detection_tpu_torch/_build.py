@@ -96,7 +96,7 @@ def _bind_shift_probes(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.y_stage.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.y_stage.restype = i
-    lib.shift_probe_info.argtypes = [i, i, i, p]
+    lib.shift_probe_info.argtypes = [i, i, i, i, p]
     lib.shift_probe_info.restype = i
 
 

@@ -384,14 +384,21 @@ def host_fields() -> dict:
 def device_fields(dev) -> dict:
     """The card's name and power limit as ``nvidia-smi --query-gpu=name,
     power.limit --format=csv,noheader`` gives them; None for both on the
-    CPU."""
+    CPU and wherever the query fails (no nvidia-smi, an error, a hang past
+    60 s, output it cannot split): the bench never raises here."""
     dev = torch.device(dev)
+    none = {"name": None, "power_limit": None}
     if dev.type != "cuda":
-        return {"name": None, "power_limit": None}
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-         f"--id={dev.index or 0}"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        return none
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+             f"--id={dev.index or 0}"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return none
+    if "," not in out:
+        return none
     name, limit = (v.strip() for v in out.rsplit(",", 1))
     return {"name": name, "power_limit": limit}
 
@@ -421,8 +428,11 @@ def main(argv=None, device=None, cv2_flow: Optional[Callable] = None) -> dict:
     ap = parser(__doc__)
     args = ap.parse_args(argv)
     dev = resolve_device(device if device is not None else args.device)
+    # the probe first, as bench.py's: nothing else touches the card or
+    # nvidia-smi before it
+    reachable = device_reachable(dev)
     card = device_fields(dev)
-    if not device_reachable(dev):
+    if not reachable:
         # the outage goes into the artifact instead of a hang: a null
         # headline with chip_health naming the cause
         res = {"metric": f"flow+detect throughput @{W}x{H} (batch {BATCH})",

@@ -164,6 +164,17 @@ def load_msgpack(path: str, migrate: Optional[Callable[[Dict], Dict]] = None
     return migrate(state) if migrate is not None else state
 
 
+def load_msgpack_if_exists(path: str, like: Any) -> Optional[Dict[str, Any]]:
+    """``load_msgpack``'s state of ``path`` checked against ``like`` (a tree
+    of the same keys and leaf shapes; a mismatch raises) as ``load`` does,
+    or None where the file does not exist."""
+    if not os.path.exists(path):
+        return None
+    state = load_msgpack(path)
+    _check_like(state, like)
+    return state
+
+
 # ------------------------------------------------------------------ writer
 MAX_CHUNK_BYTES = 2 ** 30    # Flax splits larger arrays into chunks
 

@@ -15,6 +15,11 @@ one kernel of ``csrc/shift_probes.cu``:
   and one lerp (C), C in bf16 (D), and the two taps read directly (T, the
   port kernel's own form: ``csrc/farneback_iter.cu``'s y stage).
 
+``shift_chain`` and ``y_stage`` stage their inputs in shared memory with
+cp.async (each byte read from device memory once) and roll each thread's
+taps through registers, so that the forms differ only in their arithmetic;
+``shift_gather`` stays one thread per cell, its two taps through ``__ldg``.
+
 Nothing on the main path calls them: the probe entry points
 (``mav_detection_tpu_torch/tools/``) and ``chip_smoke.py`` do. Each plain
 version does the kernel's IEEE float operations in the same order, so on
@@ -352,19 +357,26 @@ def y_stage(slab: torch.Tensor, sy: torch.Tensor, fy: torch.Tensor, S: int,
     return out
 
 
-def kernel_info(kernel: str, S: int, sub: int = 0) -> Dict[str, int]:
+def kernel_info(kernel: str, S: int, sub: int = 0,
+                mrows: Optional[int] = None) -> Dict[str, int]:
     """Launch resources of one kernel instance on the current card
-    (``kernel`` one of ``KERNELS``; ``sub`` the axis of the shift kernels):
-    registers per thread, static shared memory, blocks of 256 per SM."""
+    (``kernel`` one of ``KERNELS``; ``sub`` the axis of the shift kernels;
+    ``mrows`` the y stage's output rows a band, which set its block):
+    threads a block, registers per thread, static and dynamic shared memory
+    a block, resident blocks per SM."""
     import ctypes
 
     from mav_detection_tpu_torch import _build
 
+    rows = 0
     if kernel.startswith("y_stage_"):
-        which, sub = 2, VARIANTS.index(kernel[len("y_stage_"):])
+        if mrows is None or mrows < 1:
+            raise ValueError(f"{kernel}: kernel_info needs the output rows mrows")
+        which, sub, rows = 2, VARIANTS.index(kernel[len("y_stage_"):]), int(mrows)
     else:
         which = ("shift_chain", "shift_gather").index(kernel)
-    out = (ctypes.c_int * 3)()
-    _raise_on(_build.load("shift_probes").shift_probe_info(which, sub, int(S), out),
+    out = (ctypes.c_int * 5)()
+    _raise_on(_build.load("shift_probes").shift_probe_info(which, sub, int(S), rows, out),
               "shift_probe_info")
-    return {"registers": out[0], "smem_bytes": out[1], "blocks_per_sm": out[2]}
+    return {"threads": out[3], "registers": out[0], "smem_bytes": out[1],
+            "dyn_smem_bytes": out[4], "blocks_per_sm": out[2]}

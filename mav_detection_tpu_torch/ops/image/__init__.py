@@ -6,6 +6,8 @@ from mav_detection_tpu_torch.ops.image.color import (
 )
 from mav_detection_tpu_torch.ops.image.metrics import (
     _tpr_fpr,
+    get_magnitude,
+    get_rho,
     masked_mean_flow,
     tpr_fpr_counts,
 )
@@ -27,6 +29,8 @@ __all__ = [
     "bgr_to_gray_host",
     "rgb_to_gray",
     "_tpr_fpr",
+    "get_magnitude",
+    "get_rho",
     "masked_mean_flow",
     "tpr_fpr_counts",
     "resize",

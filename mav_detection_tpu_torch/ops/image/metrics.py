@@ -1,5 +1,5 @@
 """Image/flow metrics (``mav_detection_tpu.ops.image.metrics``), batched
-over a leading frame axis.
+over a leading frame axis: the flow magnitude and angle, and pixel rates.
 
 Pixel rates with upstream's integer-product thresholding:
 ``tpr = sum(gt*est > 127) / sum(gt > 127)``,
@@ -10,6 +10,16 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+def get_magnitude(img: torch.Tensor) -> torch.Tensor:
+    """L2 magnitude over the trailing axis, e.g. (h, w, 2) -> (h, w)."""
+    return torch.linalg.vector_norm(img, dim=-1)
+
+
+def get_rho(img: torch.Tensor) -> torch.Tensor:
+    """Flow angle arctan2(v, u) in radians, (h, w, 2) -> (h, w)."""
+    return torch.atan2(img[..., 1], img[..., 0])
 
 
 def _tpr_fpr(gt_img: torch.Tensor, img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

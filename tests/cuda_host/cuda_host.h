@@ -1,16 +1,20 @@
 // A host stand-in for the CUDA runtime, enough to compile the solver
 // iteration's kernels (mav_detection_tpu_torch/csrc/farneback_iter.cu, its
-// device part) as C++ and run them on the CPU: one std::thread per CUDA
+// device part) and the probe kernels (csrc/shift_probes.cu) as C++ and run
+// them on the CPU: one std::thread per CUDA
 // thread, std::barrier for __syncthreads, a per-warp exchange for the
 // shuffles, cp.async as a queued copy (below). Float arithmetic is the
 // host's IEEE single precision without contraction (-ffp-contract=off), as
 // the kernels' -fmad=false builds are on the card, so the results compare
-// bit for bit with the plain PyTorch version (tests/test_torch_kernel_host.py).
+// bit for bit with the plain PyTorch version (tests/test_torch_kernel_host.py,
+// tests/test_torch_probe_host.py). bf16 is a 16-bit pattern rounded to
+// nearest even, as __float2bfloat16_rn does.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -22,7 +26,7 @@ using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(a, b)
+#define __launch_bounds__(...)
 #define __restrict__
 
 struct dim3 {
@@ -53,6 +57,27 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
 }
 inline float __shfl_sync(unsigned, float v, int src) { return exchange(v, src); }
 template <class T> inline T __ldg(const T* p) { return *p; }
+
+struct __nv_bfloat16 { uint16_t bits; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(uint16_t)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const uint32_t u = (uint32_t)b.bits << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float __low2float(__nv_bfloat162 v) { return __bfloat162float(v.x); }
+inline float __high2float(__nv_bfloat162 v) { return __bfloat162float(v.y); }
 
 // cp.async: a started copy joins the thread's open group, commit closes
 // it, and wait(n) lands every closed group but the newest n, oldest first.

@@ -18,6 +18,7 @@ Tolerances, with their reasons:
 * ``effective_fused_config``: equal to ``fused_schedule`` per layer.
 """
 import json
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -306,6 +307,75 @@ def test_unreachable_device_writes_null(small, capsys, monkeypatch):
     assert line["value"] is None and line["vs_baseline"] is None
     assert line["chip_health"].startswith("UNREACHABLE")
     assert res == line
+
+
+def _smi_raises(exc):
+    def run(cmd, *args, **kw):
+        assert cmd[0] == "nvidia-smi"
+        raise exc
+    return run
+
+
+SMI_FAULTS = {
+    "called_process_error": subprocess.CalledProcessError(9, ["nvidia-smi"]),
+    "file_not_found": FileNotFoundError("nvidia-smi"),
+    "timeout_expired": subprocess.TimeoutExpired(["nvidia-smi"], 60),
+}
+
+
+@pytest.mark.parametrize("fault", [*SMI_FAULTS, "unsplittable_output"])
+def test_device_fields_null_on_a_failed_query(monkeypatch, fault):
+    """A card whose nvidia-smi query raises, or answers without a comma,
+    gives null name and power limit; the bench does not raise there."""
+    if fault == "unsplittable_output":
+        monkeypatch.setattr(bench.subprocess, "run", lambda cmd, *a, **kw:
+                            subprocess.CompletedProcess(cmd, 0, stdout="No devices were found\n"))
+    else:
+        monkeypatch.setattr(bench.subprocess, "run", _smi_raises(SMI_FAULTS[fault]))
+    assert bench.device_fields(torch.device("cuda", 0)) == {"name": None, "power_limit": None}
+
+
+def _on_a_card(monkeypatch, calls, reachable):
+    """main on a card without one: resolve_device and the probe stubbed, the
+    probe's and nvidia-smi's calls recorded in order."""
+    monkeypatch.setattr(bench, "resolve_device", lambda d: torch.device("cuda", 0))
+
+    def probe(dev, timeout_s=0):
+        calls.append("probe")
+        return reachable
+    monkeypatch.setattr(bench, "device_reachable", probe)
+    monkeypatch.setattr(bench, "chip_health_fields", lambda dev: pytest.fail("timed"))
+
+
+def test_unreachable_card_with_a_failing_nvidia_smi_writes_null(small, capsys, monkeypatch):
+    """C6: an unreachable card whose nvidia-smi raises still gives one strict
+    UNREACHABLE line, value null, device null."""
+    calls = []
+    _on_a_card(monkeypatch, calls, reachable=False)
+    monkeypatch.setattr(bench.subprocess, "run", _smi_raises(
+        subprocess.TimeoutExpired(["nvidia-smi"], 60)))
+    res = bench.main([])
+    line = _one_line(capsys)
+    assert line["value"] is None and line["vs_baseline"] is None
+    assert line["chip_health"].startswith("UNREACHABLE")
+    assert line["device"] == {"name": None, "power_limit": None}
+    assert res == line and calls == ["probe"]
+
+
+def test_probe_runs_before_nvidia_smi(small, capsys, monkeypatch):
+    """The reachability probe comes first, as bench.py's; the name and the
+    power limit still reach the line when the query answers."""
+    calls = []
+    _on_a_card(monkeypatch, calls, reachable=False)
+
+    def smi(cmd, *args, **kw):
+        calls.append(cmd[0])
+        return subprocess.CompletedProcess(cmd, 0, stdout="NVIDIA H100 80GB HBM3, 700.00 W\n")
+    monkeypatch.setattr(bench.subprocess, "run", smi)
+    bench.main([])
+    line = _one_line(capsys)
+    assert calls == ["probe", "nvidia-smi"]
+    assert line["device"] == {"name": "NVIDIA H100 80GB HBM3", "power_limit": "700.00 W"}
 
 
 def test_device_reachable_on_the_cpu_and_on_a_hang(monkeypatch):

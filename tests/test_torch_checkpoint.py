@@ -106,6 +106,36 @@ def test_truncated_and_unknown_data_raise():
     assert checkpoint.msgpack_restore(struct.pack(">BH", 0xDC, 2) + b"\x01\x02") == [1, 2]
 
 
+def test_load_msgpack_if_exists_matches_jax(tmp_path, rng):
+    """None for a missing file on both sides; else the tree the JAX
+    package's ``load_msgpack_if_exists`` restores into ``like``, leaf for
+    leaf, and a ``like`` of other keys or shapes raises."""
+    from mav_detection_tpu.models import checkpoint as j_checkpoint
+
+    tree = {"params": {"conv": {"kernel": rng.standard_normal((3, 3, 2, 4)).astype(np.float32),
+                                "bias": rng.standard_normal(4).astype(np.float32)},
+                       "scale": np.float32(0.5) * np.ones((2,), np.float32)}}
+    like = jax.tree_util.tree_map(np.zeros_like, tree)
+    missing = str(tmp_path / "missing.msgpack")
+    assert checkpoint.load_msgpack_if_exists(missing, like) is None
+    assert j_checkpoint.load_msgpack_if_exists(missing, like) is None
+    path = str(tmp_path / "tree.msgpack")
+    with open(path, "wb") as f:
+        f.write(serialization.to_bytes(tree))
+    got = checkpoint.load_msgpack_if_exists(path, like)
+    want = j_checkpoint.load_msgpack_if_exists(path, like)
+    flat_got = jax.tree_util.tree_leaves_with_path(got)
+    flat_want = jax.tree_util.tree_leaves_with_path(want)
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+    for (_, a), (_, b) in zip(flat_got, flat_want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    with pytest.raises(ValueError, match="keys"):
+        checkpoint.load_msgpack_if_exists(path, {"params": {}})
+    bad = jax.tree_util.tree_map(lambda a: np.zeros((7,), np.float32), like)
+    with pytest.raises(ValueError, match="shape"):
+        checkpoint.load_msgpack_if_exists(path, bad)
+
+
 def test_migration_moves_exactly_the_mask_head():
     """``Conv_6`` and ``mask_head`` leave refine/update for mask_hidden /
     mask_head; nothing else moves; the JAX migration does the same."""

@@ -298,12 +298,13 @@ def test_train_step_on_card_matches_cpu(dev, net, dtype, loss_rtol, median_steps
 # ---------------------------------------------------------------- probe kernels
 @pytest.mark.parametrize("S", [1, 8, 16])
 @pytest.mark.parametrize("axis", [0, 1])
-@pytest.mark.parametrize("rows,cols", [(37, 45), (64, 768), (3840, 752)])
+@pytest.mark.parametrize("rows,cols", [(37, 45), (13, 131), (64, 768), (3840, 752)])
 def test_shift_probes_equal_their_plain_versions(dev, S, axis, rows, cols):
     """shift_chain and shift_gather (S = 8 compiled in, 1 and 16 through the
-    run-time-S instance; 37x45 is off the 256-thread block; 64x768 the
-    tools' default, 3840x752 the fused kernel's finest layer at b=8) equal
-    their plain versions and each other."""
+    run-time-S instance; 37x45 is off the blocks and tiles, 13x131 takes
+    16-byte copies on axis 1 at S = 8 and 16; 64x768 the tools' default,
+    3840x752 the fused kernel's finest layer at b=8) equal their plain
+    versions and each other."""
     from mav_detection_tpu_torch.ops.flow import shift_probes as sp
 
     x, sy, fy = sp.shift_inputs(np.random.default_rng(S + axis), rows, cols, S, axis, dev)
@@ -318,11 +319,14 @@ def test_shift_probes_equal_their_plain_versions(dev, S, axis, rows, cols):
 @pytest.mark.parametrize("variant", ["A", "B", "C", "D", "T"])
 @pytest.mark.parametrize("S,th,tw,m,bands", [(1, 5, 37, 3, 2), (8, 24, 752, 6, 2),
                                              (16, 7, 50, 6, 3), (8, 24, 752, 6, 20),
-                                             (8, 24, 752, 6, 160), (8, 32, 64, 6, 1440)])
+                                             (8, 24, 752, 6, 160), (8, 32, 64, 6, 1440),
+                                             (1, 3, 8, 2, 2), (8, 24, 40, 5, 3),
+                                             (2, 60, 20, 3, 2)])
 def test_y_stage_equals_its_plain_version(dev, variant, S, th, tw, m, bands):
-    """Off the block, the run-time-S instance, the tool's default (20
-    bands), the fused kernel's finest layer at b=8 (160 bands) and its tile
-    geometry (1440 tiles of 32x64)."""
+    """Off the tiles, the run-time-S instance (16-byte copies), the tool's
+    default (20 bands), the fused kernel's finest layer at b=8 (160 bands)
+    and its tile geometry (1440 tiles of 32x64); narrower than a tile,
+    16-byte copies with S compiled in, bands taller than one block."""
     from mav_detection_tpu_torch.ops.flow import shift_probes as sp
 
     g = sp.YGeometry(S, th, tw, m)
@@ -357,5 +361,9 @@ def test_probe_wrappers_count_and_refuse(dev):
     with pytest.raises(ValueError, match="float32"):
         sp.y_stage(slab, ysy, yfy.half(), 8, 2, "C")
     assert sum(sp.LAUNCHES.values()) == 2
-    info = sp.kernel_info("y_stage_A", 8)
+    info = sp.kernel_info("y_stage_A", 8, mrows=36)
     assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    assert info["threads"] == 288 and info["dyn_smem_bytes"] == 4 * 5 * 53 * 36
+    assert sp.kernel_info("shift_chain", 8)["dyn_smem_bytes"] == 4 * 81 * 32
+    with pytest.raises(ValueError, match="mrows"):
+        sp.kernel_info("y_stage_T", 8)

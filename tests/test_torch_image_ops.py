@@ -8,6 +8,7 @@ import torch
 import jax.numpy as jnp
 
 from mav_detection_tpu.ops.image import color as jcolor
+from mav_detection_tpu.ops.image import metrics as jmetrics
 from mav_detection_tpu.ops.image import visualize as jvis
 from mav_detection_tpu.ops.image.resize import resize as j_resize
 from mav_detection_tpu.ops.image.resize import resize_percent as j_resize_percent
@@ -15,11 +16,29 @@ from mav_detection_tpu.ops.image.resize import resize_width as j_resize_width
 
 from mav_detection_tpu_torch.data.dataset import imread, imwrite, png_decode, png_encode
 from mav_detection_tpu_torch.ops.image import color as tcolor
+from mav_detection_tpu_torch.ops.image import get_magnitude, get_rho
 from mav_detection_tpu_torch.ops.image import visualize as tvis
 from mav_detection_tpu_torch.ops.image.resize import resize, resize_percent, resize_width
 
 RNG = np.random.default_rng(7)
 FLOW = (RNG.normal(size=(48, 64, 2)) * 4).astype(np.float32)
+
+
+@pytest.mark.parametrize("fn,jfn", [(get_magnitude, jmetrics.get_magnitude),
+                                    (get_rho, jmetrics.get_rho)])
+@pytest.mark.parametrize("shape", [(48, 64, 2), (3, 20, 30, 2)])
+def test_flow_magnitude_and_angle_match_jax(fn, jfn, shape):
+    """float32 on both sides; 1e-6 relative / 1e-6 rad absolute: the two
+    libraries' sqrt and atan2 may round one ulp apart. Axes and the zero
+    vector as well (atan2(0, 0) = 0, atan2(0, -1) = pi)."""
+    flow = (np.random.default_rng(len(shape)).normal(size=shape) * 4).astype(np.float32)
+    flow[..., 0, 0, :] = 0.0
+    flow[..., 0, 1, :] = (-1.0, 0.0)
+    flow[..., 0, 2, :] = (0.0, -2.0)
+    got = fn(torch.from_numpy(flow))
+    want = np.asarray(jfn(jnp.asarray(flow)))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 class TestHostVisualize:

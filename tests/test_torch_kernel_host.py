@@ -17,8 +17,6 @@ kernels' index logic, ring timing and operation order on every tier-1 run;
 the card's memory model beyond that window, speed and the card's own
 compiler are the card tests' and ``chip_smoke.py``'s.
 """
-import re
-import shutil
 import subprocess
 from pathlib import Path
 
@@ -26,63 +24,24 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_host_build import LANDING, build_host, host_source
+
 from mav_detection_tpu_torch.ops.flow import farneback as tf
 from mav_detection_tpu_torch.ops.flow import farneback_iter as ti
 
-HOST = Path(__file__).resolve().parent / "cuda_host"
 SOURCE = Path(ti.__file__).resolve().parents[2] / "csrc" / "farneback_iter.cu"
 ASYNC_COPY = {"cp_async4": "async_copy(dst, src, 1);",
               "cp_async16": "async_copy(dst, src, 4);",
               "cp_async_commit": "async_commit();",
               "cp_async_wait_prefetch": "async_wait(kPrefetch - 1);"}
-# where a ring copy lands: at the cp.async wait that covers it, or when it
-# is started (cuda_host.h)
-LANDING = {"at_wait": [], "at_start": ["-DCP_ASYNC_AT_START"]}
-
-
-def _host_source() -> str:
-    """The .cu file's device part as host C++: cut before the C interface,
-    the runtime header swapped for the host stand-in, dynamic shared memory
-    a pointer, the inline-PTX copy helpers replaced by cuda_host.h's
-    queued copies."""
-    src = SOURCE.read_text()
-    src = src[:src.index('extern "C" {')]
-    src = src.replace("#include <cuda_runtime.h>", '#include "cuda_host.h"')
-    src = src.replace("extern __shared__ float smem[];", "float* smem = g_smem;")
-    found = []
-
-    def body(mt):
-        found.append(mt.group(1))
-        return (f"__device__ __forceinline__ void {mt.group(1)}({mt.group(2)}) "
-                f"{{ {ASYNC_COPY[mt.group(1)]} }}")
-
-    src = re.sub(r"__device__ __forceinline__ void (cp_async\w*)\(([^)]*)\) \{.*?\n\}",
-                 body, src, flags=re.S)
-    assert sorted(found) == sorted(ASYNC_COPY), found
-    return src
 
 
 @pytest.fixture(scope="module")
 def host_binaries(tmp_path_factory):
-    """The kernels built for the host, one binary per ``LANDING``, the
-    builds started together."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernels for the host")
-    d = tmp_path_factory.mktemp("cuda_host")
-    (d / "kernels.h").write_text(_host_source())
-    for f in ("cuda_host.h", "main.cpp"):
-        shutil.copy(HOST / f, d / f)
-    out = {k: d / f"kernels_{k}" for k in LANDING}
-    builds = [subprocess.Popen([gxx, "-O1", "-std=c++20", "-ffp-contract=off",
-                                "-pthread", *flags, "-o", str(out[k]),
-                                str(d / "main.cpp")],
-                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-              for k, flags in LANDING.items()]
-    for p in builds:
-        log = p.communicate(timeout=600)[0]
-        assert p.returncode == 0, log.decode()[-4000:]
-    return out
+    """The kernels built for the host, one binary per ``LANDING``."""
+    src = host_source(SOURCE, ASYNC_COPY,
+                      {"extern __shared__ float smem[];": "float* smem = g_smem;"})
+    return build_host(tmp_path_factory.mktemp("cuda_host"), "kernels.h", src, "main.cpp")
 
 
 def _inputs(b, h, w, seed):
