@@ -1,0 +1,13 @@
+"""``device_idle_share.loop`` (Device, moves ``frames_per_s``): 1 - the
+union of the device's kernel and copy intervals over the traced slice's
+wall seconds (``torch.profiler``, CPU and CUDA, over ``trace_seqs`` whole
+sequences after the window). None without a device operation in the
+trace."""
+from __future__ import annotations
+
+
+def read(run):
+    p = run.profile
+    if not p or p["window_s"] <= 0:
+        return None
+    return 1.0 - p["busy_s"] / p["window_s"]
