@@ -44,6 +44,7 @@ from mav_detection_tpu_torch.ops.flow.farneback_iter import (
     warp_separable,
 )
 from mav_detection_tpu_torch.utils.device import resolve_device
+from mav_detection_tpu_torch.utils.tracing import stage
 
 
 @dataclass(frozen=True)
@@ -512,42 +513,45 @@ def _farneback_cf(prev: torch.Tensor, curr: torch.Tensor,
         raise ValueError(
             f"warp={params.warp!r} is not valid, has to be one of "
             f"{', '.join(repr(v) for v in WARPS)}")
-    prev = prev.to(torch.float32)
-    curr = curr.to(torch.float32)
-    b, h, w = prev.shape
+    with stage("flow"):
+        prev = prev.to(torch.float32)
+        curr = curr.to(torch.float32)
+        b, h, w = prev.shape
 
-    flow = None
-    scales = _pyramid_scales(h, w, params)
-    for k_level in reversed(range(len(scales))):
-        scale = scales[k_level]
-        sigma = (1.0 / scale - 1.0) * 0.5
-        smooth_sz = max(int(round(sigma * 5)) | 1, 3)
-        lh, lw = int(round(h * scale)), int(round(w * scale))
+        flow = None
+        scales = _pyramid_scales(h, w, params)
+        for k_level in reversed(range(len(scales))):
+            scale = scales[k_level]
+            sigma = (1.0 / scale - 1.0) * 0.5
+            smooth_sz = max(int(round(sigma * 5)) | 1, 3)
+            lh, lw = int(round(h * scale)), int(round(w * scale))
 
-        if flow is None:
-            flow = torch.zeros((b, 2, lh, lw), dtype=torch.float32,
-                               device=prev.device)
-        else:
-            flow = resize_linear_cf(flow, (lh, lw)) * (1.0 / params.pyr_scale)
+            if flow is None:
+                flow = torch.zeros((b, 2, lh, lw), dtype=torch.float32,
+                                   device=prev.device)
+            else:
+                flow = resize_linear_cf(flow, (lh, lw)) * (1.0 / params.pyr_scale)
 
-        smooth = _gaussian_kernel(smooth_sz, sigma)
-        R0 = poly_exp_pyr_cf(prev, smooth, lh, lw, params.poly_n,
-                             params.poly_sigma)
-        R1 = poly_exp_pyr_cf(curr, smooth, lh, lw, params.poly_n,
-                             params.poly_sigma)
-        border = border_scale_map(lh, lw, prev.device)
+            smooth = _gaussian_kernel(smooth_sz, sigma)
+            with stage("flow.expand"):
+                R0 = poly_exp_pyr_cf(prev, smooth, lh, lw, params.poly_n,
+                                     params.poly_sigma)
+                R1 = poly_exp_pyr_cf(curr, smooth, lh, lw, params.poly_n,
+                                     params.poly_sigma)
+            border = border_scale_map(lh, lw, prev.device)
 
-        iterations = _level_iter_count(params, k_level)
-        if params.warp == "fused":
-            flow = farneback_iterate(R0, R1, flow.contiguous(), border,
-                                     iterations=iterations,
-                                     winsize=params.winsize,
-                                     max_shift=params.max_shift)
-        else:
-            flow = jacobi_level(R0, R1, flow, border, params,
-                                iterations=iterations)
+            iterations = _level_iter_count(params, k_level)
+            with stage("flow.iterate"):
+                if params.warp == "fused":
+                    flow = farneback_iterate(R0, R1, flow.contiguous(), border,
+                                             iterations=iterations,
+                                             winsize=params.winsize,
+                                             max_shift=params.max_shift)
+                else:
+                    flow = jacobi_level(R0, R1, flow, border, params,
+                                        iterations=iterations)
 
-    return flow.permute(0, 2, 3, 1)
+        return flow.permute(0, 2, 3, 1)
 
 
 ArrayLike = Union[torch.Tensor, np.ndarray]
