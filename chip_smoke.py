@@ -283,7 +283,15 @@ KERNEL_ROWS = {
                             replaces="tools/chain_probe.py:50",
                             sites=("tools/chain_probe.py:126",))
        for v in "ABCDT"},
+    # replaces no pallas_call: the reference leaves the polynomial expansion
+    # to XLA's dot (mav_detection_tpu/ops/flow/farneback.py::_poly_exp_pyr_cf)
+    "farneback_expand": dict(route="cuda",
+                             source="mav_detection_tpu_torch/csrc/farneback_expand.cu",
+                             replaces=None, sites=()),
 }
+# the band kernel against the matmuls it replaces: within this share of the
+# coefficients' largest magnitude (ROADMAP B9)
+EXPAND_TOL = 1e-5
 # the y stage's share of one farneback_iterate_fused launch at b=8 480x752,
 # predicted in PERF.md before it was measured: the two-tap form T on
 # the kernel's 32x64 tile geometry (1440 tiles), sy in runs of 32 columns
@@ -377,8 +385,8 @@ def level_inputs(dev, prev, curr, gt, params):
         sigma = (1.0 / scale - 1.0) * 0.5
         smooth = fb._gaussian_kernel(max(int(round(sigma * 5)) | 1, 3), sigma)
         lh, lw = int(round(h * scale)), int(round(w * scale))
-        R0 = fb.poly_exp_pyr_cf(p, smooth, lh, lw, params.poly_n, params.poly_sigma)
-        R1 = fb.poly_exp_pyr_cf(c, smooth, lh, lw, params.poly_n, params.poly_sigma)
+        R0, R1 = fb.poly_exp_pyr_pair_cf(p, c, smooth, lh, lw, params.poly_n,
+                                         params.poly_sigma)
         flow = (g if k == 0 else fb.resize_linear_cf(g, (lh, lw)) * scale).contiguous()
         out.append((R0, R1, flow, fb.border_scale_map(lh, lw, dev),
                     fb._level_iter_count(params, k)))
@@ -530,6 +538,101 @@ def phase_kernels(dev, b: int, h: int, w: int, hires: bool,
     return {"shape": f"b={b} {h}x{w} S={S}", "exact": exact,
             "max_abs_err": max(e["max_abs_err"]["fused"] for e in exact),
             "schedule_err_px": err_sched, "timings": timings}
+
+
+def phase_expand(dev, shapes=((8, 480, 752), (8, 1024, 1920), (1, 480, 752),
+                              (1, 1024, 1920)), reps: int = 20) -> dict:
+    """The polynomial expansion's band kernel (``poly_exp_pyr_pair_cf``, both
+    frames of each pair) at every layer of the product's pyramid, per
+    (b, h, w) of ``shapes``: held within EXPAND_TOL of the plain version
+    (the two matmuls on the card, TF32 off), then timed in turns (plain,
+    kernel, kernel, plain; replayed CUDA graphs of ``reps`` calls) beside
+    its bound (``expand_bound``), with its launches, tiles, registers,
+    shared memory and blocks per SM, and the ms per batch of each."""
+    import torch
+
+    from mav_detection_tpu_torch.ops.flow import farneback as fb
+    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
+
+    out = []
+    for b, h, w in shapes:
+        g = torch.Generator(device=dev).manual_seed(h + b)
+        prev, curr = (torch.rand(b, h, w, device=dev, generator=g) * 255 for _ in range(2))
+        params = fb.tuned_flow_params(h, w)
+        layers = []
+        for scale in fb._pyramid_scales(h, w, params):
+            sigma = (1.0 / scale - 1.0) * 0.5
+            smooth = fb._gaussian_kernel(max(int(round(sigma * 5)) | 1, 3), sigma)
+            lh, lw = int(round(h * scale)), int(round(w * scale))
+            args = (h, w, lh, lw, smooth, params.poly_n, params.poly_sigma)
+            a = (smooth, lh, lw, params.poly_n, params.poly_sigma)
+
+            def kernel(a=a):
+                return fb.poly_exp_pyr_pair_cf(prev, curr, *a)
+
+            def plain(a=a):
+                return fb.poly_exp_pyr_ref(prev, *a), fb.poly_exp_pyr_ref(curr, *a)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(got, want))
+            if not err <= EXPAND_TOL:
+                raise AssertionError(f"expand b={b} {lh}x{lw} of {h}x{w}: {err} of the "
+                                     f"coefficients' scale, over {EXPAND_TOL}")
+            turns = [("plain", graph_ms(plain, reps)), ("kernel", graph_ms(kernel, reps)),
+                     ("kernel", graph_ms(kernel, reps)), ("plain", graph_ms(plain, reps))]
+            bands = fb._expand_bands_np(*args)
+            bound, by = fe.expand_bound(2 * b, h, w, lh, lw,
+                                        fb._expand_taps(h, w, lh, lw, smooth, params.poly_n))
+            ms = sum(t for d, t in turns if d == "kernel") / 2
+            launches = fb._expand_plan(args, 2 * b)
+            layers.append({
+                "shape": f"b={b} {lh}x{lw} of {h}x{w}", "Kv": bands.Kv, "Kh": bands.Kh,
+                "ms": ms, "plain_ms": sum(t for d, t in turns if d == "plain") / 2,
+                "bound_ms": bound, "bound_by": by, "share": bound / ms,
+                "rel_err": err, "turns": [[d, t] for d, t in turns],
+                "launches": [{**k._asdict(), **fe.kernel_info(k)} for k in launches]})
+        out.append({"shape": f"b={b} {h}x{w}", "layers": layers,
+                    **{f"{key}_per_batch": sum(lv[key] for lv in layers)
+                       for key in ("ms", "plain_ms", "bound_ms")}})
+    return {"shapes": out, "max_rel_err": max(lv["rel_err"] for r in out
+                                              for lv in r["layers"])}
+
+
+def _say_expand(ex: dict, smi: str, seconds: float) -> None:
+    for r in ex["shapes"]:
+        for lv in r["layers"]:
+            ks = "; ".join(f"{k['kernel']} {k['th']}x{k['tw']} tile, {k['blocks']} blocks, "
+                           f"{k['registers']} registers, {k['smem_bytes']} B shared, "
+                           f"{k['blocks_per_sm']} per SM, local {k['local_bytes']} B"
+                           for k in lv["launches"])
+            say(f"[expand]   {lv['shape']} (bands {lv['Kv']} x {lv['Kh']} taps) on {smi}: "
+                f"{lv['ms']:.5f} ms against the bound {lv['bound_ms']:.5f} ms "
+                f"({lv['bound_by']}, share {lv['share']:.3f}); plain matmuls "
+                f"{lv['plain_ms']:.5f} ms; relative error {lv['rel_err']:.3g}; in turns "
+                f"{json.dumps([[d, round(t, 5)] for d, t in lv['turns']])}; {ks}")
+        say(f"[expand]   {r['shape']} per batch: {r['ms_per_batch']:.5f} ms (bound "
+            f"{r['bound_ms_per_batch']:.5f}, plain {r['plain_ms_per_batch']:.5f})")
+    say(f"[expand] band kernel within {EXPAND_TOL} of the matmuls everywhere "
+        f"(largest {ex['max_rel_err']:.3g}) ({seconds:.1f} s)")
+
+
+def _expand_row(ex: dict, launches: dict) -> dict:
+    """The kernels-line row of the band kernel: b=8 480x752, every layer,
+    and the other shapes beside; ``launches``: the launches counted on each
+    main-path run (``"launches"`` the batch engine's at 752x480)."""
+    k = "farneback_expand"
+    first, *rest = ex["shapes"]
+    fine = first["layers"][0]
+    return {"name": k, **KERNEL_ROWS[k], **launches,
+            "max_rel_err": ex["max_rel_err"], "ms": fine["ms"], "plain_ms": fine["plain_ms"],
+            "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
+            "library_ms": fine["plain_ms"],
+            "library_note": "the plain version is the two torch.matmul calls it replaces",
+            "shape": fine["shape"], "tolerance": EXPAND_TOL, "check": "pass",
+            "layers": first["layers"], "per_batch": {key: first[key] for key in (
+                "ms_per_batch", "plain_ms_per_batch", "bound_ms_per_batch")},
+            "other_shapes": rest}
 
 
 def _library_lerp(x, sy, fy, S: int, axis: int):
@@ -738,12 +841,12 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
         torch.cuda.synchronize()
         proc.tracer = Tracer()
         proc.detection_results = {}
-        fi.reset_launch_counts()
+        _reset_launches()
         t0 = time.perf_counter()
         results = proc.run_detection_foe()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(fi.LAUNCHES)
+        launches = _launches()
         n_pairs = n_frames - 1
         if sorted(results) != list(range(n_pairs)):
             raise AssertionError(f"{w}x{h}: results for {sorted(results)}")
@@ -751,9 +854,15 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
         per_batch = sum(fb._level_iter_count(params, k)
                         for k in range(len(fb._pyramid_scales(h, w, params))))
         expected = per_batch * -(-n_pairs // batch)
-        for k, n in launches.items():
-            if n != expected:
-                raise AssertionError(f"{k}: {n} launches, expected {expected}")
+        for k in fi.KERNELS:
+            if launches[k] != expected:
+                raise AssertionError(f"{k}: {launches[k]} launches, expected {expected}")
+        # the band kernel: 1 + 1 + 2 launches a batch (two passes on the
+        # coarsest layer), for both frames of each pair
+        if _expand_per_call(params, h, w) != 4:
+            raise AssertionError(f"{w}x{h}: band kernel plan of "
+                                 f"{_expand_per_call(params, h, w)} launches a batch")
+        _hold_expand(f"main path {w}x{h}", launches, params, h, w)
         foe_err = []
         for i, fr in results.items():
             d = fr.to_dict()
@@ -1145,7 +1254,6 @@ def phase_artifacts(dev) -> dict:
     import torch
 
     from mav_detection_tpu_torch.data.dataset import imread
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
 
     h, w, n_frames, batch = 480, 752, 12, 8
     n_pairs = n_frames - 1
@@ -1154,14 +1262,15 @@ def phase_artifacts(dev) -> dict:
                                     flow_source="FARNEBACK")
         if not proc.save_images:
             raise AssertionError("save_images must default to True")
-        fi.reset_launch_counts()
+        _reset_launches()
         t0 = time.perf_counter()
         results = proc.run_detection_foe()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(fi.LAUNCHES)
+        launches = _launches()
         if launches["farneback_iterate_fused"] <= 0:
             raise AssertionError("artifacts: the run launched no kernel")
+        _hold_expand("artifacts", launches, proc._farneback, h, w)
         if sorted(results) != list(range(n_pairs)):
             raise AssertionError(f"artifacts: results for {sorted(results)}")
         names = [f"image_{i:05d}.png" for i in range(n_pairs)]
@@ -1198,7 +1307,6 @@ def phase_homography(dev) -> dict:
     possible across devices, so each run draws its own centers)."""
     import torch
 
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.pipeline import processor as pmod
 
     h, w, n_frames, batch = 480, 752, 9, 8
@@ -1222,7 +1330,7 @@ def phase_homography(dev) -> dict:
                     return out
                 pmod.optimize_window = keeping
                 try:
-                    fi.reset_launch_counts()
+                    _reset_launches()
                     t0 = time.perf_counter()
                     results = proc.run_detection()
                     if d == dev:
@@ -1231,7 +1339,8 @@ def phase_homography(dev) -> dict:
                 finally:
                     pmod.optimize_window = real
                 boxes = {i: tuple(_np(b).tolist()) for i, b in enumerate(found)}
-                launches = dict(fi.LAUNCHES)
+                launches = _launches()
+                _hold_expand("homography", launches, proc._farneback, h, w)
                 mosaics = (len(os.listdir(os.path.join(tmp, "processed")))
                            if d == dev else 0)
             if sorted(results) != list(range(n_pairs)):
@@ -1282,7 +1391,6 @@ def phase_lucas_kanade(dev) -> dict:
     import torch
 
     from mav_detection_tpu_torch.data.scene import make_scene
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.ops.flow import lucas_kanade as lk
 
     h, w, max_corners = 480, 752, 2000
@@ -1310,7 +1418,7 @@ def phase_lucas_kanade(dev) -> dict:
     n_frames, batch = 5, 4
     proc = _synthetic_processor(dev, h, w, n_frames, batch, "",
                                 flow_source="LUCAS_KANADE")
-    fi.reset_launch_counts()
+    _reset_launches()
     t0 = time.perf_counter()
     results = proc.run_detection_foe()
     torch.cuda.synchronize()
@@ -1324,8 +1432,8 @@ def phase_lucas_kanade(dev) -> dict:
         if not np.isfinite(vals).all():
             raise AssertionError(f"lucas_kanade frame {i}: non-finite {fr}")
         foe_err.append(float(np.hypot(*np.subtract(fr.foe_dense, fr.foe_gt))))
-    if sum(fi.LAUNCHES.values()) != 0:
-        raise AssertionError("lucas_kanade: the LK source launched the Farneback kernel")
+    if sum(_launches().values()) != 0:
+        raise AssertionError("lucas_kanade: the LK source launched a Farneback kernel")
     return {"survivors": survivors, "max_corners": max_corners,
             "track_epe_px": track_epe, "dense_interior_epe_px": dense_epe,
             "foe_loop": {"pairs": n_frames - 1, "wall_s": wall,
@@ -1427,7 +1535,6 @@ def _scan_run(dev, h, w, n_frames, sample_yx, tmp, **cfg_kw):
     counter is zeroed just before the measured run and read just after."""
     import torch
 
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.utils.tracing import Tracer
 
     proc = _synthetic_processor(dev, h, w, n_frames, 8, tmp, flow_source="FARNEBACK",
@@ -1436,14 +1543,15 @@ def _scan_run(dev, h, w, n_frames, sample_yx, tmp, **cfg_kw):
     torch.cuda.synchronize()
     proc.tracer = Tracer()
     proc.detection_results = {}
-    fi.reset_launch_counts()
+    _reset_launches()
     t0 = time.perf_counter()
     results = proc.run_detection_foe(sample_yx=sample_yx)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fi.LAUNCHES)
+    launches = _launches()
     if sorted(results) != list(range(n_frames - 1)):
         raise AssertionError(f"scan {w}x{h}: results for {sorted(results)}")
+    _hold_expand(f"scan {w}x{h}", launches, proc._farneback, h, w)
     stages = {k: v["total_s"] * 1e3 for k, v in proc.tracer.as_dict().items()}
     return proc, results, launches, wall, stages
 
@@ -1596,7 +1704,6 @@ def phase_native(dev, size=(480, 752)) -> dict:
     from mav_detection_tpu_torch.core import flo
     from mav_detection_tpu_torch.core.config import RunConfig
     from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.pipeline.processor import Processor
     from mav_detection_tpu_torch.runtime import native_loader as native
 
@@ -1708,7 +1815,7 @@ def phase_native(dev, size=(480, 752)) -> dict:
             if reader == "numpy":
                 native.available = lambda: False
             try:
-                fi.reset_launch_counts()
+                _reset_launches()
                 t0 = time.perf_counter()
                 results = proc.run_detection_foe()
                 torch.cuda.synchronize()
@@ -1719,7 +1826,7 @@ def phase_native(dev, size=(480, 752)) -> dict:
                 proc.release()
             _finite_results(f"native {reader}", results, ds.results_path)
             runs[reader] = {"json": {i: fr.to_json() for i, fr in results.items()},
-                            "wall_s": wall, "launches": dict(fi.LAUNCHES),
+                            "wall_s": wall, "launches": _launches(),
                             "served": len(served)}
         if runs["prefetcher"]["served"] != n_frames - 1 or \
                 runs["numpy"]["served"] != n_frames - 1:
@@ -1740,19 +1847,20 @@ def phase_entry(dev) -> dict:
     import torch
 
     from mav_detection_tpu_torch.entry import entry
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.ops.flow import farneback as fb
 
     fn, args = entry(dev)
     if not all(a.is_cuda for a in args):
         raise AssertionError("entry: example arguments are not on the card")
     fn(*args)                                            # warm-up
-    fi.reset_launch_counts()
+    _reset_launches()
     foe, tpr_fixed, fpr_fixed, total_mask = fn(*args)
     torch.cuda.synchronize()
-    launches = dict(fi.LAUNCHES)
+    launches = _launches()
     if launches["farneback_iterate_fused"] != 13:
         raise AssertionError(f"entry: {launches}")
     h, w = args[0].shape
+    _hold_expand("entry", launches, fb.tuned_flow_params(h, w), h, w)
     vals = _np(torch.stack([*foe, tpr_fixed, fpr_fixed]))
     if not np.isfinite(vals).all() or total_mask.shape != (h, w):
         raise AssertionError(f"entry: outputs {vals}, mask {tuple(total_mask.shape)}")
@@ -1856,7 +1964,6 @@ def _raft_loop(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
     from mav_detection_tpu_torch.core.config import FlowSource
     from mav_detection_tpu_torch.models import pretrained
     from mav_detection_tpu_torch.models import raft as tr
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.ops.image.resize import resize_frames
     from mav_detection_tpu_torch.pipeline.detector import detect_frame_batch_scalars
     from mav_detection_tpu_torch.utils.tracing import Tracer
@@ -1878,7 +1985,7 @@ def _raft_loop(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
             return checks[-1]
 
         tr.check_flow_saturation = counted
-        fi.reset_launch_counts()
+        _reset_launches()
         try:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
@@ -1892,7 +1999,7 @@ def _raft_loop(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
                     torch.cuda.set_sync_debug_mode("default")
         finally:
             tr.check_flow_saturation = real_check
-        launches = dict(fi.LAUNCHES)
+        launches = _launches()
         syncs = collections.Counter(
             f"{os.path.relpath(c.filename, os.path.dirname(os.path.abspath(__file__)))}:"
             f"{c.lineno}" for c in caught if "synchroniz" in str(c.message))
@@ -2147,6 +2254,55 @@ def _per_batch_launches(params, h, w) -> int:
                for k in range(len(fb._pyramid_scales(h, w, params))))
 
 
+def _reset_launches() -> None:
+    """Zero the launch counters of the main path's two kernels: the
+    iterate's and the polynomial expansion's band kernel's."""
+    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+
+    fi.reset_launch_counts()
+    fe.reset_launch_counts()
+
+
+def _launches() -> dict:
+    """Both kernels' launches, per kernel, since ``_reset_launches``."""
+    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+
+    return {**fi.LAUNCHES, **fe.LAUNCHES}
+
+
+def _expand_per_call(params, h, w) -> int:
+    """Band-kernel launches of one flow call at (h, w): its plan's, summed
+    over the pyramid's layers."""
+    from mav_detection_tpu_torch.ops.flow import farneback as fb
+
+    n = 0
+    for scale in fb._pyramid_scales(h, w, params):
+        sigma = (1.0 / scale - 1.0) * 0.5
+        smooth = fb._gaussian_kernel(max(int(round(sigma * 5)) | 1, 3), sigma)
+        args = (h, w, int(round(h * scale)), int(round(w * scale)), smooth,
+                params.poly_n, params.poly_sigma)
+        n += len(fb._expand_plan(args, 2))
+    return n
+
+
+def _hold_expand(tag: str, launches: dict, params, h: int, w: int) -> int:
+    """The band kernel's launches in ``launches`` (``_launches`` of a run at
+    (h, w)) against the flow calls that the iterate's launches count: the
+    plan's launches per call. Returns the band kernel's total."""
+    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
+
+    calls, rest = divmod(launches["farneback_iterate_fused"],
+                         _per_batch_launches(params, h, w))
+    got = sum(launches[k] for k in fe.KERNELS)
+    want = calls * _expand_per_call(params, h, w)
+    if rest or got != want:
+        raise AssertionError(f"{tag}: band kernel launches {launches}, expected {want} "
+                             f"({calls} flow calls at {w}x{h})")
+    return got
+
+
 def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
                    sim=(1024, 1920, 7, 4)) -> dict:
     import shutil
@@ -2161,7 +2317,6 @@ def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
     from mav_detection_tpu_torch.data.sim_data import SimDataset
     from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
     from mav_detection_tpu_torch.ops.flow import farneback as fb
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.pipeline.processor import Processor
     from mav_detection_tpu_torch.runtime import native_loader as native
     from mav_detection_tpu_torch.sim import MockSimClient, SimDataCollector
@@ -2184,7 +2339,7 @@ def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
         validation's after it. Returns (frames/s, launches, wall s) of the
         detection."""
         sky_calls.clear()
-        fi.reset_launch_counts()
+        _reset_launches()
         t0 = time.perf_counter()
         with _ValidationSplit() as split:
             cli_main(argv)
@@ -2193,6 +2348,12 @@ def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
         launches = val["launches_before"]
         out["launches"][tag] = launches
         out["launches"][f"{tag} validation"] = val["launches"]
+        mh, mw = midgard[:2]
+        params = fb.tuned_flow_params(mh, mw)
+        out.setdefault("expand_launches", {})[tag] = _hold_expand(
+            f"datasets {tag}", val["counts_before"], params, mh, mw)
+        out["expand_launches"][f"{tag} validation"] = _hold_expand(
+            f"datasets {tag} validation", val["counts"], params, mh, mw)
         out.setdefault("validation_s", {})[tag] = val["s"]
         return n_pairs / wall, launches, wall
 
@@ -2383,13 +2544,16 @@ def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
                 proc.save_images = False
                 proc.run_detection_foe()                 # warm-up
                 torch.cuda.synchronize()
-                fi.reset_launch_counts()
+                _reset_launches()
                 t0 = time.perf_counter()
                 r = proc.run_detection_foe()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                n = fi.LAUNCHES[k]
+                counts = _launches()
+                n = counts[k]
                 out["launches"][f"simulation {src_name}"] = n
+                out.setdefault("expand_launches", {})[f"simulation {src_name}"] = \
+                    _hold_expand(f"datasets sim {src_name}", counts, proc._farneback, sh, sw)
                 pairs = n_cap - 1
                 want = 0 if src_name == "GROUND_TRUTH" else \
                     _per_batch_launches(proc._farneback, sh, sw) * -(-pairs // sbatch)
@@ -2435,23 +2599,26 @@ class _ValidationSplit:
 
     def __enter__(self):
         from mav_detection_tpu_torch.eval import validator as tv
-        from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
 
         self.runs = []
         self._real = real = tv.Validator.run_validation
         runs = self.runs
+        k = "farneback_iterate_fused"
 
         def run(v):
             import torch
 
             torch.cuda.synchronize()
-            start = fi.LAUNCHES["farneback_iterate_fused"]
+            start = _launches()
             t0 = time.perf_counter()
             stats = real(v)
             torch.cuda.synchronize()
-            runs.append({"launches_before": start, "stats": stats, "started": t0,
+            end = _launches()
+            runs.append({"launches_before": start[k], "stats": stats, "started": t0,
                          "s": time.perf_counter() - t0,
-                         "launches": fi.LAUNCHES["farneback_iterate_fused"] - start,
+                         "launches": end[k] - start[k],
+                         "counts_before": start,
+                         "counts": {key: end[key] - start[key] for key in end},
                          "figures_skipped": v._plots_skipped})
             return stats
 
@@ -2568,7 +2735,6 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
     from mav_detection_tpu_torch.models import checkpoint, pretrained
     from mav_detection_tpu_torch.models import yolo as ty
     from mav_detection_tpu_torch.ops.flow import farneback as fb
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.ops.image.visualize import flow_to_color
     from mav_detection_tpu_torch.serve import _decode_media, _encode_annotated, create_server
 
@@ -2763,8 +2929,9 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
             for v in env_keys[1:]:
                 os.environ.pop(v, None)
             cli_out = {}
+            params = fb.tuned_flow_params(ch, cw)
             with _ValidationSplit() as split:
-                fi.reset_launch_counts()
+                _reset_launches()
                 t0 = time.perf_counter()
                 cli_main(["--headless"])
                 torch.cuda.synchronize()
@@ -2772,6 +2939,11 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
                 val = split.runs[-1]
                 cli_out["detection_launches"] = val["launches_before"]
                 cli_out["validation_launches"] = val["launches"]
+                cli_out["expand_launches"] = {
+                    "detection": _hold_expand("yolo cli", val["counts_before"], params,
+                                              ch, cw),
+                    "validation": _hold_expand("yolo cli validation", val["counts"],
+                                               params, ch, cw)}
                 cli_out["validation_s"] = val["s"]
                 cli_out["figures"] = "skipped (no matplotlib)" if val["figures_skipped"] \
                     else "written"
@@ -2799,7 +2971,7 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
                 try:
                     os.environ["YOLO_INFERENCE_HOST"] = \
                         f"http://{srv.server_address[0]}:{srv.server_address[1]}"
-                    fi.reset_launch_counts()
+                    _reset_launches()
                     cli_main(["--headless", "--validate"])
                     torch.cuda.synchronize()
                 finally:
@@ -2815,15 +2987,20 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
                     raise AssertionError("yolo remote: no nn-input npz")
                 cli_out["remote_validation_s"] = remote["s"]
                 cli_out["remote_validation_launches"] = remote["launches"]
+                cli_out["expand_launches"]["remote_validation"] = _hold_expand(
+                    "yolo remote validation", remote["counts"], params, ch, cw)
 
             # --prepare-dataset in FLOW_FOE_YOLO mode
             os.environ["YOLOv4_PATH"] = os.path.join(tmp, "yolo")
-            fi.reset_launch_counts()
+            _reset_launches()
             t0 = time.perf_counter()
             cli_main(["--headless", "--prepare-dataset", "--mode", "FLOW_FOE_YOLO"])
             torch.cuda.synchronize()
             cli_out["convert_s"] = time.perf_counter() - t0
-            cli_out["convert_launches"] = fi.LAUNCHES[k]
+            counts = _launches()
+            cli_out["convert_launches"] = counts[k]
+            cli_out["expand_launches"]["convert"] = _hold_expand(
+                "yolo convert", counts, params, ch, cw)
             imgs_out = sorted(glob.glob(os.path.join(tmp, "yolo", "dataset", "images", "*.png")))
             anns_out = glob.glob(os.path.join(tmp, "yolo", "dataset", "labels", "yolo", "*.txt"))
             if len(imgs_out) != cn - 2 or len(anns_out) != cn - 2:
@@ -2847,6 +3024,7 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
                        "validation": cli_out["validation_launches"],
                        "remote_validation": cli_out["remote_validation_launches"],
                        "convert": cli_out["convert_launches"]}
+    out["expand_launches"] = cli_out["expand_launches"]
     out["checks"] = checks.finish()
     return out
 
@@ -3308,7 +3486,6 @@ def phase_tools(dev, size=(480, 752), batch: int = 8) -> dict:
     from mav_detection_tpu_torch.data.dataset import png_decode
     from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
     from mav_detection_tpu_torch.eval import figures
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.pipeline.processor import Processor
     from mav_detection_tpu_torch.sim.client import MockSimClient, Vector3
     from mav_detection_tpu_torch.utils.tracing import trace_to
@@ -3329,10 +3506,11 @@ def phase_tools(dev, size=(480, 752), batch: int = 8) -> dict:
         proc.run_detection_foe()                       # warm-up
         torch.cuda.synchronize()
         proc.detection_results = {}
-        fi.reset_launch_counts()
+        _reset_launches()
         with trace_to(os.path.join(tmp, "trace")) as prof:
             proc.run_detection_foe()
-        launches = dict(fi.LAUNCHES)
+        launches = _launches()
+        _hold_expand("tools trace", launches, proc._farneback, h, w)
         traces = glob.glob(os.path.join(tmp, "trace", "trace_*.json"))
         trace_bytes = os.path.getsize(traces[0]) if len(traces) == 1 else 0
     if trace_bytes == 0:
@@ -3970,16 +4148,15 @@ def _multi_processor(dev, ds, mesh=None, **cfg_kw):
 
 
 def _run(fn, dev):
-    """(what ``fn`` returns, host-clock s, fused launches) of one
-    synchronised call, the launch counters zeroed just before it."""
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
-
+    """(what ``fn`` returns, host-clock s, launches of the iterate and of
+    the band kernel) of one synchronised call, the launch counters zeroed
+    just before it."""
     _sync(dev)
-    fi.reset_launch_counts()
+    _reset_launches()
     t0 = time.perf_counter()
     out = fn()
     _sync(dev)
-    return out, time.perf_counter() - t0, dict(fi.LAUNCHES)
+    return out, time.perf_counter() - t0, _launches()
 
 
 def _turns(mesh, one, sharded) -> dict:
@@ -4187,6 +4364,7 @@ def phase_multi(dev, sizes=MULTI_SIZES, ranks: int = 1) -> dict:
     """The multi-device paths on ``ranks`` spawned ranks (world size 1 by
     default; NCCL on the cards, gloo on the CPU), each held to its one-card
     counterpart, which rank 0 runs in turns with it in the same process."""
+    from mav_detection_tpu_torch.ops.flow import farneback as fb
     from mav_detection_tpu_torch.parallel.mesh import backend_for, launch
 
     t0 = time.perf_counter()
@@ -4268,9 +4446,11 @@ def phase_multi(dev, sizes=MULTI_SIZES, ranks: int = 1) -> dict:
                     "one_card_losses": [float(v) for v in one_losses]}
     if dev.type == "cuda":
         fused = "farneback_iterate_fused"
-        for tag in ("data_parallel", "chunked"):
+        for tag, (th, tw) in (("data_parallel", (h, w)), ("chunked", (ch, cw))):
             if out[tag]["launches"][fused] == 0:
                 raise AssertionError(f"[multi] {tag}: the fused kernel never launched")
+            _hold_expand(f"[multi] {tag}", out[tag]["launches"],
+                         fb.tuned_flow_params(th, tw), th, tw)
         if out["spatial"]["launches"][fused]:
             raise AssertionError("[multi] spatial: the fused kernel launched")
     return out
@@ -4285,29 +4465,31 @@ def _strict_json(text: str) -> dict:
 def phase_bench(dev) -> dict:
     """``python -m mav_detection_tpu_torch.bench`` (its ``main``) on the card
     at bench.py's sizes, with bench.py's cv2 oracle and baseline call given
-    as ``cv2_flow``, the fused kernel's counter zeroed just before: one line
+    as ``cv2_flow``, the launch counters zeroed just before: one line
     of strict JSON with the keys bench.py's line has; the headline (752x480,
     b=8) and the 1920x1024 figure non-null, from a replayed CUDA graph; EPE
     vs cv2 < CV2_GATE_PX at 752x480 and vs GT < 0.55 px at 1920x1024 (the
-    bench raises on either itself); the kernel launched."""
+    bench raises on either itself); both kernels launched."""
     import contextlib
     import io
 
     import cv2
 
     from mav_detection_tpu_torch import bench
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 
     def cv2_flow(prev8, curr8):
         return cv2.calcOpticalFlowFarneback(prev8, curr8, None, *CV2_ORACLE_ARGS)
 
     buf = io.StringIO()
-    fi.reset_launch_counts()
+    _reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         res = bench.main([], device=dev, cv2_flow=cv2_flow)
     seconds = time.perf_counter() - t0
-    launches = fi.LAUNCHES["farneback_iterate_fused"]
+    counts = _launches()
+    launches = counts["farneback_iterate_fused"]
+    expand_launches = sum(counts[k] for k in fe.KERNELS)
     lines = buf.getvalue().strip().splitlines()
     if len(lines) != 1:
         raise AssertionError(f"bench: {len(lines)} lines printed, expected one")
@@ -4330,10 +4512,10 @@ def phase_bench(dev) -> dict:
         raise AssertionError(f"bench: EPE vs cv2 {epe_cv2} (gate {CV2_GATE_PX} px)")
     if not line["hires"]["epe_gt"] < bench.HIRES_GATE_PX:
         raise AssertionError(f"bench: hires EPE vs GT {line['hires']['epe_gt']}")
-    if launches == 0:
-        raise AssertionError("bench: farneback_iterate_fused launched no time")
+    if launches == 0 or expand_launches == 0:
+        raise AssertionError(f"bench: launches {counts}")
     return {"line": lines[0], "result": line, "seconds": seconds, "launches": launches,
-            "epe_cv2_px": epe_cv2}
+            "expand_launches": expand_launches, "epe_cv2_px": epe_cv2}
 
 
 def main_multi(dev, ranks: int, smi: str) -> int:
@@ -4580,7 +4762,7 @@ def main(argv=None) -> int:
               "runs on a CUDA card only", file=sys.stderr)
         return 2
     from mav_detection_tpu_torch import _build
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
     from mav_detection_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")
@@ -4602,11 +4784,15 @@ def main(argv=None) -> int:
     probe_regs = [int(n) for n in re.findall(r"Used (\d+) registers",
                                              _build.BUILD_LOGS["shift_probes"])]
     times["build"] = build_s
-    say(f"[build] csrc/farneback_iter.cu and csrc/shift_probes.cu (nvcc), "
-        f"runtime/native/loader.cpp and runtime/native/png.cpp (g++), started "
-        f"together, built and loaded in {build_s:.2f} s; ptxas farneback_iter: "
-        f"{json.dumps(ptxas)}; ptxas shift_probes, registers of its "
-        f"{len(probe_regs)} instances: {probe_regs}")
+    expand_regs = [int(n) for n in re.findall(r"Used (\d+) registers",
+                                              _build.BUILD_LOGS["farneback_expand"])]
+    say(f"[build] csrc/farneback_iter.cu, csrc/farneback_expand.cu and "
+        f"csrc/shift_probes.cu (nvcc), runtime/native/loader.cpp and "
+        f"runtime/native/png.cpp (g++), started together, built and loaded in "
+        f"{build_s:.2f} s; ptxas farneback_iter: {json.dumps(ptxas)}; ptxas "
+        f"shift_probes, registers of its {len(probe_regs)} instances: {probe_regs}; "
+        f"ptxas farneback_expand, registers of its {len(expand_regs)} kernels: "
+        f"{expand_regs}")
 
     if ranks:
         return main_multi(dev, ranks, smi)
@@ -4621,6 +4807,11 @@ def main(argv=None) -> int:
     times["kernels"] = time.perf_counter() - t0
     _say_kernels((main_shape, hires_shape, scan_shape, scan_hires_shape), smi)
     say(f"[kernels] ({times['kernels']:.1f} s)")
+
+    t0 = time.perf_counter()
+    expand = phase_expand(dev)
+    times["expand"] = time.perf_counter() - t0
+    _say_expand(expand, smi, times["expand"])
 
     t0 = time.perf_counter()
     say("[probes] the TPU probe kernels of tools/, ported (csrc/shift_probes.cu), "
@@ -4899,7 +5090,7 @@ def main(argv=None) -> int:
     times["bench"] = time.perf_counter() - t0
     say(f"[bench] python -m mav_detection_tpu_torch.bench on {smi} (cv2 oracle and "
         f"baseline given): {bn['seconds']:.1f} s, farneback_iterate_fused launched "
-        f"{bn['launches']} times, EPE vs cv2 {bn['epe_cv2_px']} px, chip health "
+        f"{bn['launches']} times, the band kernel {bn['expand_launches']}, EPE vs cv2 {bn['epe_cv2_px']} px, chip health "
         f"{bn['result']['chip_health']} ({times['bench']:.1f} s)")
     say(bn["line"])
     say(f"[phases] seconds {json.dumps(times)}")
@@ -4934,6 +5125,27 @@ def main(argv=None) -> int:
         "path": "scan engine",
         "hires": _fused_row(scan_hires_shape, 1, scan["1920x1024"]["launches"][k], {})}))
     rows += _probe_rows(probes)
+
+    def band(counts):
+        return sum(counts[key] for key in fe.KERNELS)
+    rows.append(_expand_row(expand, {
+        "launches": band(runs[0]["launches"]),
+        "launches_per_kernel": {key: runs[0]["launches"][key] for key in fe.KERNELS},
+        "launches_1920x1024": band(runs[1]["launches"]),
+        "launches_artifacts": band(art["launches"]),
+        "launches_homography": band(hom["plain"]["launches"]),
+        "launches_homography_sparse": band(hom["sparse"]["launches"]),
+        "launches_scan": band(scan["752x480"]["launches"]),
+        "launches_scan_sparse": band(scan["752x480 use_sparse_of"]["launches"]),
+        "launches_scan_1920x1024": band(scan["1920x1024"]["launches"]),
+        "launches_entry": band(ent["launches"]),
+        "launches_datasets": dsets["expand_launches"],
+        "launches_yolo": yo["expand_launches"],
+        "launches_tools_trace": band(trc["launches"]),
+        "launches_multi_data_parallel": band(dp["launches"]),
+        "launches_multi_chunked": band(chk["launches"]),
+        "launches_multi_spatial": band(sp["launches"]),
+        "launches_bench": bn["expand_launches"]}))
     say(json.dumps({"nets": {k: nets[k] for k in ("load", "sky", "raft", "stages")},
                     "datasets": {key: dsets[key] for key in (
                         "midgard", "midgard_card_vs_cpu", "png", "sim")},

@@ -1,6 +1,6 @@
 """Build and load the port's native libraries.
 
-Four sources, each compiled at first use into a shared library with a
+Five sources, each compiled at first use into a shared library with a
 plain C interface and loaded with ``ctypes``:
 
 * ``"farneback_iter"``: ``csrc/farneback_iter.cu``, the solver iteration's
@@ -8,9 +8,13 @@ plain C interface and loaded with ``ctypes``:
   tiles), with ``nvcc`` for ``sm_90a`` into ``build/kernels/``. The
   wrappers pass ``tensor.data_ptr()`` and the current stream's handle as
   ``c_void_p``.
+* ``"farneback_expand"``: ``csrc/farneback_expand.cu``, the polynomial
+  expansion's band kernels (``ops/flow/farneback_expand.py``), the same way
+  but with multiply-add contraction on (``NVCC_FMA_FLAGS``): the kernel is
+  held to a tolerance, not bit for bit.
 * ``"shift_probes"``: ``csrc/shift_probes.cu``, the probe kernels of the
   warp's shifted reads (``ops/flow/shift_probes.py``), the same way and with
-  the same flags.
+  ``farneback_iter``'s flags.
 * ``"loader"``: ``runtime/native/loader.cpp``, the host ``.flo`` codec and
   prefetcher, with ``g++`` into ``build/native/``.
 * ``"png"``: ``runtime/native/png.cpp``, the PNG row unfilter of
@@ -20,6 +24,7 @@ Both directories lie under ``build/`` at the repo root (git-ignored). A
 library is named by a hash of its source and flags, so an edited source
 rebuilds. ``build`` starts one compiler process per source that is not built
 yet, all together, and then waits for them; ``load`` builds what it needs
+(either kernel of the main path builds both, ``MAIN_PATH``, in parallel)
 and sets the library's argtypes once.
 
 Only the repo's own sources are compiled; there is no prebuilt artifact. A
@@ -52,6 +57,9 @@ BUILD_DIR = BUILD_ROOT / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# the expansion's sums run in another order than the matmuls they replace,
+# so it is held to a tolerance and may contract multiply and add
+NVCC_FMA_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
@@ -87,6 +95,23 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.farneback_iterate_fused.restype = i
     lib.farneback_iterate_fused_info.argtypes = [i, i, i, i, p]
     lib.farneback_iterate_fused_info.restype = i
+
+
+def _bind_expand(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.farneback_expand_fused.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, i, i,
+                                           p, p, p, i, i, f, f, f, f, i, i, i, p]
+    lib.farneback_expand_vertical.argtypes = [p, p, p, i, i, i, i, p, p, p, i, i, i, i,
+                                              i, p]
+    lib.farneback_expand_horizontal.argtypes = [p, p, p, i, i, i, i, p, p, p, i, i, f,
+                                                f, f, f, i, i, p]
+    for fn in (lib.farneback_expand_fused, lib.farneback_expand_vertical,
+               lib.farneback_expand_horizontal):
+        fn.restype = i
+    lib.farneback_expand_smem.argtypes = [i, i, i, i]
+    lib.farneback_expand_smem.restype = ctypes.c_longlong
+    lib.farneback_expand_info.argtypes = [i, i, p]
+    lib.farneback_expand_info.restype = i
 
 
 def _bind_shift_probes(lib: ctypes.CDLL) -> None:
@@ -146,6 +171,8 @@ class _Source(NamedTuple):
 SOURCES: Dict[str, _Source] = {
     "farneback_iter": _Source(SOURCE, _nvcc, NVCC_FLAGS, BUILD_DIR,
                               _bind_kernels),
+    "farneback_expand": _Source(PKG_DIR / "csrc" / "farneback_expand.cu", _nvcc,
+                                NVCC_FMA_FLAGS, BUILD_DIR, _bind_expand),
     "shift_probes": _Source(PKG_DIR / "csrc" / "shift_probes.cu", _nvcc,
                             NVCC_FLAGS, BUILD_DIR, _bind_shift_probes),
     "loader": _Source(PKG_DIR / "runtime" / "native" / "loader.cpp", _gxx,
@@ -153,6 +180,9 @@ SOURCES: Dict[str, _Source] = {
     "png": _Source(PKG_DIR / "runtime" / "native" / "png.cpp", _gxx, GXX_FLAGS,
                    BUILD_ROOT / "native", _bind_png),
 }
+
+# the main path's kernels: loading either builds both, in parallel
+MAIN_PATH = ("farneback_iter", "farneback_expand")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -209,7 +239,8 @@ def load(name: str = "farneback_iter") -> ctypes.CDLL:
     """The loaded library ``name``, built at first use."""
     with _LOCK:
         if name not in _LIBS:
-            lib = ctypes.CDLL(str(_build_locked([name])[name]))
+            built = _build_locked(MAIN_PATH if name in MAIN_PATH else [name])
+            lib = ctypes.CDLL(str(built[name]))
             SOURCES[name].bind(lib)
             _LIBS[name] = lib
         return _LIBS[name]

@@ -1,8 +1,10 @@
 """Farneback dense optical flow (channel-first batched path).
 
 Port of ``mav_detection_tpu/ops/flow/farneback.py``: per pyramid level, the
-fused smooth+resize+polynomial-expansion matrices (two fp32 matmuls per
-frame set) and then the solver iterations. ``FarnebackParams.warp`` picks
+fused smooth+resize+polynomial-expansion (``poly_exp_pyr_pair_cf``: on the
+card one launch of the band kernel of ``farneback_expand`` for both frames,
+on the CPU the reference's two fp32 matmuls per frame set) and then the
+solver iterations. ``FarnebackParams.warp`` picks
 the solver: ``"fused"`` (the reference's ``"pallas"``) runs
 ``farneback_iterate`` (the CUDA kernel on the card, its plain PyTorch
 version on the CPU); ``"gather"``, ``"separable"`` and ``"auto"`` run
@@ -12,8 +14,9 @@ either device, with the ``fast`` refit schedule. Flow fields match
 numerics) exactly as the reference's do.
 
 The numpy matrix builders are copies of the reference's, so both packages
-build bit-identical matrices. Matmuls run in full fp32 (the reference's
-``precision="highest"``); ``resolve_device`` turns TF32 off on the card.
+build bit-identical matrices; the band kernel multiplies the same float32
+weights. Matmuls run in full fp32 (the reference's ``precision="highest"``);
+``resolve_device`` turns TF32 off on the card.
 
 Every array of the solvers is channel-first, (b, c, H, W), where the
 reference's are (h, w, b, c). One level loop serves every batch size and
@@ -30,6 +33,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 from mav_detection_tpu_torch.ops.flow.farneback_iter import (
     CHUNK_ROWS,
     H100_SMS,
@@ -285,15 +289,44 @@ def _level_iter_count(params: FarnebackParams, k_level: int) -> int:
     return li[min(k_level, len(li) - 1)]
 
 
+@functools.lru_cache(maxsize=None)
+def _expand_bands_np(h: int, w: int, lh: int, lw: int, smooth: Tuple[float, ...],
+                     n: int, sigma: float) -> "fe.Bands":
+    """The bands of ``_poly_pyr_mats_np``'s matrices, as the band kernel
+    reads them."""
+    return fe.bands_from_dense(*_poly_pyr_mats_np(h, w, lh, lw, smooth, n, sigma))
+
+
+@functools.lru_cache(maxsize=256)
+def _expand_plan(args: tuple, frames: int) -> Tuple["fe.Launch", ...]:
+    """The band kernel's launches on the card for one layer (``args`` as
+    ``_poly_pyr_mats_np`` takes them) over ``frames`` frames."""
+    h, w, lh, lw = args[:4]
+    return fe.plan(_expand_bands_np(*args), frames, h, w, lh, lw)
+
+
+def _expand_taps(h: int, w: int, lh: int, lw: int, smooth: Tuple[float, ...],
+                 n: int) -> Tuple[int, int, int, int]:
+    """The taps of the factors ``_poly_pyr_mats_np`` composes, as
+    ``farneback_expand.expand_ops`` counts them: the smooth's, the vertical
+    and the horizontal resize's (their widest row; 0 where the size does
+    not change) and the moments'."""
+    def resize(src: int, dst: int) -> int:
+        return 0 if src == dst else int((_resize_matrix_np(src, dst) != 0).sum(1).max())
+    return len(smooth), resize(h, lh), resize(w, lw), 2 * n + 1
+
+
 # --------------------------------------------------------- device helpers
 @functools.lru_cache(maxsize=256)
 def _device_const(kind: str, args: tuple, device: torch.device):
-    """Per-device float32 copies of the host matrices (built once)."""
+    """Per-device copies of the host matrices and bands (built once)."""
     if kind == "band":
         return torch.from_numpy(_band_matrix_np(*args)).to(device)
     if kind == "pyr":
         V, Hm = _poly_pyr_mats_np(*args)
         return (torch.from_numpy(V).to(device), torch.from_numpy(Hm).to(device))
+    if kind == "expand":
+        return fe.to_device(_expand_bands_np(*args), device)
     if kind == "resize":
         return torch.from_numpy(
             _resize_matrix_np(*args).astype(np.float32)).to(device)
@@ -327,7 +360,24 @@ def poly_exp_pyr_cf(img: torch.Tensor, smooth: Tuple[float, ...], lh: int,
 
     Channel layout: 0: b_y, 1: b_x, 2: a_yy, 3: a_xx, 4: a_xy. The smooth,
     the resize and the moment correlations are linear per axis and compose
-    into one (3*lh, h) left and one (w, 3*lw) right matrix."""
+    into one (3*lh, h) left and one (w, 3*lw) right matrix. A CPU tensor
+    takes the two matmuls (``poly_exp_pyr_ref``); a CUDA tensor launches the
+    band kernel (``farneback_expand``), which multiplies only the bands of
+    the same two matrices, or raises."""
+    if img.device.type == "cuda":
+        # the kernel expands both frames of each pair; every program path
+        # has a pair and calls poly_exp_pyr_pair_cf
+        return poly_exp_pyr_pair_cf(img, img, smooth, lh, lw, n, sigma)[0]
+    if img.device.type != "cpu":
+        raise ValueError(f"poly_exp_pyr_cf: unsupported device {img.device}")
+    return poly_exp_pyr_ref(img, smooth, lh, lw, n, sigma)
+
+
+def poly_exp_pyr_ref(img: torch.Tensor, smooth: Tuple[float, ...], lh: int,
+                     lw: int, n: int, sigma: float) -> torch.Tensor:
+    """The plain version of ``poly_exp_pyr_cf``: the reference's two fp32
+    matmuls against the composed matrices, on the tensor's device (the card
+    runs it only as a yardstick: ``chip_smoke.py``, the card tests)."""
     _, _, _, ig11, ig03, ig33, ig55 = _poly_exp_moments(n, sigma)
     _, h, w = img.shape
     V, Hm = _device_const("pyr", (h, w, lh, lw, smooth, n, sigma), img.device)
@@ -342,6 +392,32 @@ def poly_exp_pyr_cf(img: torch.Tensor, smooth: Tuple[float, ...], lh: int,
 
     return torch.stack([b3 * ig11, b2 * ig11, b1 * ig03 + b5 * ig33,
                         b1 * ig03 + b4 * ig33, b6 * ig55], dim=1)
+
+
+def poly_exp_pyr_pair_cf(prev: torch.Tensor, curr: torch.Tensor,
+                         smooth: Tuple[float, ...], lh: int, lw: int, n: int,
+                         sigma: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``poly_exp_pyr_cf`` of both frames of each pair, (b, h, w) x2 ->
+    (R0, R1): on the card one band-kernel launch per layer for both (two
+    where the layer takes the two-pass route)."""
+    if prev.device.type == "cuda":
+        return _expand_cuda(prev, curr, smooth, lh, lw, n, sigma)
+    return (poly_exp_pyr_cf(prev, smooth, lh, lw, n, sigma),
+            poly_exp_pyr_cf(curr, smooth, lh, lw, n, sigma))
+
+
+def _expand_cuda(prev: torch.Tensor, curr: torch.Tensor, smooth: Tuple[float, ...],
+                 lh: int, lw: int, n: int, sigma: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _, _, _, ig11, ig03, ig33, ig55 = _poly_exp_moments(n, sigma)
+    prev, curr = prev.contiguous(), curr.contiguous()
+    b, h, w = prev.shape
+    args = (h, w, lh, lw, tuple(smooth), n, sigma)
+    R0 = torch.empty((b, 5, lh, lw), dtype=torch.float32, device=prev.device)
+    R1 = torch.empty_like(R0)
+    fe.expand_cuda(prev, curr, R0, R1, _device_const("expand", args, prev.device),
+                   _expand_plan(args, 2 * b), (ig11, ig03, ig33, ig55))
+    return R0, R1
 
 
 def _band(size: int, kernel: Tuple[float, ...], mode: str,
@@ -534,10 +610,8 @@ def _farneback_cf(prev: torch.Tensor, curr: torch.Tensor,
 
             smooth = _gaussian_kernel(smooth_sz, sigma)
             with stage("flow.expand"):
-                R0 = poly_exp_pyr_cf(prev, smooth, lh, lw, params.poly_n,
-                                     params.poly_sigma)
-                R1 = poly_exp_pyr_cf(curr, smooth, lh, lw, params.poly_n,
-                                     params.poly_sigma)
+                R0, R1 = poly_exp_pyr_pair_cf(prev, curr, smooth, lh, lw,
+                                              params.poly_n, params.poly_sigma)
             border = border_scale_map(lh, lw, prev.device)
 
             iterations = _level_iter_count(params, k_level)

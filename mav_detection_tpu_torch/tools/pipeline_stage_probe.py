@@ -10,16 +10,18 @@ stage replayed (the tool's amortised in-program repetition):
   pipeline   ``farneback_flow_batch`` end to end;
   iter@Lk    ``farneback_iterate`` alone at each pyramid layer, all of the
              layer's iterations;
-  preproc    the smooth + resize + polynomial-expansion matmuls of every
-             layer (``poly_exp_pyr_cf`` of both frames), the border maps and
-             the inter-level flow resize, measured directly;
+  preproc    the smooth + resize + polynomial expansion of every layer
+             (``poly_exp_pyr_pair_cf``: the band kernel on the card), the
+             border maps and the inter-level flow resize, measured directly;
   residual   pipeline - iterates - preproc: the glue between them (on the
              device clock, the work no stage above holds; eager, also the
              host's share);
 
 each beside its bound: ``fused_bound`` per launch of the iterate (with
-the blocks the kernel runs on beside it, ``fused_schedule``), and for preproc the fp32 matmul operations and the
-bytes of ``_poly_pyr_mats_np``'s matrices, the frames and the coefficients.
+the blocks the kernel runs on beside it, ``fused_schedule``), and for preproc
+the expansion's least operations and its bytes (``farneback_expand.expand_bound``:
+each frame read once, the coefficients written once) with the flow resize's
+matmuls.
 The layers are the shapes ``_farneback_cf`` launches on
 (``_pyramid_scales``); the JAX tool's ``round(H * 0.5**k)`` is printed
 beside them. The stages compose to ``farneback_flow_batch``'s flow
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from mav_detection_tpu_torch.ops.flow import farneback as fb
+from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
 from mav_detection_tpu_torch.tools.common import dumps, parser
 from mav_detection_tpu_torch.utils.device import resolve_device
@@ -83,8 +86,8 @@ def level_inputs(prev: torch.Tensor, curr: torch.Tensor, flow, params: fb.Farneb
     else:
         flow = fb.resize_linear_cf(flow, (lh, lw)) * (1.0 / params.pyr_scale)
     smooth = fb._gaussian_kernel(smooth_sz, sigma)
-    R0 = fb.poly_exp_pyr_cf(prev, smooth, lh, lw, params.poly_n, params.poly_sigma)
-    R1 = fb.poly_exp_pyr_cf(curr, smooth, lh, lw, params.poly_n, params.poly_sigma)
+    R0, R1 = fb.poly_exp_pyr_pair_cf(prev, curr, smooth, lh, lw, params.poly_n,
+                                     params.poly_sigma)
     return (R0, R1, flow, fb.border_scale_map(lh, lw, prev.device),
             fb._level_iter_count(params, k_level))
 
@@ -106,16 +109,19 @@ def staged_flow(prev: torch.Tensor, curr: torch.Tensor,
 
 def preproc_bound(b: int, h: int, w: int, params: fb.FarnebackParams) -> tuple:
     """(least ms, "bytes" or "operations") of every layer's preprocessing:
-    the fp32 matmuls of ``poly_exp_pyr_cf`` for both frames ((3lh, h) @ (h,
-    w), then (lh, w) @ (w, 3lw), (w, 2lw) and (w, lw)) and of the flow
-    resize; each frame read once, each layer's matrices read once, R0, R1,
-    the border map and the resized flow written once."""
+    the least operations of the expansion of both frames
+    (``farneback_expand.expand_ops``: smooth, resize and moments in turn)
+    and the flow resize's fp32 matmuls; each frame read once per layer, R0,
+    R1, the border map and the resized flow written once."""
     shapes = layer_shapes(h, w, params)
     ops = 0.0
-    nbytes = 2 * b * h * w
-    for k, (lh, lw) in enumerate(shapes):
-        ops += 2 * b * (2.0 * 3 * lh * h * w + 2.0 * lh * w * 6 * lw)
-        nbytes += 3 * lh * h + w * 3 * lw + 2 * b * 5 * lh * lw + lh * lw
+    nbytes = 0
+    for k, (scale, (lh, lw)) in enumerate(zip(fb._pyramid_scales(h, w, params), shapes)):
+        sigma = (1.0 / scale - 1.0) * 0.5
+        smooth = fb._gaussian_kernel(max(int(round(sigma * 5)) | 1, 3), sigma)
+        ops += fe.expand_ops(2 * b, h, w, lh, lw,
+                             fb._expand_taps(h, w, lh, lw, smooth, params.poly_n))
+        nbytes += fe.expand_bytes(2 * b, h, w, lh, lw) // 4 + lh * lw
         if k + 1 < len(shapes):
             ch, cw = shapes[k + 1]
             ops += 2 * b * (2.0 * lh * ch * cw + 2.0 * lh * cw * lw)

@@ -1,14 +1,16 @@
 // A host stand-in for the CUDA runtime, enough to compile the solver
 // iteration's kernels (mav_detection_tpu_torch/csrc/farneback_iter.cu, its
-// device part) and the probe kernels (csrc/shift_probes.cu) as C++ and run
-// them on the CPU: one std::thread per CUDA
-// thread, std::barrier for __syncthreads, a per-warp exchange for the
-// shuffles, cp.async as a queued copy (below). Float arithmetic is the
-// host's IEEE single precision without contraction (-ffp-contract=off), as
-// the kernels' -fmad=false builds are on the card, so the results compare
-// bit for bit with the plain PyTorch version (tests/test_torch_kernel_host.py,
-// tests/test_torch_probe_host.py). bf16 is a 16-bit pattern rounded to
-// nearest even, as __float2bfloat16_rn does.
+// device part), the probe kernels (csrc/shift_probes.cu) and the
+// polynomial expansion's (csrc/farneback_expand.cu) as C++ and run them on
+// the CPU: one std::thread per CUDA thread, std::barrier for
+// __syncthreads, a per-warp exchange for the shuffles, cp.async and
+// cp.async.bulk as queued copies (below). Float arithmetic is the host's
+// IEEE single precision without contraction (-ffp-contract=off), as the
+// kernels' -fmad=false builds are on the card, so the results compare bit
+// for bit with the plain PyTorch version (tests/test_torch_kernel_host.py,
+// tests/test_torch_probe_host.py; the expansion, built with contraction on
+// the card, within a tolerance: tests/test_torch_expand_host.py). bf16 is a
+// 16-bit pattern rounded to nearest even, as __float2bfloat16_rn does.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -110,6 +112,36 @@ inline void async_wait(int n) {
     for (const AsyncCopy& c : g_async_closed.front())
       std::memcpy(c.dst, c.src, sizeof(float) * c.n);
     g_async_closed.erase(g_async_closed.begin());
+  }
+}
+
+// cp.async.bulk from shared to device memory: a started copy joins the
+// thread's open bulk group, commit closes it, and wait_read(n) lands every
+// closed group but the newest n. Landing at the wait is the latest moment
+// the card may read the shared memory, landing when started the earliest.
+struct BulkCopy {
+  void* dst;
+  const void* src;
+  int bytes;
+};
+thread_local std::vector<std::vector<BulkCopy>> g_bulk_closed;
+thread_local std::vector<BulkCopy> g_bulk_open;
+
+inline void bulk_copy(void* dst, const void* src, int bytes) {
+#ifdef CP_ASYNC_AT_START
+  std::memcpy(dst, src, bytes);
+#else
+  g_bulk_open.push_back({dst, src, bytes});
+#endif
+}
+inline void bulk_commit() {
+  g_bulk_closed.push_back(std::move(g_bulk_open));
+  g_bulk_open.clear();
+}
+inline void bulk_wait_read(int n) {
+  while ((int)g_bulk_closed.size() > n) {
+    for (const BulkCopy& c : g_bulk_closed.front()) std::memcpy(c.dst, c.src, c.bytes);
+    g_bulk_closed.erase(g_bulk_closed.begin());
   }
 }
 

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch version, on the card:
 ``farneback_iterate_fused`` as scheduled, on its row-streaming strips and on
-the tile design's blocks.
+the tile design's blocks; the polynomial expansion's band kernel
+(``farneback_expand``) on its fused and two-pass routes.
 
 These need an NVIDIA card with nvcc (they build csrc/ at first use) and skip
 elsewhere. On a machine with one (``--noconftest`` where jax is not
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from mav_detection_tpu_torch.ops.flow import farneback as tf
+from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 from mav_detection_tpu_torch.ops.flow import farneback_iter as ti
 
 pytestmark = pytest.mark.cuda
@@ -150,8 +152,88 @@ def test_flow_on_card_matches_cpu(dev):
     curr = np.roll(prev, (1, 2), axis=(1, 2))
     card = tf.farneback_flow_batch(prev, curr, device=dev).cpu().numpy()
     cpu = tf.farneback_flow_batch(prev, curr, device="cpu").numpy()
-    # same ops; only the matmuls' sum order differs between cuBLAS and CPU
+    # same weights and iteration; only the expansion's sum order differs: the
+    # band kernel's taps in order on the card, the CPU's matmuls (and the
+    # flow resize's matmuls, cuBLAS against the CPU's)
     np.testing.assert_allclose(card, cpu, atol=1e-3)
+
+
+def _expand_layers(h, w):
+    """``_poly_pyr_mats_np``'s arguments for every layer of the product's
+    pyramid at (h, w), with ``_farneback_cf``'s smoothing."""
+    out = []
+    for scale in tf._pyramid_scales(h, w, tf.tuned_flow_params(h, w)):
+        sigma = (1.0 / scale - 1.0) * 0.5
+        smooth = tf._gaussian_kernel(max(int(round(sigma * 5)) | 1, 3), sigma)
+        out.append((h, w, int(round(h * scale)), int(round(w * scale)), smooth, 8, 1.2))
+    return out
+
+
+@pytest.mark.parametrize("b,h,w", [(8, 480, 752), (8, 1024, 1920), (1, 480, 752),
+                                   (1, 1024, 1920), (3, 37, 53)])
+def test_expand_kernel_matches_plain_version(dev, b, h, w):
+    """Both frames of each pair in one launch per layer (two on the
+    two-pass layers), every layer of the product's pyramid, within 1e-5 of
+    the coefficients' scale of the plain version (the matmuls, on the card:
+    TF32 off), as the matmuls are held to XLA's on the CPU; a frame set
+    alone (``poly_exp_pyr_cf``) gives the same coefficients bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(b * h)
+    prev, curr = (torch.rand(b, h, w, device=dev, generator=g) * 255 for _ in range(2))
+    routes = []
+    for args in _expand_layers(h, w):
+        _, _, lh, lw, smooth, n, sigma = args
+        R0, R1 = tf.poly_exp_pyr_pair_cf(prev, curr, smooth, lh, lw, n, sigma)
+        torch.cuda.synchronize()
+        for got, frame in ((R0, prev), (R1, curr)):
+            want = tf.poly_exp_pyr_ref(frame, smooth, lh, lw, n, sigma)
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        assert torch.equal(tf.poly_exp_pyr_cf(curr, smooth, lh, lw, n, sigma), R1)
+        routes.append(len(tf._expand_plan(args, 2 * b)))
+    if h >= 480:
+        assert routes == [1, 1, 2]      # the coarsest layer in two passes
+
+
+def test_expand_launch_counters_and_validation(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    prev, curr = (torch.rand(2, 480, 752, device=dev, generator=g) * 255 for _ in range(2))
+    fe.reset_launch_counts()
+    tf.farneback_flow_batch(prev, curr, device=dev)
+    assert fe.LAUNCHES == {"farneback_expand_fused": 2, "farneback_expand_vertical": 1,
+                           "farneback_expand_horizontal": 1}
+    args = _expand_layers(480, 752)[0]
+    _, _, lh, lw, smooth, n, sigma = args
+    tf.poly_exp_pyr_cf(prev, smooth, lh, lw, n, sigma)
+    assert fe.LAUNCHES["farneback_expand_fused"] == 3
+    bands = tf._device_const("expand", args, dev)
+    (k,) = tf._expand_plan(args, 4)
+    ig = (1.0, 1.0, 1.0, 1.0)
+    R0, R1 = (torch.empty(2, 5, lh, lw, device=dev) for _ in range(2))
+    with pytest.raises(ValueError, match="contiguous"):
+        fe.expand_cuda(prev.transpose(1, 2).contiguous().transpose(1, 2), curr, R0, R1,
+                       bands, (k,), ig)
+    with pytest.raises(ValueError, match="float32"):
+        fe.expand_cuda(prev.double(), curr, R0, R1, bands, (k,), ig)
+    with pytest.raises(ValueError, match="shape"):
+        fe.expand_cuda(prev, curr[:1], R0, R1, bands, (k,), ig)
+    with pytest.raises(RuntimeError, match="launch failed"):   # tw a multiple of 4
+        fe.expand_cuda(prev, curr, R0, R1, bands, (k._replace(tw=30),), ig)
+    with pytest.raises(RuntimeError, match="launch failed"):   # a window past the frame
+        fe.expand_cuda(prev, curr, R0, R1, bands, (k._replace(wr=481),), ig)
+    assert sum(fe.LAUNCHES.values()) == 5
+    fe.expand_cuda(prev, curr, R0, R1, bands, (k,), ig)
+    assert fe.LAUNCHES["farneback_expand_fused"] == 4
+
+
+@pytest.mark.parametrize("h,w", [(480, 752), (1024, 1920)])
+def test_expand_kernel_info(dev, h, w):
+    """Every launch of the plan at b=8 runs two blocks an SM, as the plan
+    counts on, with no local memory."""
+    for args in _expand_layers(h, w):
+        for k in tf._expand_plan(args, 16):
+            info = fe.kernel_info(k)
+            assert info["smem_bytes"] == k.smem <= fe.TWO_BLOCKS_SMEM
+            assert 0 < info["registers"] <= 128 and info["local_bytes"] == 0
+            assert info["blocks_per_sm"] >= 2
 
 
 @pytest.mark.parametrize("h,w,S", [(480, 752, 8), (240, 376, 8), (120, 188, 8),

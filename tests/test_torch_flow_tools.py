@@ -163,11 +163,13 @@ def test_staged_flow_equals_the_pipeline():
 
 
 def test_preproc_bound_against_hand_count():
-    """One 8x16 layer (levels 0): 2 frames x (2*24*8*16 + 2*8*16*96) fp32
-    operations; bytes: the frames, the two matrices, R0, R1 and the border."""
+    """One 8x16 layer (levels 0, no resize): 2 frames x 2 x (8*16*3 +
+    8*16*3 + 9*17*8*16) fp32 operations, the 3-tap smooth down and along,
+    then the three vertical moments and six horizontal products of 17 taps;
+    bytes: the frames, R0, R1 and the border."""
     p = fb.FarnebackParams(levels=0, iterations=1)
-    ops = 2 * (2.0 * 24 * 8 * 16 + 2.0 * 8 * 16 * 96)
-    nbytes = 4 * (2 * 8 * 16 + 24 * 8 + 16 * 48 + 2 * 5 * 8 * 16 + 8 * 16)
+    ops = 2 * 2 * (8 * 16 * 3 + 8 * 16 * 3 + 9 * 17 * 8 * 16)
+    nbytes = 4 * (2 * 8 * 16 + 2 * 5 * 8 * 16 + 8 * 16)
     from mav_detection_tpu_torch.utils.timing import bound_ms
 
     assert pipeline_stage_probe.preproc_bound(1, 8, 16, p) == bound_ms(nbytes, ops)
