@@ -7,11 +7,12 @@ prints one JSON line per seed with the numbers the judge compared.
 ``--side program`` runs the program (the sound readings, from which each
 limit's lower reading comes). ``--side control`` puts the control in the
 program's place (from which each limit's upper reading comes): the
-reference itself, computed in the nearest precision below the one the
-configuration states, float32: its matrix products (the Farneback
-pyramid's) in TF32, and its other float32 work (the solver's iterations
-stay float32; the detection math) in bfloat16. The benchmark's own runs
-never run the control.
+references themselves, computed in the nearest precision below the one the
+configuration states: the configuration's flow reference at its
+``CONTROL_PRECISION`` (Farneback's: its matrix products in TF32, the
+solver's iterations float32), with the weights each run's seed draws, and
+the detection math in bfloat16. The benchmark's own runs never run the
+control.
 """
 from __future__ import annotations
 
@@ -26,19 +27,22 @@ import torch
 
 from h100_bench import harness, spec
 from h100_bench.reference import detect as ref_detect
-from h100_bench.reference import farneback as ref_flow
 
 
 class Control:
-    """The reference in the program's place: ``flow`` where the program's
-    flow function is called, ``detect`` where its detection step is (the
+    """The references in the program's place, for one run of ``config`` at
+    ``seed``: ``flow`` where the program's flow function is called (the
+    frames as it gets them), ``detect`` where its detection step is (the
     same arguments; the per-frame scalars under the program's names)."""
 
-    def __init__(self, flow_params: Mapping, num_samples: int) -> None:
-        self.flow_params, self.num_samples = flow_params, num_samples
+    def __init__(self, config: Mapping, seed: int, device) -> None:
+        self.config, self.num_samples = config, int(config["foe_samples"])
+        self.reference = spec.flow_reference(config)
+        self.weights = self.reference.weights(config, seed, torch.device(device))
 
     def flow(self, prev: torch.Tensor, curr: torch.Tensor) -> torch.Tensor:
-        return ref_flow.flow(prev, curr, self.flow_params, "tf32")
+        return self.reference.flow(prev, curr, self.config, self.weights,
+                                   self.reference.CONTROL_PRECISION)
 
     def detect(self, flow, gt_flow, omega, dt, seg, sky, depth, gt_foe,
                sample_yx=None, generator=None, config=None) -> SimpleNamespace:
@@ -52,9 +56,8 @@ def readings(cell: str, seeds, side: str, seconds: float, device="cuda",
              config=None, params=None):
     bench = spec.benchmark()
     cfg = config if config is not None else spec.config(bench, spec.cell(bench, cell)["config"])
-    control = (Control(cfg["flow"], int(cfg["foe_samples"])) if side == "control"
-               else None)
     for seed in seeds:
+        control = Control(cfg, seed, device) if side == "control" else None
         r = harness.run_cell(bench, cell, seed, seconds, False, device, time.time(),
                              config=cfg, params=params, control=control)
         yield {"cell": cell, "side": side, "seed": seed, "correct": r["correct"],

@@ -7,7 +7,12 @@ the window uses warmed up), ``window(run)`` (the measured window: its
 ``attempted`` and ``failed`` pairs and its end-to-end metrics), ``traced(run)``
 (a steady slice of the same work, run inside the profiler), ``pairs(run)``
 (the judge's sample of what the window answered) and ``release(run)``
-(frees the program's state). ``Run`` carries what they share: the cell,
+(frees the program's state), and two names the tests read: ``TINY``, the
+overrides of its traffic parameters that make a run small enough for the
+CPU, and ``FLOW_SITES``, the (module, attribute) pairs where its timed path
+makes flow. The configuration's flow reference (``spec.flow_reference``)
+is found before set-up, so that a name without a file fails before any
+work. ``Run`` carries what they share: the cell,
 the configuration, the traffic parameters, the device, the live objects
 (``state``), the program's counters read over the window (``counters``)
 and the traced slice's reduction (``profile``).
@@ -54,6 +59,7 @@ def run_cell(bench: Dict, cell_name: str, seed: int, seconds: float, traced: boo
               params=params if params is not None else spec.traffic_params(cell_name),
               control=control)
     kind = spec.traffic_kind(run.params["kind"])
+    spec.flow_reference(run.config)      # a reference without a file fails here
     on_card = run.device.type == "cuda"
 
     kind.prepare(run)
@@ -84,8 +90,7 @@ def run_cell(bench: Dict, cell_name: str, seed: int, seconds: float, traced: boo
     del run.state
     if on_card:
         torch.cuda.empty_cache()
-    numbers = judge.judge(pairs, run.config["flow"], int(run.config["foe_samples"]),
-                          run.device)
+    numbers = judge.judge(pairs, run.config, run.seed, run.device)
     correct, checked = judge.verdict(numbers, run.params["limits"])
 
     device_fields: Dict = {"memory_peak_bytes": peak}

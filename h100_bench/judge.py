@@ -6,7 +6,10 @@ the pair: its flow field (the Flow layer's output, recorded where it was
 made) and its twelve per-frame scalars (the Detection step's output, a
 FrameResult). The reference (``reference/``, plain float32, TF32 off)
 works everything out again from the inputs alone, except where it reads the
-program's outputs to judge them:
+program's outputs to judge them. The Flow layer's reference is the
+configuration's (``spec.flow_reference``); where it has weights, the judge
+draws them itself from the run's seed (its ``weights``), never from the
+program.
 
 * ``flow_epe_px``: the Flow layer. The reference's flow from the pair's
   frames; per pair the mean end-point distance to the program's flow; the
@@ -36,8 +39,8 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from h100_bench import spec
 from h100_bench.reference import detect as ref_detect
-from h100_bench.reference import farneback as ref_flow
 
 NUMBERS = ("missing", "flow_epe_px", "foe_snap_px", "foe_vote_gap", "scalars_gap")
 BATCH = 8
@@ -63,15 +66,9 @@ class Pair:
     scalars: Optional[Sequence[float]] = None
 
 
-def gray(img) -> torch.Tensor:
-    """BT.601 BGR -> gray as the cameras' frames are converted (float32,
-    rounded), or the frame itself where it is gray already."""
-    a = np.asarray(img)
-    if a.ndim == 2:
-        return torch.from_numpy(np.ascontiguousarray(a))
-    x = a.astype(np.float32)
-    g = 0.114 * x[..., 0] + 0.587 * x[..., 1] + 0.299 * x[..., 2]
-    return torch.from_numpy(np.round(g).astype(np.uint8))
+def _frames(frames, device: torch.device) -> torch.Tensor:
+    """The frames of a batch as the pairs hold them, stacked on ``device``."""
+    return torch.stack([torch.from_numpy(np.ascontiguousarray(f)) for f in frames]).to(device)
 
 
 def _finite_gap(a: float, b: float, scale: float) -> float:
@@ -82,11 +79,14 @@ def _finite_gap(a: float, b: float, scale: float) -> float:
     return abs(a - b) / scale
 
 
-def judge(pairs: List[Optional[Pair]], flow_params: Mapping, num_samples: int,
+def judge(pairs: List[Optional[Pair]], config: Mapping, seed: int,
           device: torch.device) -> Dict[str, float]:
     """The numbers compared, over ``pairs`` (None: a pair of the sample
-    that was never asked)."""
+    that was never asked), against the configuration's references with the
+    weights that ``seed`` draws."""
     dev = torch.device(device)
+    num_samples = int(config["foe_samples"])
+    reference = spec.flow_reference(config)
     out = {k: 0.0 for k in NUMBERS}
     answered = [p for p in pairs
                 if p is not None and p.flow is not None and p.scalars is not None]
@@ -94,11 +94,12 @@ def judge(pairs: List[Optional[Pair]], flow_params: Mapping, num_samples: int,
     if not answered:       # nothing answered, or nothing to judge: not correct
         out["missing"] = max(out["missing"], 1.0)
         return out
+    weights = reference.weights(config, seed, dev)
     for b0 in range(0, len(answered), BATCH):
         batch = answered[b0:b0 + BATCH]
-        prev = torch.stack([gray(p.prev) for p in batch]).to(dev)
-        curr = torch.stack([gray(p.curr) for p in batch]).to(dev)
-        ref = ref_flow.flow(prev, curr, flow_params)
+        prev = _frames([p.prev for p in batch], dev)
+        curr = _frames([p.curr for p in batch], dev)
+        ref = reference.flow(prev, curr, config, weights)
         prog = torch.stack([p.flow.to(dev, torch.float32) for p in batch])
         epe = torch.linalg.vector_norm(prog - ref, dim=-1).mean(dim=(1, 2))
         out["flow_epe_px"] = max(out["flow_epe_px"], float(epe.max()))

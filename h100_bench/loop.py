@@ -43,6 +43,9 @@ from mav_detection_tpu_torch.pipeline import temporal as temporal_mod
 from mav_detection_tpu_torch.pipeline.processor import Processor
 
 POOL = 16          # FoE draw sets, drawn at set-up and cycled over sequences
+# the tests' small run (a kind that batches pairs also sets ``batch``)
+TINY = {"ring_extra": 3, "min_seqs": 2, "check_seqs": 1, "check_calls": 2, "trace_seqs": 1}
+FLOW_SITES = ((processor_mod, "_farneback_cf"), (temporal_mod, "_farneback_cf"))
 
 
 class Ring:
@@ -138,8 +141,8 @@ class Recorder:
         setattr(mod, name, fn)
 
     def install(self) -> None:
-        for mod in (processor_mod, temporal_mod):
-            self._patch(mod, "_farneback_cf", self._wrap(mod._farneback_cf))
+        for mod, name in FLOW_SITES:
+            self._patch(mod, name, self._wrap(getattr(mod, name)))
         if self.control is not None:
             self._patch(processor_mod, "detect_frame_batch_scalars", self.control.detect)
             self._patch(temporal_mod, "detect_frame_batch", self.control.detect)

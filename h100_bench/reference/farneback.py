@@ -10,10 +10,12 @@ same computation with its matrix products in TF32 (on a card the tensor
 cores' TF32; on the CPU the operands rounded to TF32's 10-bit mantissa, as
 the tensor cores round them).
 
-``flow(prev, curr, params)``: (b, h, w) gray frames, uint8 or float ->
-(b, h, w, 2) float32 flow. ``params`` is a mapping with the configuration's
-``flow`` keys (levels, pyr_scale, winsize, poly_n, poly_sigma, max_shift,
-level_iters).
+``flow(prev, curr, config, weights)``: (b, h, w) gray frames, uint8 or
+float, or (b, h, w, 3) BGR uint8 ones, turned gray first (``gray``) ->
+(b, h, w, 2) float32 flow, from the configuration's ``flow`` keys (levels,
+pyr_scale, winsize, poly_n, poly_sigma, max_shift, level_iters). It has no
+weights (``weights`` gives None); its control is ``CONTROL_PRECISION``,
+TF32.
 """
 from __future__ import annotations
 
@@ -26,6 +28,23 @@ import torch
 import torch.nn.functional as F
 
 BORDER_RAMP = (0.14, 0.14, 0.4472, 0.4472, 0.4472)
+CONTROL_PRECISION = "tf32"
+
+
+def weights(config: Mapping, seed: int, device) -> None:
+    """Farneback has no weights."""
+    return None
+
+
+def gray(frames: torch.Tensor) -> torch.Tensor:
+    """BT.601 BGR -> gray as the cameras' frames are converted (float32,
+    rounded half to even), of a (b, h, w, 3) batch; a (b, h, w) batch is
+    gray already and comes back as it is."""
+    if frames.dim() != 4:
+        return frames
+    x = frames.to(torch.float32)
+    g = 0.114 * x[..., 0] + 0.587 * x[..., 1] + 0.299 * x[..., 2]
+    return torch.round(g).to(torch.uint8)
 
 
 # ------------------------------------------------------------ host matrices
@@ -281,13 +300,15 @@ def level_iterations(params: Mapping, k: int) -> int:
     return int(li[min(k, len(li) - 1)])
 
 
-def flow(prev: torch.Tensor, curr: torch.Tensor, params: Mapping,
+def flow(prev: torch.Tensor, curr: torch.Tensor, config: Mapping, weights=None,
          precision: str = "fp32") -> torch.Tensor:
-    """(b, h, w) x2 -> (b, h, w, 2) float32 flow from ``prev`` to ``curr``."""
+    """(b, h, w) or (b, h, w, 3) x2 -> (b, h, w, 2) float32 flow from
+    ``prev`` to ``curr``."""
+    params = config["flow"]
     dev = prev.device
     with precision_mode(precision, dev), torch.no_grad():
-        prev = prev.to(torch.float32)
-        curr = curr.to(torch.float32)
+        prev = gray(prev).to(torch.float32)
+        curr = gray(curr).to(torch.float32)
         b, h, w = prev.shape
         n, sigma_p = int(params["poly_n"]), float(params["poly_sigma"])
         winsize, S = int(params["winsize"]), int(params["max_shift"])

@@ -1,5 +1,6 @@
 """The program's own stage spans in a step cell, read once per traced run
-for the ``*_span_ms`` and ``*_launches`` readers.
+for the ``*_span_ms`` and ``*_launches`` readers: every span name that the
+program's tracer recorded in the profiled step, none named here.
 
 On the card: one eager step (``run.state["step"]``) under ``torch.profiler``
 with a ``Tracer`` recording, in which each device operation (kernel, copy,
@@ -10,10 +11,11 @@ the step captured in a fresh CUDA graph while a tracer with timing events
 records (the events become event-record nodes of that graph) and replayed
 ``REPLAYS`` times, with ``Tracer.device_ms()`` (which synchronises) after
 each: a span's value is the median over the replays, in ms per frame pair.
-Standard error gets the per-span counts and ms, the recording graph's replay
-ms beside the set-up graph's in turns (what tracing costs when it is on),
-and whether the output rings still hold what the window wrote; they are
-restored to it either way, so the judge reads the window's outputs.
+Standard error gets the per-span counts and ms (in ``ordered``'s order), the
+recording graph's replay ms beside the set-up graph's in turns (what tracing
+costs when it is on), and whether the output rings still hold what the
+window wrote; they are restored to it either way, so the judge reads the
+window's outputs.
 
 Off the card: three eager steps with a tracer recording, each span's
 host-clock ms (the median), and the leaf CPU operations in place of device
@@ -33,8 +35,6 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 REPLAYS = 20
-NAMES = ("flow", "flow.expand", "flow.iterate", "detect", "detect.derotate",
-         "detect.foe_vote", "detect.masks", "detect.rates")
 
 
 def span_ms(run, name: str) -> Optional[float]:
@@ -67,8 +67,8 @@ def _measure(run) -> Optional[Dict[str, Dict[str, float]]]:
     on_card = run.device.type == "cuda"
     rings = [st["out_flow"], st["out_sc"]]
     kept = [r.clone() for r in rings]
-    events, host = _profiled_step(st["step"], on_card, Tracer, recording)
-    counts = _counts(events, on_card)
+    events, host, names = _profiled_step(st["step"], on_card, Tracer, recording)
+    counts = _counts(events, on_card, set(names))
     if on_card:
         ms = _graph_ms(st, run.device, Tracer, recording)
     else:
@@ -83,17 +83,31 @@ def _measure(run) -> Optional[Dict[str, Dict[str, float]]]:
     inside, own, outside = counts
     unit = "device operations" if on_card else "leaf CPU operations"
     print(f"spans: {unit} per batch, inside / own: "
-          + ", ".join(f"{n} {inside.get(n, 0)} / {own.get(n, 0)}" for n in NAMES)
+          + ", ".join(f"{n} {inside.get(n, 0)} / {own.get(n, 0)}" for n in names)
           + f"; outside every span {outside}", file=sys.stderr)
-    print("spans: ms per pair " + ", ".join(f"{n} {ms[n] / B:.6g}" for n in NAMES if n in ms)
+    print("spans: ms per pair " + ", ".join(f"{n} {ms[n] / B:.6g}" for n in names if n in ms)
           + f"; output rings unchanged: {same}", file=sys.stderr)
     return {"ms": {n: v / B for n, v in ms.items()},
             "launches": {n: float(inside[n]) for n in inside}}
 
 
-def _profiled_step(step, on_card: bool, Tracer, recording) -> Tuple[list, Dict[str, float]]:
+def ordered(names) -> List[str]:
+    """Span names once each, grouped by their top-level name in the order
+    each group first opened, by name within a group (so a span comes before
+    its children): flow, flow.expand, flow.iterate, detect, detect.derotate,
+    detect.foe_vote, detect.masks, detect.rates."""
+    names = list(names)
+    first: Dict[str, int] = {}
+    for n in names:
+        first.setdefault(n.split(".", 1)[0], len(first))
+    return sorted(dict.fromkeys(names), key=lambda n: (first[n.split(".", 1)[0]], n))
+
+
+def _profiled_step(step, on_card: bool, Tracer, recording
+                   ) -> Tuple[list, Dict[str, float], List[str]]:
     """The raw events of one eager step profiled with a tracer recording,
-    and that tracer's host ms per span."""
+    that tracer's host ms per span, and the names of the spans it recorded
+    (``ordered``)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
@@ -103,15 +117,16 @@ def _profiled_step(step, on_card: bool, Tracer, recording) -> Tuple[list, Dict[s
         if on_card:
             torch.cuda.synchronize()
     host = {n: v * 1e3 for n, v in tracer.totals.items()}
-    return list(prof.profiler.kineto_results.events()), host
+    names = ordered(s.name for s in tracer.spans)
+    return list(prof.profiler.kineto_results.events()), host, names
 
 
-def _counts(events, on_card: bool) -> Tuple[Dict[str, int], Dict[str, int], int]:
-    """Operations per span: inside it (its child spans' included), its own
-    (innermost), and outside every span."""
+def _counts(events, on_card: bool, names) -> Tuple[Dict[str, int], Dict[str, int], int]:
+    """Operations per span of ``names``: inside it (its child spans'
+    included), its own (innermost), and outside every span."""
     cpu = torch.autograd.DeviceType.CPU
     spans = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
-             if e.device_type() == cpu and e.is_user_annotation() and e.name() in NAMES]
+             if e.device_type() == cpu and e.is_user_annotation() and e.name() in names]
     if on_card:
         call = {e.correlation_id(): e.start_ns() for e in events
                 if e.device_type() == cpu and e.name().startswith("cu")}

@@ -4,13 +4,18 @@ A configuration is ``configs/<config>.json``, a cell's traffic
 ``workloads/<cell>.json`` (its ``kind`` names the generator
 ``traffic/<kind>.py``), a per-layer metric's reader ``metrics/<metric>.py``
 (a function ``read(ctx)`` giving the value, or None where the run has
-nothing to read). A later cell, configuration or metric is added with files
-and entries of its own; nothing here names one.
+nothing to read), and the flow reference a configuration is judged against
+``reference/<name>.py``, named by the configuration's ``flow_reference``
+(``farneback`` where it names none; ``reference/__init__.py`` gives the
+module's contract). A later cell, configuration, metric or reference is
+added with files and entries of its own; nothing here names one. A name
+that has no file raises: nothing falls back to another.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
 import sys
 from pathlib import Path
 from types import ModuleType
@@ -18,6 +23,11 @@ from typing import Dict, List
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+# the directories searched, in order, for ``workloads/``, ``traffic/``,
+# ``metrics/`` and ``reference/`` files; the tests add one of test-only files
+ROOTS = (HERE,)
+FLOW_REFERENCE = "farneback"
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
 def benchmark(root: Path = ROOT) -> Dict:
@@ -44,8 +54,19 @@ def config(bench: Dict, name: str, root: Path = ROOT) -> Dict:
     raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
 
+def _named(sub: str, name: str, suffix: str) -> Path:
+    """``<root>/<sub>/<name><suffix>`` in the first of ``ROOTS`` that holds it."""
+    if not NAME.match(name):
+        raise KeyError(f"{name!r} is not a name")
+    for root in ROOTS:
+        path = root / sub / f"{name}{suffix}"
+        if path.is_file():
+            return path
+    raise KeyError(f"no {sub}/{name}{suffix} under {', '.join(map(str, ROOTS))}")
+
+
 def traffic_params(cell_name: str) -> Dict:
-    return _load_json(HERE / "workloads" / f"{cell_name}.json")
+    return _load_json(_named("workloads", cell_name, ".json"))
 
 
 def _module(path: Path, name: str) -> ModuleType:
@@ -61,12 +82,23 @@ def _module(path: Path, name: str) -> ModuleType:
     return mod
 
 
+def _named_module(sub: str, name: str) -> ModuleType:
+    return _module(_named(sub, name, ".py"), f"h100_bench.{sub}.{name}")
+
+
 def traffic_kind(kind: str) -> ModuleType:
-    return _module(HERE / "traffic" / f"{kind}.py", f"h100_bench.traffic.{kind}")
+    return _named_module("traffic", kind)
 
 
 def metric_reader(name: str):
-    return _module(HERE / "metrics" / f"{name}.py", f"h100_bench.metrics.{name}").read
+    return _named_module("metrics", name).read
+
+
+def flow_reference(config: Dict) -> ModuleType:
+    """The module of the flow reference the configuration names
+    (``flow_reference``, else ``farneback``): ``flow``, ``weights`` and
+    ``CONTROL_PRECISION``."""
+    return _named_module("reference", config.get("flow_reference", FLOW_REFERENCE))
 
 
 def _applies(metric: Dict, cell_name: str, reported: List[str]) -> bool:

@@ -1,8 +1,9 @@
 """Small sizes for the benchmark's tests on the CPU: each cell's
-configuration and traffic shrunk to frames of 64x96 and rings of a few
-pairs, so that a whole run (set-up, window, comparison) takes seconds. The
-cells held out of ``BENCHMARK.json`` (``held_out.json``) are tested with
-the rest."""
+configuration shrunk to frames of 64x96, and its traffic by its kind's
+``TINY`` (rings of a few pairs), so that a whole run (set-up, window,
+comparison) takes seconds. The cells held out of ``BENCHMARK.json``
+(``held_out.json``) are tested with the rest; the tests' lists of cells are
+derived from both files."""
 from __future__ import annotations
 
 import json
@@ -14,6 +15,7 @@ import torch
 from h100_bench import harness, spec
 
 H, W = 64, 96
+SEED = 2 ** 31 + 17
 
 
 @pytest.fixture(autouse=True)
@@ -39,6 +41,23 @@ def bench():
     return full_bench()
 
 
+def all_cells():
+    """Every cell of ``BENCHMARK.json`` and ``held_out.json``."""
+    return [w["name"] for w in full_bench()["workloads"]]
+
+
+def one_cell_per_path():
+    """One cell (the first) for each pair of traffic kind and flow
+    reference that the cells use."""
+    b = full_bench()
+    first = {}
+    for w in b["workloads"]:
+        kind = spec.traffic_params(w["name"])["kind"]
+        reference = spec.flow_reference(spec.config(b, w["config"])).__name__
+        first.setdefault((kind, reference), w["name"])
+    return list(first.values())
+
+
 def tiny_config(bench, cell):
     cfg = spec.config(bench, spec.cell(bench, cell)["config"])
     cfg = dict(cfg, height=H, width=W, sequence_frames=10, foe_samples=64)
@@ -48,16 +67,11 @@ def tiny_config(bench, cell):
 
 def tiny_params(cell):
     p = dict(spec.traffic_params(cell))
-    if p["kind"] == "step":
-        p.update(ring_bytes=2 * p["batch"] * H * W, chunk_s=0.02, trace_s=0.05,
-                 check_slots=1)
-    else:
-        p.update(ring_extra=3, batch=min(p["batch"], 4), min_seqs=2, check_seqs=1,
-                 check_calls=2, trace_seqs=1)
+    p.update(spec.traffic_kind(p["kind"]).TINY)
     return p
 
 
-def run_tiny(bench, cell, traced=False, control=None, seed=2 ** 31 + 17, seconds=0.2):
+def run_tiny(bench, cell, traced=False, control=None, seed=SEED, seconds=0.2):
     return harness.run_cell(bench, cell, seed, seconds, traced, "cpu", time.time(),
                             config=tiny_config(bench, cell), params=tiny_params(cell),
                             control=control)

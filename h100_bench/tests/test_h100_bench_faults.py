@@ -4,26 +4,26 @@ frame's FoE moved by 7.5 px as its scalars are packed); half of a batch
 left out, its lanes given the mean flow of the rest (the cells that batch
 pairs); a step that returns its state unchanged (every flow call answers
 with the previous call's flow). One card: no exchange between chips to leave
-out. The harness's look for a card is skipped: the runs are on the CPU."""
+out. The harness's look for a card is skipped: the runs are on the CPU.
+The cells: one for each pair of traffic kind and flow reference; the flow
+is broken where the cell's traffic kind makes it (its ``FLOW_SITES``)."""
 from __future__ import annotations
 
 import pytest
 import torch
-from conftest import run_tiny
+from conftest import one_cell_per_path, run_tiny, tiny_params
 
 from h100_bench import spec
 from mav_detection_tpu_torch.pipeline import processor as processor_mod
-from mav_detection_tpu_torch.pipeline import temporal as temporal_mod
 
-CELLS = ["midgard752-step-b8", "midgard752-batch8-seq", "airsim1920-scan-seq"]
+CELLS = one_cell_per_path()
+# the cells whose flow calls take more than one pair
+BATCHED = [c for c in CELLS if int(tiny_params(c)["batch"]) > 1]
 
 
-def _flow_sites(bench, cell):
+def flow_sites(cell):
     """(module, name) of the flow function the cell's timed path calls."""
-    kind = spec.traffic_params(cell)["kind"]
-    if kind == "step":
-        return [(spec.traffic_kind("step"), "farneback_flow_batch")]
-    return [(processor_mod, "_farneback_cf"), (temporal_mod, "_farneback_cf")]
+    return spec.traffic_kind(spec.traffic_params(cell)["kind"]).FLOW_SITES
 
 
 def _altered(pack):
@@ -66,9 +66,9 @@ def test_answer_altered(bench, cell, monkeypatch):
     assert r["checked"]["foe_snap_px"]["value"] > r["checked"]["foe_snap_px"]["limit"]
 
 
-@pytest.mark.parametrize("cell", ["midgard752-step-b8", "midgard752-batch8-seq"])
+@pytest.mark.parametrize("cell", BATCHED)
 def test_half_batch_left_out(bench, cell, monkeypatch):
-    for mod, name in _flow_sites(bench, cell):
+    for mod, name in flow_sites(cell):
         monkeypatch.setattr(mod, name, _half_batch(getattr(mod, name)))
     r = run_tiny(bench, cell)
     assert r["correct"] is False
@@ -77,7 +77,7 @@ def test_half_batch_left_out(bench, cell, monkeypatch):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_state_unchanged(bench, cell, monkeypatch):
-    for mod, name in _flow_sites(bench, cell):
+    for mod, name in flow_sites(cell):
         monkeypatch.setattr(mod, name, _stale(getattr(mod, name)))
     r = run_tiny(bench, cell)
     assert r["correct"] is False

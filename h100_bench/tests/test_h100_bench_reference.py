@@ -35,7 +35,7 @@ def test_scene_is_drawn_from_the_seed(frames):
 def test_flow_matches_the_port(frames):
     prev, curr = frames["gray"][:-1], frames["gray"][1:]
     assert tuned_flow_params(64, 96).max_shift == FLOW["max_shift"]
-    ours = ref_flow.flow(prev, curr, FLOW)
+    ours = ref_flow.flow(prev, curr, {"flow": FLOW})
     port = farneback_flow_batch(prev, curr, None, "cpu")
     assert ours.shape == port.shape == (4, 64, 96, 2)
     assert torch.allclose(ours, port, atol=1e-4, rtol=0)
@@ -44,15 +44,15 @@ def test_flow_matches_the_port(frames):
 
 def test_tf32_control_departs(frames):
     prev, curr = frames["gray"][:-1], frames["gray"][1:]
-    fp32 = ref_flow.flow(prev, curr, FLOW)
-    tf32 = ref_flow.flow(prev, curr, FLOW, "tf32")
+    fp32 = ref_flow.flow(prev, curr, {"flow": FLOW})
+    tf32 = ref_flow.flow(prev, curr, {"flow": FLOW}, None, ref_flow.CONTROL_PRECISION)
     gap = float(torch.linalg.vector_norm(fp32 - tf32, dim=-1).mean())
     assert gap > 1e-4
 
 
 def test_detection_matches_the_port(frames):
     prev, curr = frames["gray"][:-1], frames["gray"][1:]
-    flow = ref_flow.flow(prev, curr, FLOW)
+    flow = ref_flow.flow(prev, curr, {"flow": FLOW})
     n, N = 4, 64
     g = torch.Generator().manual_seed(3)
     syx = torch.stack([torch.randint(0, 64, (n, 2 * N), generator=g),

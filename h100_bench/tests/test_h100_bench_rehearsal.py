@@ -5,11 +5,11 @@ from __future__ import annotations
 import json
 
 import pytest
-from conftest import run_tiny
+from conftest import one_cell_per_path, run_tiny
 
 from h100_bench import judge, spec
 
-CELLS = ["midgard752-step-b8", "midgard752-batch8-seq", "airsim1920-scan-seq"]
+CELLS = one_cell_per_path()
 
 
 @pytest.mark.parametrize("traced", [False, True])
@@ -34,8 +34,7 @@ def test_last_line_schema(bench, cell, traced):
         assert set(r["metrics"]) == set(units)
     else:
         # the device metrics are not measured on the CPU; the host counters are
-        device_only = {"flow_device_ms", "detect_device_ms", "farneback_iterate_roofline",
-                       "device_idle_share.step", "device_idle_share.loop"}
+        device_only = {m["name"] for m in want if m["source"] == "device_trace"}
         assert set(r["metrics"]) == set(units) - device_only
 
 

@@ -51,6 +51,9 @@ def test_configs_and_traffic_files(bench):
         for key in ("height", "width", "flow", "foe_samples", "sequence_frames", "scene",
                     "depth", "imu", "gt_foe"):
             assert key in cfg, (c["name"], key)
+        ref = spec.flow_reference(cfg)
+        assert callable(ref.flow) and callable(ref.weights), c["name"]
+        assert isinstance(ref.CONTROL_PRECISION, str), c["name"]
     pairs = set()
     for w in bench["workloads"]:
         assert (w["config"], w["traffic"]) not in pairs
@@ -59,6 +62,8 @@ def test_configs_and_traffic_files(bench):
         kind = spec.traffic_kind(params["kind"])
         for fn in ("prepare", "window", "traced", "pairs", "release"):
             assert callable(getattr(kind, fn)), (w["name"], fn)
+        assert isinstance(kind.TINY, dict), w["name"]
+        assert kind.FLOW_SITES and all(callable(getattr(m, n)) for m, n in kind.FLOW_SITES)
         assert set(params["limits"]) == set(judge.NUMBERS)
         assert params["limits"]["missing"] == 0
 

@@ -10,7 +10,9 @@ the sequence length is the configuration's ``sequence_frames``.
 from __future__ import annotations
 
 from h100_bench import loop
-from h100_bench.loop import pairs, release, traced, window  # noqa: F401
+from h100_bench.loop import FLOW_SITES, pairs, release, traced, window  # noqa: F401
+
+TINY = dict(loop.TINY, batch=4)
 
 
 def prepare(run) -> None:

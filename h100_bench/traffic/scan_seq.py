@@ -10,7 +10,7 @@ the sequence length is the configuration's ``sequence_frames``.
 from __future__ import annotations
 
 from h100_bench import loop
-from h100_bench.loop import pairs, release, traced, window  # noqa: F401
+from h100_bench.loop import FLOW_SITES, TINY, pairs, release, traced, window  # noqa: F401
 
 
 def prepare(run) -> None:

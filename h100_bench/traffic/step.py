@@ -11,11 +11,13 @@ an output ring, so the judge reads what the window produced.
 around synchronised replays. Traffic parameters: ``batch``,
 ``ring_bytes``, ``chunk_s`` (seconds of replays between host looks),
 ``trace_s`` (the traced slice), ``check_slots`` (slots the judge compares),
-``limits``.
+``limits``. A traffic kind with another program flow runs this one's
+``prepare`` with its flow function (``flow``) and reuses the rest.
 """
 from __future__ import annotations
 
 import math
+import sys
 import time
 
 import numpy as np
@@ -30,12 +32,18 @@ from mav_detection_tpu_torch.pipeline.detector import (
     pack_frame_scalars,
 )
 
+# the tests' small run: a ring of two slots of a b=8 batch of 64x96 frames
+TINY = {"ring_bytes": 2 * 8 * 64 * 96, "chunk_s": 0.02, "trace_s": 0.05, "check_slots": 1}
+FLOW_SITES = ((sys.modules[__name__], "farneback_flow_batch"),)
+
 
 def _scene(config):
     return dict(config["scene"], height=config["height"], width=config["width"])
 
 
-def prepare(run) -> None:
+def prepare(run, flow=None) -> None:
+    """Set-up; ``flow(prev, curr)``, the program's flow of a batch of gray
+    frames, is ``farneback_flow_batch`` where None."""
     cfg, p, dev = run.config, run.params, run.device
     h, w, B = int(cfg["height"]), int(cfg["width"]), int(p["batch"])
     N = int(cfg["foe_samples"])
@@ -68,6 +76,8 @@ def prepare(run) -> None:
     def flow_of(prev, curr):
         if control is not None:
             return control.flow(prev, curr)
+        if flow is not None:
+            return flow(prev, curr)
         return farneback_flow_batch(prev, curr, None, dev)
 
     def step():
