@@ -38,6 +38,8 @@ Usage:
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --flow-source RAFT --headless
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
+        --flow-source RAFT --raft-arch basic --raft-seed 7 --headless
+    python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --algorithm HOMOGRAPHY --flow-source FARNEBACK [--use-sparse-of] \
         --headless
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
@@ -45,6 +47,13 @@ Usage:
     python -m mav_detection_tpu_torch.cli.main --dataset synthetic \
         --flow-source FARNEBACK --devices 4 [--engine spatial|chunked] \
         --headless
+
+``--raft-arch basic`` runs the RAFT flow source on the published RAFT at
+its widths (``models.raft.RAFT_BASIC``, 12 iterations, the all-pairs
+volume) with random weights drawn from ``--raft-seed`` by the published
+initialisation, and says so with a warning: no published checkpoint is in
+the repository. ``port`` (the default) runs the port's own network and its
+shipped checkpoint.
 
 ``--devices N`` runs the detection on N ranks, one process per card (or,
 with ``--device cpu``, N gloo processes); the Validator then runs once, in
@@ -70,6 +79,12 @@ import torch
 
 from mav_detection_tpu_torch.core.config import Mode, RunConfig
 from mav_detection_tpu_torch.eval.validator import Validator
+from mav_detection_tpu_torch.models.raft import (
+    RAFT_BASIC,
+    RAFTRoute,
+    TunedRAFT,
+    create_basic_raft,
+)
 from mav_detection_tpu_torch.pipeline.processor import Processor
 
 # flags the port runs, and the values it accepts where it restricts them
@@ -95,6 +110,8 @@ PORTED = {
     "run_all": None,
     "num_hosts": None,
     "host_index": None,
+    "raft_arch": {"PORT", "BASIC"},
+    "raft_seed": None,
 }
 
 
@@ -149,7 +166,24 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--use-sparse-of", action="store_true")
     parser.add_argument("--data-to-yolo", action="store_true")
     parser.add_argument("--undistort", action="store_true")
+    parser.add_argument("--raft-arch", type=str, default="port", choices=("port", "basic"),
+                        help="RAFT flow source: the port's network and checkpoint, or "
+                             "the published RAFT with random weights from --raft-seed")
+    parser.add_argument("--raft-seed", type=int, default=0,
+                        help="seed of the published RAFT's random weights")
     return parser
+
+
+def raft_route(arch: str, seed: int, logger: logging.Logger) -> dict:
+    """``execute``'s keywords for ``--raft-arch``: none for the port's own
+    network (the Processor's default), else ``raft``, the published RAFT
+    with random weights drawn from ``seed``."""
+    if arch == "port":
+        return {}
+    logger.warning(f"--raft-arch basic: the published RAFT with random weights drawn "
+                   f"from --raft-seed {seed}; no published checkpoint is in the repository")
+    model = create_basic_raft(torch.Generator().manual_seed(seed))
+    return {"raft": RAFTRoute(model, TunedRAFT(iters=RAFT_BASIC.iters, config=RAFT_BASIC))}
 
 
 def check_ported(args: argparse.Namespace,
@@ -170,14 +204,16 @@ def check_ported(args: argparse.Namespace,
                 f"--{name.replace('_', '-')} is not yet ported")
 
 
-def execute(config: RunConfig, device: Union[str, torch.device] = "cuda") -> None:
+def execute(config: RunConfig, device: Union[str, torch.device] = "cuda",
+            raft: Optional[RAFTRoute] = None) -> None:
     """The reference's ``execute``: validation alone with ``--validate`` in
-    an NN mode, else a conversion, else detection then validation."""
+    an NN mode, else a conversion, else detection then validation;
+    ``raft``: the RAFT flow source's model (``raft_route``)."""
     config.logger.info(f"Starting: {config}")
     if config.validate and config.uses_nn_for_detection():
         Validator(config, device=device).run_validation()
         return
-    processor = Processor(config, device=device)
+    processor = Processor(config, device=device, **({} if raft is None else {"raft": raft}))
     try:
         if config.prepare_dataset:
             processor.convert(config.mode)
@@ -202,6 +238,7 @@ def run_all(logger: logging.Logger, args: argparse.Namespace) -> None:
     settings = RunConfig(logger=logger).settings
     sequences = list(settings.get("validation_sequences", []))
     mine = sequences[host_index::max(num_hosts, 1)]
+    raft_kw = raft_route(args.raft_arch, args.raft_seed, logger)
     if num_hosts > 1:
         logger.info(f"run-all host {host_index}/{num_hosts}: "
                     f"{len(mine)}/{len(sequences)} sequences")
@@ -213,7 +250,7 @@ def run_all(logger: logging.Logger, args: argparse.Namespace) -> None:
             flow_source=args.flow_source, batch_size=args.batch_size,
             devices=args.devices, engine=args.engine.lower(),
             foe_samples=args.foe_samples, use_sparse_of=args.use_sparse_of)
-        execute(config, args.device)
+        execute(config, args.device, **raft_kw)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -234,7 +271,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         devices=args.devices,
         prepare_dataset=args.prepare_dataset, validate=args.validate,
         data_to_yolo=args.data_to_yolo, undistort=args.undistort)
-    execute(config, args.device)
+    execute(config, args.device, **raft_route(args.raft_arch, args.raft_seed, logger))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """PyTorch layers that compute what ``flax.linen.Conv`` and ``GroupNorm``
-compute, on NCHW tensors.
+compute, on NCHW tensors, and the layers of the published PyTorch RAFT
+(``Conv2d``, ``InstanceNorm``, ``BatchNorm``).
 
 The compute dtype is an argument of each call, not state of the layer: one
 set of fp32 weights then serves the product bfloat16 configuration and the
@@ -31,6 +32,15 @@ fp32 one (as Flax's ``param_dtype`` stays fp32 whatever ``dtype`` is).
   XLA's SAME split of the global height: the result is the unsharded
   convolution's rows of the band. GroupNorm's per-row statistics need
   nothing.
+* **The published PyTorch layers.** ``Conv2d`` is ``nn.Conv2d(cin, cout,
+  (kh, kw), stride, padding=(kh // 2, kw // 2))``: zeros on both sides, so
+  a 7x7 at stride 2 pads 3 and 3, and the kernels may be 1x5 or 5x1. Its
+  bias goes into the convolution (one rounding), as ``nn.Conv2d`` adds it.
+  ``InstanceNorm`` is ``nn.InstanceNorm2d`` with its defaults (no affine,
+  no running statistics, eps 1e-5); ``BatchNorm`` is ``nn.BatchNorm2d`` in
+  eval mode (its running statistics, eps 1e-5), with the same parameter
+  and buffer names, so a published state dict loads into them. Both norms
+  compute in fp32 and return the call's dtype. Neither row-shards.
 """
 from __future__ import annotations
 
@@ -135,6 +145,49 @@ class GroupNorm(nn.Module):
         return y.reshape(b, c, h, w).to(dtype)
 
 
+class Conv2d(nn.Module):
+    """``nn.Conv2d(cin, cout, (kh, kw), stride, padding=(kh // 2, kw // 2))``
+    run in the call's dtype; ``weight`` is OIHW."""
+
+    def __init__(self, cin: int, cout: int, k, stride: int = 1) -> None:
+        super().__init__()
+        kh, kw = (k, k) if isinstance(k, int) else k
+        self.stride, self.padding = stride, (kh // 2, kw // 2)
+        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return F.conv2d(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype),
+                        self.stride, self.padding)
+
+
+class InstanceNorm(nn.Module):
+    """``nn.InstanceNorm2d(channels)``: per image and channel, no affine."""
+
+    EPS = 1e-5
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return F.instance_norm(x.to(torch.float32), eps=self.EPS).to(dtype)
+
+
+class BatchNorm(nn.Module):
+    """``nn.BatchNorm2d(channels)`` in eval mode: the running statistics."""
+
+    EPS = 1e-5
+
+    def __init__(self, channels: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return F.batch_norm(x.to(torch.float32), self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.EPS).to(dtype)
+
+
 def init_params(module: nn.Module, generator: Optional[torch.Generator]) -> None:
     """Flax's default initialisers, drawn from ``generator``: conv kernels
     LeCun normal (truncated at 2 sigma, as ``variance_scaling`` draws them),
@@ -155,17 +208,17 @@ def init_params(module: nn.Module, generator: Optional[torch.Generator]) -> None
 
 
 def conv_flops(model: nn.Module, fn) -> dict:
-    """fp32 and bf16 operations (multiply-adds x2) of every ``Conv`` of
-    ``model`` that ``fn()`` runs, counted from the output shapes by forward
-    hooks: ``{"fp32": ..., "bf16": ...}``."""
+    """fp32 and bf16 operations (multiply-adds x2) of every ``Conv`` and
+    ``Conv2d`` of ``model`` that ``fn()`` runs, counted from the output
+    shapes by forward hooks: ``{"fp32": ..., "bf16": ...}``."""
     flops = {"fp32": 0.0, "bf16": 0.0}
 
     def hook(mod, args, out):
         kind = "bf16" if args[1] == torch.bfloat16 else "fp32"
-        flops[kind] += 2.0 * out.numel() * mod.weight.shape[1] * mod.k * mod.k
+        flops[kind] += 2.0 * out.numel() * mod.weight[0].numel()
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, Conv)]
+               if isinstance(m, (Conv, Conv2d))]
     try:
         fn()
     finally:

@@ -32,6 +32,46 @@ channels): the checkpoint was trained on that.
 Entry points run on the card unless given ``device="cpu"``. With no model
 given they load the shipped checkpoint (``models/pretrained.py``), or,
 without one, random weights with a warning.
+
+Two networks, which the entry points take alike:
+
+* ``RAFT`` (everything above): the port's own smaller network, which the
+  shipped checkpoint holds: encoders of 48 / 72 / 96 with GroupNorm(8), one
+  residual block a layer, XLA's SAME padding; features 128, hidden 96 +
+  context 64; one 3x3 ConvGRU; banded local volumes by default; 6 product
+  iterations.
+* ``BasicRAFT`` (``RAFT_BASIC``): the published RAFT at its widths
+  (princeton-vl/RAFT ``core/raft.py`` with ``args.small`` False), with
+  submodules named as in its state dict (``fnet``, ``cnet``,
+  ``update_block.{encoder,gru,flow_head,mask}``), so a published dict loads
+  with ``load_state_dict(strict=True)``. ``BasicEncoder``s of 64 / 64 / 96
+  / 128 with two residual blocks a layer, instance norm in fnet (256) and
+  eval-mode batch norm in cnet (hidden 128 + context 128), convolutions
+  padded k // 2 on both sides; the all-pairs volume, 4 levels, radius 4,
+  sampled with ``grid_sample(align_corners=True)`` and zeros outside, taps
+  ordered level, x offset, y offset; ``BasicMotionEncoder``, ``SepConvGRU``
+  (1x5 then 5x1), the 256-wide flow head; coordinates carried as
+  ``coords1``; the convex upsample with zeros beyond the border and the
+  mask scaled by 0.25; images normalised as ``2 * (x / 255) - 1``; 12
+  iterations. Its departures from the published code: bfloat16 in place of
+  the fp16 of ``--mixed_precision``, with the same split (every
+  convolution in ``dtype``, the flow and mask heads too, as the published
+  ``update_block`` runs under ``autocast``; the normalisation, the volume
+  and its pyramid, the lookup's coordinates and taps, the flow and the
+  upsample in fp32);
+  the mask head runs once, on the final hidden state (its result equals
+  the last iteration's ``up_mask`` of ``test_mode``); frames are padded at
+  the bottom and right, as the port's are (``InputPadder`` centres), and a
+  gray frame is repeated to 3 channels; a pyramid level one pixel high or
+  wide is sampled through a zero border (the published sampler divides by
+  zero there). Random weights come from ``init_basic_params`` (the
+  published initialisation) until a published checkpoint is in the
+  repository; it runs inference only.
+
+Spans (``utils.tracing.stage``, free while nothing records): ``raft`` (the
+whole ``raft_flow`` / ``raft_flow_video`` call), ``raft.encode``,
+``raft.corr``, ``raft.lookup`` and ``raft.update`` (once per iteration) and
+``raft.upsample``.
 """
 from __future__ import annotations
 
@@ -39,17 +79,26 @@ import logging
 import math
 import os
 from dataclasses import dataclass, replace
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mav_detection_tpu_torch.models.layers import Conv, GroupNorm, current_rows, init_params
+from mav_detection_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv,
+    Conv2d,
+    GroupNorm,
+    InstanceNorm,
+    current_rows,
+    init_params,
+)
 from mav_detection_tpu_torch.ops.geometry.warp import sample_bilinear_replicate
 from mav_detection_tpu_torch.ops.image.resize import resize_frames
 from mav_detection_tpu_torch.utils.device import resolve_device
+from mav_detection_tpu_torch.utils.tracing import stage
 
 logger = logging.getLogger("mav_detection_tpu_torch")
 Device = Union[str, torch.device]
@@ -75,6 +124,13 @@ class RAFTConfig:
 
 _ARCHITECTURE = ("feature_dim", "hidden_dim", "context_dim", "corr_levels",
                  "corr_radius")
+
+# The published RAFT (``core/raft.py`` with ``args.small`` False) at its
+# widths, ``forward``'s default of 12 iterations, on the all-pairs volume;
+# the weights of ``BasicRAFT``
+RAFT_BASIC = RAFTConfig(feature_dim=256, hidden_dim=128, context_dim=128,
+                        corr_levels=4, corr_radius=4, iters=12,
+                        dtype=torch.bfloat16, materialize_corr=True)
 
 
 class ResidualBlock(nn.Module):
@@ -387,6 +443,234 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
             .reshape(b, 2, 8 * h, 8 * w))
 
 
+# ------------------------------------------------------ the published RAFT
+# princeton-vl/RAFT ``core/extractor.py``, ``core/update.py``, ``core/corr.py``
+# and ``core/raft.py``: module names as in its state dict
+def _norm(kind: str, channels: int) -> nn.Module:
+    return InstanceNorm() if kind == "instance" else BatchNorm(channels)
+
+
+class BasicResidualBlock(nn.Module):
+    """``ResidualBlock``: conv, norm, ReLU twice; where the stride is 2 a
+    normed 1x1 downsample of the input (``norm3`` is ``downsample.1``);
+    ReLU of the sum."""
+
+    def __init__(self, cin: int, planes: int, norm: str, stride: int = 1) -> None:
+        super().__init__()
+        self.conv1 = Conv2d(cin, planes, 3, stride)
+        self.conv2 = Conv2d(planes, planes, 3)
+        self.norm1 = _norm(norm, planes)
+        self.norm2 = _norm(norm, planes)
+        self.downsample = None
+        if stride != 1:
+            self.norm3 = _norm(norm, planes)
+            self.downsample = nn.Sequential(Conv2d(cin, planes, 1, stride), self.norm3)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = F.relu(self.norm1(self.conv1(x, dtype), dtype))
+        y = F.relu(self.norm2(self.conv2(y, dtype), dtype))
+        if self.downsample is not None:
+            x = self.norm3(self.downsample[0](x, dtype), dtype)
+        return F.relu(x.to(dtype) + y)
+
+
+class BasicEncoder(nn.Module):
+    """``BasicEncoder``: a 7x7 stride-2 stem of 64, layers of 64, 96 and 128
+    (two residual blocks each, the last two at stride 2), a 1x1 to
+    ``output_dim``; 1/8 resolution. ``norm``: "instance" (fnet) or "batch"
+    (cnet, eval mode)."""
+
+    def __init__(self, output_dim: int, norm: str) -> None:
+        super().__init__()
+        self.norm1 = _norm(norm, 64)
+        self.conv1 = Conv2d(3, 64, 7, 2)
+        dims = ((64, 64, 1), (64, 96, 2), (96, 128, 2))
+        self.layer1, self.layer2, self.layer3 = (
+            nn.Sequential(BasicResidualBlock(cin, dim, norm, stride),
+                          BasicResidualBlock(dim, dim, norm))
+            for cin, dim, stride in dims)
+        self.conv2 = Conv2d(128, output_dim, 1)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = F.relu(self.norm1(self.conv1(x, dtype), dtype))
+        for layer in (self.layer1, self.layer2, self.layer3):
+            for block in layer:
+                x = block(x, dtype)
+        return self.conv2(x, dtype)
+
+
+class BasicMotionEncoder(nn.Module):
+    """``BasicMotionEncoder``: the correlation taps through 1x1 to 256 and
+    3x3 to 192, the flow through 7x7 to 128 and 3x3 to 64, both through
+    3x3 to 126, and the flow appended: 128 channels."""
+
+    def __init__(self, config: RAFTConfig) -> None:
+        super().__init__()
+        cor = config.corr_levels * (2 * config.corr_radius + 1) ** 2
+        self.convc1 = Conv2d(cor, 256, 1)
+        self.convc2 = Conv2d(256, 192, 3)
+        self.convf1 = Conv2d(2, 128, 7)
+        self.convf2 = Conv2d(128, 64, 3)
+        self.conv = Conv2d(64 + 192, 128 - 2, 3)
+
+    def forward(self, flow: torch.Tensor, corr: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        cor = F.relu(self.convc2(F.relu(self.convc1(corr, dtype)), dtype))
+        flo = F.relu(self.convf2(F.relu(self.convf1(flow, dtype)), dtype))
+        out = F.relu(self.conv(torch.cat([cor, flo], 1), dtype))
+        return torch.cat([out, flow.to(dtype)], 1)
+
+
+class SepConvGRU(nn.Module):
+    """``SepConvGRU``: a ConvGRU step with 1x5 kernels, then one with 5x1."""
+
+    def __init__(self, hidden_dim: int, input_dim: int) -> None:
+        super().__init__()
+        c = hidden_dim + input_dim
+        self.convz1 = Conv2d(c, hidden_dim, (1, 5))
+        self.convr1 = Conv2d(c, hidden_dim, (1, 5))
+        self.convq1 = Conv2d(c, hidden_dim, (1, 5))
+        self.convz2 = Conv2d(c, hidden_dim, (5, 1))
+        self.convr2 = Conv2d(c, hidden_dim, (5, 1))
+        self.convq2 = Conv2d(c, hidden_dim, (5, 1))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        for convz, convr, convq in ((self.convz1, self.convr1, self.convq1),
+                                    (self.convz2, self.convr2, self.convq2)):
+            hx = torch.cat([h, x], 1)
+            z = torch.sigmoid(convz(hx, dtype))
+            r = torch.sigmoid(convr(hx, dtype))
+            q = torch.tanh(convq(torch.cat([r * h, x], 1), dtype))
+            h = (1 - z) * h + z * q
+        return h
+
+
+class FlowHead(nn.Module):
+    def __init__(self, input_dim: int, hidden_dim: int) -> None:
+        super().__init__()
+        self.conv1 = Conv2d(input_dim, hidden_dim, 3)
+        self.conv2 = Conv2d(hidden_dim, 2, 3)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self.conv2(F.relu(self.conv1(x, dtype)), dtype)
+
+
+class BasicUpdateBlock(nn.Module):
+    """``BasicUpdateBlock``: motion encoder, ``SepConvGRU`` over the context
+    and the motion features, the 256-wide flow head, and the mask head
+    ``mask`` (128 -> 256 -> 576, scaled by 0.25), which ``up_mask`` runs;
+    all in ``dtype``, the heads' results returned in fp32."""
+
+    def __init__(self, config: RAFTConfig) -> None:
+        super().__init__()
+        self.encoder = BasicMotionEncoder(config)
+        self.gru = SepConvGRU(config.hidden_dim, config.context_dim + 128)
+        self.flow_head = FlowHead(config.hidden_dim, 256)
+        self.mask = nn.Sequential(Conv2d(config.hidden_dim, 256, 3), nn.ReLU(),
+                                  Conv2d(256, 64 * 9, 1))
+
+    def forward(self, net, inp, corr, flow, dtype):
+        motion = self.encoder(flow, corr, dtype)
+        net = self.gru(net, torch.cat([inp, motion], 1), dtype)
+        return net, self.flow_head(net, dtype).to(torch.float32)
+
+    def up_mask(self, net: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = F.relu(self.mask[0](net, dtype))
+        return 0.25 * self.mask[2](x, dtype).to(torch.float32)
+
+
+def coords_grid(b: int, h: int, w: int, device) -> torch.Tensor:
+    """(b, 2, h, w) fp32 pixel coordinates, channel 0 x, channel 1 y."""
+    ys, xs = torch.meshgrid(torch.arange(h, device=device), torch.arange(w, device=device),
+                            indexing="ij")
+    return torch.stack([xs, ys]).to(torch.float32)[None].repeat(b, 1, 1, 1)
+
+
+def bilinear_sampler_zeros(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """``bilinear_sampler``: (n, c, H, W) sampled at (n, ..., 2) pixel
+    coordinates (x, y), bilinear, zero outside the map
+    (``grid_sample(align_corners=True)``). A map one pixel high or wide gets
+    a one-pixel border of zeros first: ``align_corners`` cannot place a
+    coordinate on a single pixel, and the border leaves every tap's value as
+    it is."""
+    H, W = img.shape[-2:]
+    if H == 1 or W == 1:
+        img, coords, H, W = F.pad(img, (1, 1, 1, 1)), coords + 1, H + 2, W + 2
+    x, y = coords.split([1, 1], dim=-1)
+    grid = torch.cat([2 * x / (W - 1) - 1, 2 * y / (H - 1) - 1], dim=-1)
+    return F.grid_sample(img, grid, align_corners=True)
+
+
+def lookup_corr_all_pairs(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                          radius: int) -> torch.Tensor:
+    """``CorrBlock.__call__``: each level of the all-pairs pyramid ((b, h, w,
+    th, tw) volumes) sampled in a (2r+1)^2 window around ``coords`` / 2^level
+    ((b, 2, h, w), x then y), zero outside -> (b, levels * (2r+1)^2, h, w)
+    fp32. Taps in the published order: level, then the x offset, then the y
+    offset (``meshgrid(dy, dx)`` added to (x, y))."""
+    b, _, h, w = coords.shape
+    n = 2 * radius + 1
+    d = torch.linspace(-radius, radius, n, device=coords.device)
+    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), dim=-1).view(1, n, n, 2)
+    centroid = coords.permute(0, 2, 3, 1).reshape(b * h * w, 1, 1, 2)
+    outs = []
+    for lvl, corr in enumerate(pyramid):
+        vol = corr.reshape(b * h * w, 1, corr.shape[3], corr.shape[4])
+        taps = bilinear_sampler_zeros(vol, centroid / 2 ** lvl + delta)
+        outs.append(taps.view(b, h, w, -1))
+    return torch.cat(outs, dim=-1).permute(0, 3, 1, 2).contiguous().float()
+
+
+def convex_upsample_zeros(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``RAFT.upsample_flow``: 8x upsample of (b, 2, h, w) flow with convex
+    combinations of its 3x3 neighbours, zero beyond the border
+    (``F.unfold(padding=1)``); ``mask`` is (b, 576, h, w), channel j*64 + k
+    for neighbour j = 3dy + dx and sub-pixel k = 8a + b."""
+    n, _, h, w = flow.shape
+    m = torch.softmax(mask.view(n, 1, 9, 8, 8, h, w), dim=2)
+    up = F.unfold(8 * flow, [3, 3], padding=1).view(n, 2, 9, 1, 1, h, w)
+    up = torch.sum(m * up, dim=2).permute(0, 1, 4, 2, 5, 3)
+    return up.reshape(n, 2, 8 * h, 8 * w)
+
+
+def init_basic_params(model: nn.Module, generator: torch.Generator) -> None:
+    """The published initialisation, drawn from ``generator`` conv by conv
+    in module order, weight then bias: the encoders' kernels
+    ``kaiming_normal_(mode="fan_out", nonlinearity="relu")``, every other
+    kernel and every bias PyTorch's default (uniform within
+    1/sqrt(fan_in)); batch norm weight 1, bias 0, running mean 0 and
+    variance 1."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, Conv2d):
+                fan_in = m.weight[0].numel()
+                if name.split(".")[0] in ("fnet", "cnet"):
+                    std = math.sqrt(2.0 / (m.weight.shape[0] * m.weight[0, 0].numel()))
+                    w = torch.randn(m.weight.shape, generator=generator) * std
+                else:
+                    w = _uniform(m.weight.shape, fan_in, generator)
+                m.weight.copy_(w)
+                m.bias.copy_(_uniform(m.bias.shape, fan_in, generator))
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
+
+
+def _uniform(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator) * 2 - 1) / math.sqrt(fan_in)
+
+
+class RAFTRoute(NamedTuple):
+    """What a Processor's RAFT flow source runs: the model and its operating
+    point (None: ``tuned_raft_config`` of the frame size)."""
+    model: "AnyRAFT"
+    tuned: Optional["TunedRAFT"] = None
+
+
 class RAFT(nn.Module):
     """The net. Weights hold the architecture of ``config``; a call may pass
     another config with the same architecture (the coverage ladder changes
@@ -401,14 +685,6 @@ class RAFT(nn.Module):
         self.mask_hidden = Conv(config.hidden_dim, 128, 3)
         self.mask_head = Conv(128, 8 * 8 * 9, 1)
 
-    def _config(self, config: Optional[RAFTConfig]) -> RAFTConfig:
-        cfg = config or self.config
-        for k in _ARCHITECTURE:
-            if getattr(cfg, k) != getattr(self.config, k):
-                raise ValueError(f"RAFTConfig.{k}={getattr(cfg, k)} does not match "
-                                 f"the weights' {getattr(self.config, k)}")
-        return cfg
-
     def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int,
                 config: Optional[RAFTConfig] = None,
                 upsample_all: bool = False) -> torch.Tensor:
@@ -416,24 +692,26 @@ class RAFT(nn.Module):
         (b, 2, H, W) flow from image1 to image2; with ``upsample_all`` (the
         training sequence loss) the upsampled prediction of every iteration,
         (iters, b, 2, H, W)."""
-        cfg = self._config(config)
+        cfg = _checked(self.config, config)
         b = image1.shape[0]
-        x1 = image1.to(torch.float32) / 127.5 - 1.0
-        x2 = image2.to(torch.float32) / 127.5 - 1.0
-        feats = self.fnet(torch.cat([x1, x2]), cfg.dtype)
-        return self.refine(feats[:b], feats[b:], self.cnet(x1, cfg.dtype), iters, cfg,
-                           upsample_all)
+        with stage("raft.encode"):
+            x1 = image1.to(torch.float32) / 127.5 - 1.0
+            x2 = image2.to(torch.float32) / 127.5 - 1.0
+            feats = self.fnet(torch.cat([x1, x2]), cfg.dtype)
+            cnet_out = self.cnet(x1, cfg.dtype)
+        return self.refine(feats[:b], feats[b:], cnet_out, iters, cfg, upsample_all)
 
     def video(self, frames: torch.Tensor, iters: int,
               config: Optional[RAFTConfig] = None) -> torch.Tensor:
         """(n, 3, H, W) consecutive frames -> (n-1, 2, H, W) flow of every
         transition; each frame goes through fnet once, and every frame but
         the last through cnet once."""
-        cfg = self._config(config)
-        xs = frames.to(torch.float32) / 127.5 - 1.0
-        feats = self.fnet(xs, cfg.dtype)
-        return self.refine(feats[:-1], feats[1:], self.cnet(xs[:-1], cfg.dtype),
-                           iters, cfg)
+        cfg = _checked(self.config, config)
+        with stage("raft.encode"):
+            xs = frames.to(torch.float32) / 127.5 - 1.0
+            feats = self.fnet(xs, cfg.dtype)
+            cnet_out = self.cnet(xs[:-1], cfg.dtype)
+        return self.refine(feats[:-1], feats[1:], cnet_out, iters, cfg)
 
     def correlation(self, f1: torch.Tensor, f2: torch.Tensor, cfg: RAFTConfig
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -464,23 +742,113 @@ class RAFT(nn.Module):
         dt = cfg.dtype
         hidden = torch.tanh(cnet_out[:, :cfg.hidden_dim])
         context = F.relu(cnet_out[:, cfg.hidden_dim:])
-        lookup = self.correlation(f1, f2, cfg)
+        with stage("raft.corr"):
+            lookup = self.correlation(f1, f2, cfg)
         b, _, h8, w8 = f1.shape
         flow = torch.zeros((b, 2, h8, w8), dtype=torch.float32, device=f1.device)
         hiddens, flows = [], []
         for _ in range(iters):
-            hidden, dflow = self.update(hidden, context, lookup(flow), flow, dt)
-            flow = flow + dflow
+            with stage("raft.lookup"):
+                corr = lookup(flow)
+            with stage("raft.update"):
+                hidden, dflow = self.update(hidden, context, corr, flow, dt)
+                flow = flow + dflow
             if upsample_all:
                 hiddens.append(hidden)
                 flows.append(flow)
         if upsample_all:
             hidden, flow = torch.cat(hiddens), torch.cat(flows)
-        mask = self.mask_head(F.relu(self.mask_hidden(hidden, dt)).to(torch.float32),
-                              torch.float32)
-        up = convex_upsample(flow, mask)
+        with stage("raft.upsample"):
+            mask = self.mask_head(F.relu(self.mask_hidden(hidden, dt)).to(torch.float32),
+                                  torch.float32)
+            up = convex_upsample(flow, mask)
         return up.reshape(iters, b, *up.shape[1:]) if upsample_all else up
 
+
+def _checked(own: RAFTConfig, config: Optional[RAFTConfig]) -> RAFTConfig:
+    """``config`` (``own`` where None), which has to hold the architecture
+    of the weights, ``own``."""
+    cfg = config or own
+    for k in _ARCHITECTURE:
+        if getattr(cfg, k) != getattr(own, k):
+            raise ValueError(f"RAFTConfig.{k}={getattr(cfg, k)} does not match "
+                             f"the weights' {getattr(own, k)}")
+    return cfg
+
+
+class BasicRAFT(nn.Module):
+    """The published RAFT (``core/raft.py`` with ``args.small`` False), for
+    inference: submodules under the published state-dict names, the
+    architecture of ``config`` (``RAFT_BASIC``); a call may pass another
+    config with the same architecture (another dtype or ``iters``), always
+    on the all-pairs volume."""
+
+    def __init__(self, config: RAFTConfig = RAFT_BASIC) -> None:
+        super().__init__()
+        self.config = config
+        self.fnet = BasicEncoder(config.feature_dim, "instance")
+        self.cnet = BasicEncoder(config.hidden_dim + config.context_dim, "batch")
+        self.update_block = BasicUpdateBlock(config)
+
+    def _config(self, config: Optional[RAFTConfig]) -> RAFTConfig:
+        cfg = _checked(self.config, config)
+        if not cfg.materialize_corr:
+            raise ValueError("the published RAFT runs on the all-pairs volume "
+                             "(materialize_corr=True)")
+        return cfg
+
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor, iters: int,
+                config: Optional[RAFTConfig] = None) -> torch.Tensor:
+        """(b, 3, H, W) fp32 images in [0, 255], H and W multiples of 8 ->
+        (b, 2, H, W) flow from image1 to image2."""
+        cfg = self._config(config)
+        b = image1.shape[0]
+        with stage("raft.encode"):
+            x1 = 2 * (image1.to(torch.float32) / 255.0) - 1.0
+            x2 = 2 * (image2.to(torch.float32) / 255.0) - 1.0
+            feats = self.fnet(torch.cat([x1, x2]), cfg.dtype)
+            cnet_out = self.cnet(x1, cfg.dtype)
+        return self.refine(feats[:b], feats[b:], cnet_out, iters, cfg)
+
+    def video(self, frames: torch.Tensor, iters: int,
+              config: Optional[RAFTConfig] = None) -> torch.Tensor:
+        """(n, 3, H, W) consecutive frames -> (n-1, 2, H, W) flow of every
+        transition; each frame goes through fnet once, and every frame but
+        the last through cnet once."""
+        cfg = self._config(config)
+        with stage("raft.encode"):
+            xs = 2 * (frames.to(torch.float32) / 255.0) - 1.0
+            feats = self.fnet(xs, cfg.dtype)
+            cnet_out = self.cnet(xs[:-1], cfg.dtype)
+        return self.refine(feats[:-1], feats[1:], cnet_out, iters, cfg)
+
+    def refine(self, f1: torch.Tensor, f2: torch.Tensor, cnet_out: torch.Tensor,
+               iters: int, cfg: RAFTConfig) -> torch.Tensor:
+        """The published iterations (``RAFT.forward`` in ``test_mode``):
+        coordinates carried as ``coords1`` and the flow ``coords1 - coords0``
+        in fp32, the all-pairs lookup, and the convex upsample of the final
+        flow with the final hidden state's mask (the published loop's last
+        ``up_mask``)."""
+        dt = cfg.dtype
+        net = torch.tanh(cnet_out[:, :cfg.hidden_dim])
+        inp = torch.relu(cnet_out[:, cfg.hidden_dim:])
+        with stage("raft.corr"):
+            pyramid = build_corr_pyramid(all_pairs_correlation(f1, f2), cfg.corr_levels)
+        b, _, h8, w8 = f1.shape
+        coords0 = coords_grid(b, h8, w8, f1.device)
+        coords1 = coords0.clone()
+        for _ in range(iters):
+            with stage("raft.lookup"):
+                corr = lookup_corr_all_pairs(pyramid, coords1, cfg.corr_radius)
+            with stage("raft.update"):
+                net, delta = self.update_block(net, inp, corr, coords1 - coords0, dt)
+                coords1 = coords1 + delta
+        with stage("raft.upsample"):
+            return convex_upsample_zeros(coords1 - coords0, self.update_block.up_mask(net, dt))
+
+
+# what the inference entry points take: the port's network or the published one
+AnyRAFT = Union[RAFT, BasicRAFT]
 
 # --------------------------------------------------------------- interface
 # Inference default: the banded local volumes (no (h*w)^2 volume)
@@ -509,11 +877,11 @@ def _images_nchw(images, device: torch.device) -> torch.Tensor:
     return t
 
 
-def _model_device(model: RAFT) -> torch.device:
-    return model.mask_head.weight.device
+def _model_device(model: AnyRAFT) -> torch.device:
+    return next(model.parameters()).device
 
 
-def raft_flow(model: RAFT, image1, image2, iters: int = PRODUCT_ITERS,
+def raft_flow(model: AnyRAFT, image1, image2, iters: int = PRODUCT_ITERS,
               config: RAFTConfig = INFERENCE_CONFIG) -> torch.Tensor:
     """(b, H, W[, 3]) frame pairs, on the model's device -> (b, H, W, 2)
     flow. Pads to multiples of 8 and crops back.
@@ -524,11 +892,12 @@ def raft_flow(model: RAFT, image1, image2, iters: int = PRODUCT_ITERS,
     the ``_auto`` entry points escalate."""
     iters = iters or PRODUCT_ITERS
     dev = _model_device(model)
-    x1, x2 = _images_nchw(image1, dev), _images_nchw(image2, dev)
-    h, w = torch.as_tensor(image1).shape[1:3]
-    with torch.no_grad():
-        flow = model(x1, x2, iters, config)
-    return flow[:, :, :h, :w].permute(0, 2, 3, 1).contiguous()
+    with stage("raft"):
+        x1, x2 = _images_nchw(image1, dev), _images_nchw(image2, dev)
+        h, w = torch.as_tensor(image1).shape[1:3]
+        with torch.no_grad():
+            flow = model(x1, x2, iters, config)
+        return flow[:, :, :h, :w].permute(0, 2, 3, 1).contiguous()
 
 
 def _default_params(device: Device = "cpu",
@@ -561,7 +930,19 @@ def create_raft(generator: Optional[torch.Generator] = None,
     return model
 
 
-def _resolve_model(model: Optional[RAFT], device: Device) -> Tuple[RAFT, torch.device]:
+def create_basic_raft(generator: Optional[torch.Generator] = None,
+                      config: RAFTConfig = RAFT_BASIC) -> BasicRAFT:
+    """A ``BasicRAFT`` of ``config``'s architecture with the published
+    initialisers (``init_basic_params``) drawn from ``generator`` (seed 0
+    when none is given), on the CPU."""
+    model = BasicRAFT(config)
+    init_basic_params(model, generator if generator is not None
+                      else torch.Generator().manual_seed(0))
+    return model
+
+
+def _resolve_model(model: Optional[AnyRAFT], device: Device
+                   ) -> Tuple[AnyRAFT, torch.device]:
     dev = resolve_device(device)
     if model is None:
         from mav_detection_tpu_torch.models import pretrained
@@ -575,7 +956,7 @@ def _resolve_model(model: Optional[RAFT], device: Device) -> Tuple[RAFT, torch.d
     return model, dev
 
 
-def raft_flow_batch(images1, images2, model: Optional[RAFT] = None,
+def raft_flow_batch(images1, images2, model: Optional[AnyRAFT] = None,
                     iters: int = PRODUCT_ITERS,
                     config: RAFTConfig = INFERENCE_CONFIG,
                     device: Device = "cuda") -> torch.Tensor:
@@ -587,7 +968,7 @@ def raft_flow_batch(images1, images2, model: Optional[RAFT] = None,
                      torch.as_tensor(images2).to(dev), iters, config)
 
 
-def raft_flow_video(frames, model: Optional[RAFT] = None,
+def raft_flow_video(frames, model: Optional[AnyRAFT] = None,
                     iters: int = PRODUCT_ITERS,
                     config: RAFTConfig = INFERENCE_CONFIG,
                     device: Device = "cuda") -> torch.Tensor:
@@ -597,9 +978,9 @@ def raft_flow_video(frames, model: Optional[RAFT] = None,
     model, dev = _resolve_model(model, device)
     t = torch.as_tensor(frames).to(dev)
     h, w = t.shape[1:3]
-    with torch.no_grad():
+    with stage("raft"), torch.no_grad():
         flow = model.video(_images_nchw(t, dev), iters or PRODUCT_ITERS, config)
-    return flow[:, :, :h, :w].permute(0, 2, 3, 1).contiguous()
+        return flow[:, :, :h, :w].permute(0, 2, 3, 1).contiguous()
 
 
 def flow_coverage_px(config: RAFTConfig = INFERENCE_CONFIG) -> float:
@@ -750,7 +1131,7 @@ def _flow_with_escalation(run: Callable[[RAFTConfig], torch.Tensor],
     return flow
 
 
-def raft_flow_batch_auto(images1, images2, model: Optional[RAFT] = None,
+def raft_flow_batch_auto(images1, images2, model: Optional[AnyRAFT] = None,
                          iters: int = PRODUCT_ITERS,
                          config: RAFTConfig = INFERENCE_CONFIG,
                          device: Device = "cuda",
@@ -764,7 +1145,7 @@ def raft_flow_batch_auto(images1, images2, model: Optional[RAFT] = None,
         hw, config, n_real, mesh)
 
 
-def raft_flow_video_auto(frames, model: Optional[RAFT] = None,
+def raft_flow_video_auto(frames, model: Optional[AnyRAFT] = None,
                          iters: int = PRODUCT_ITERS,
                          config: RAFTConfig = INFERENCE_CONFIG,
                          device: Device = "cuda",
@@ -812,7 +1193,7 @@ def _run_scaled(run_auto: Callable[[TunedRAFT], torch.Tensor],
     return flow
 
 
-def raft_flow_batch_tuned(images1, images2, model: Optional[RAFT] = None,
+def raft_flow_batch_tuned(images1, images2, model: Optional[AnyRAFT] = None,
                           tuned: Optional[TunedRAFT] = None,
                           device: Device = "cuda",
                           n_real: Optional[int] = None, mesh=None) -> torch.Tensor:
@@ -833,7 +1214,7 @@ def raft_flow_batch_tuned(images1, images2, model: Optional[RAFT] = None,
                                         tt.config, dev, n_real, mesh), (h, w), t)
 
 
-def raft_flow_video_tuned(frames, model: Optional[RAFT] = None,
+def raft_flow_video_tuned(frames, model: Optional[AnyRAFT] = None,
                           tuned: Optional[TunedRAFT] = None,
                           device: Device = "cuda",
                           n_real: Optional[int] = None, mesh=None) -> torch.Tensor:

@@ -79,6 +79,7 @@ from mav_detection_tpu_torch.data.dataset import (
     imwrite,
 )
 from mav_detection_tpu_torch.models.raft import (
+    RAFTRoute,
     raft_flow_batch_tuned,
     raft_flow_video_tuned,
 )
@@ -160,6 +161,7 @@ class _RankJob:
     attrs: Dict[str, Any]
     method: str
     kwargs: Dict[str, Any]
+    raft: Optional[RAFTRoute] = None
 
 
 def _portable_config(config: RunConfig) -> RunConfig:
@@ -174,7 +176,7 @@ def _processor_rank(mesh: pmesh.Mesh, job: _RankJob):
     dataset runs the job's method; rank 0 returns its FrameResults and
     all-reduced metrics."""
     proc = Processor(job.config, device=mesh.device, mesh=mesh,
-                     dataset=job.dataset)
+                     dataset=job.dataset, raft=job.raft)
     proc._spawned = True
     for key, value in job.attrs.items():
         setattr(proc, key, value)
@@ -192,10 +194,12 @@ class Processor:
     def __init__(self, config: RunConfig,
                  device: Union[str, torch.device] = "cuda",
                  mesh: Optional[pmesh.Mesh] = None,
-                 dataset=None) -> None:
+                 dataset=None, raft: Optional[RAFTRoute] = None) -> None:
         """``mesh``: run as that rank of a process group (a spawned rank, or
         a caller under a group of its own); ``dataset``: use it in place of
-        ``config.get_dataset``."""
+        ``config.get_dataset``; ``raft``: the model and operating point the
+        RAFT flow source runs, pairs and chains alike (None: the shipped
+        checkpoint at ``tuned_raft_config`` of the frame size)."""
         self.device = resolve_device(device)
         self.config = config
         self.logger = config.logger or logging.getLogger("mav_detection_tpu_torch")
@@ -218,6 +222,7 @@ class Processor:
                 self._ranks = config.devices
         if self.mesh is not None:
             self.device = self.mesh.device
+        self._raft = None if raft is None else raft._replace(model=raft.model.to(self.device))
         n_shards = self.mesh.size if self.mesh is not None else self._ranks
         if n_shards:
             # each rank needs at least one frame of every batch
@@ -411,8 +416,9 @@ class Processor:
         if src == FlowSource.FARNEBACK:
             return _farneback_cf(prevs, currs, self._farneback)
         if src == FlowSource.RAFT:
-            return raft_flow_batch_tuned(prevs, currs, device=self.device,
-                                         n_real=n_real, mesh=self.mesh)
+            model, tuned = self._raft or (None, None)
+            return raft_flow_batch_tuned(prevs, currs, model=model, tuned=tuned,
+                                         device=self.device, n_real=n_real, mesh=self.mesh)
         n = prevs.shape[0]
         n_real = n if n_real is None else n_real
         flows = torch.stack([
@@ -441,8 +447,9 @@ class Processor:
                                     self._to_dev(staged["currs"]), src, n_real)
         if src == FlowSource.RAFT:
             # the chain's shared encoding: each frame through fnet once
-            return raft_flow_video_tuned(frames, device=self.device, n_real=n_real,
-                                         mesh=self.mesh)
+            model, tuned = self._raft or (None, None)
+            return raft_flow_video_tuned(frames, model=model, tuned=tuned,
+                                         device=self.device, n_real=n_real, mesh=self.mesh)
         return self._flow_pairs(frames[:-1], frames[1:], src, n_real)
 
     def _flow_batch(self, indices: List[int]) -> torch.Tensor:
@@ -993,7 +1000,7 @@ class Processor:
         metrics as this Processor's."""
         job = _RankJob(config=_portable_config(self.config), dataset=self.dataset,
                        attrs={k: getattr(self, k) for k in _RANK_ATTRS},
-                       method=method, kwargs=kwargs)
+                       method=method, kwargs=kwargs, raft=self._raft)
         results, psum = pmesh.launch(_processor_rank, self._ranks, self.device, job)
         for i, fr in results.items():
             self.detection_results[i] = fr

@@ -9,9 +9,14 @@ that first synchronizes absorbs the device time.
 
 ``recording(tracer)`` makes one tracer the one the program's spans go to:
 the module-level ``stage(name)`` calls inside the Flow layer
-(``flow``, ``flow.expand``, ``flow.iterate``) and the detection step
-(``detect``, ``detect.derotate``, ``detect.foe_vote``, ``detect.masks``,
-``detect.rates``). While nothing records, ``stage`` returns one shared null
+(``flow``, ``flow.expand``, ``flow.iterate``), the RAFT flow
+(``models/raft.py``: ``raft``, the whole ``raft_flow`` call with its padding
+and crop; ``raft.encode``, fnet on both frames and cnet; ``raft.corr``, the
+correlation volume and its pyramid; ``raft.lookup``, each iteration's
+lookup; ``raft.update``, each iteration's motion encoder, GRU and flow head;
+``raft.upsample``, the mask head and the convex upsample) and the detection
+step (``detect``, ``detect.derotate``, ``detect.foe_vote``,
+``detect.masks``, ``detect.rates``). While nothing records, ``stage`` returns one shared null
 context: no allocation, no event, no ``record_function``, no clock read.
 While a tracer records, each of its stages also keeps a ``Span``: its
 name, its parent (the innermost span of the tracer still open), the step
