@@ -28,6 +28,16 @@ Phases, each printing one line (plus its seconds):
                registers, spills (ptxas), shared memory and blocks per SM,
                the plain version's time, the ms per batch of each, and the
                finest layers' shares against the 0.5 target.
+ 3a. expand  — the polynomial expansion's band kernel against the two
+               matmuls it replaces at every layer of the product's pyramid,
+               timed in turns beside expand_bound.
+ 3c. rates   — the detection step's rates kernel (csrc/detect_rates.cu)
+               against its plain version on the card at b=8 752x480 and
+               1920x1024 and b=1 752x480, depth per frame and one depth
+               frame expanded over the batch: counts and rates equal, the
+               drone's mean flow within RATES_FLOW_TOL; timed in turns
+               (plain, kernel, kernel, plain; replayed CUDA graphs) beside
+               rates_bound (its inputs read once).
  3b. probes  — the TPU probe kernels of tools/, ported as
                csrc/shift_probes.cu: shift_chain, shift_gather and the y
                stage in forms A, B, C, D and T, each equal (torch.equal) to
@@ -288,10 +298,20 @@ KERNEL_ROWS = {
     "farneback_expand": dict(route="cuda",
                              source="mav_detection_tpu_torch/csrc/farneback_expand.cu",
                              replaces=None, sites=()),
+    # replaces no pallas_call: the reference's rates are XLA reductions
+    # (mav_detection_tpu/pipeline/detector.py)
+    "detect_rates": dict(route="cuda", source="mav_detection_tpu_torch/csrc/detect_rates.cu",
+                         replaces=None, sites=()),
 }
 # the band kernel against the matmuls it replaces: within this share of the
 # coefficients' largest magnitude (ROADMAP B9)
 EXPAND_TOL = 1e-5
+# the rates kernel against its plain version: the drone's mean flow within
+# this share of the derotated GT flow's largest magnitude (the kernel sums in
+# double, the plain version in float32), center_phi within RATES_PHI_TOL
+# degrees; counts exact
+RATES_FLOW_TOL = 1e-6
+RATES_PHI_TOL = 1e-5
 # the y stage's share of one farneback_iterate_fused launch at b=8 480x752,
 # predicted in PERF.md before it was measured: the two-tap form T on
 # the kernel's 32x64 tile geometry (1440 tiles), sy in runs of 32 columns
@@ -635,6 +655,113 @@ def _expand_row(ex: dict, launches: dict) -> dict:
             "other_shapes": rest}
 
 
+def _rates_inputs(dev, b: int, h: int, w: int, shared_depth: bool):
+    """Seeded rates inputs on the card: segmentation 255 on a disc with
+    values across 1-254 scattered over the frame, both masks and the sky at
+    random, depth per frame or one frame expanded over the batch, GT flow,
+    IMU rates, dt and a GT FoE (NaN on the last frame)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(h * w + b)
+
+    def rand(*shape):
+        return torch.rand(*shape, device=dev, generator=g)
+
+    ys = torch.arange(h, device=dev)[:, None]
+    xs = torch.arange(w, device=dev)[None, :]
+    disc = (xs - w // 3) ** 2 + (ys - h // 2) ** 2 <= (h // 10) ** 2
+    grey = (rand(b, h, w) * 254 + 1).to(torch.uint8)
+    seg = torch.where(rand(b, h, w) < 0.02, grey,
+                      (disc * 255).to(torch.uint8).expand(b, h, w))
+    depth = rand(h, w).expand(b, h, w) if shared_depth else rand(b, h, w)
+    foe = torch.tensor([w / 2, h / 3], device=dev).repeat(b, 1)
+    foe[-1] = float("nan")
+    return (seg.contiguous(), rand(b, h, w) < 0.1, rand(b, h, w) < 0.2,
+            rand(b, h, w) < 0.3, depth * 100, torch.randn(b, h, w, 2, device=dev,
+                                                         generator=g) * 3,
+            torch.randn(b, 3, device=dev, generator=g) * 0.1,
+            torch.full((b,), 1 / 30, device=dev), foe)
+
+
+def phase_rates(dev, shapes=((8, 480, 752), (8, 1024, 1920), (1, 480, 752)),
+                reps: int = 20) -> dict:
+    """The detection step's rates kernel (``detect_rates.rates_cuda``)
+    against its plain version (``rates_ref``, eager on the card) per (b, h,
+    w) of ``shapes``, depth per frame and one depth frame expanded over the
+    batch as the step cells pass it: counts and rates equal, the drone's
+    mean flow within RATES_FLOW_TOL of the derotated GT flow's scale,
+    center_phi within RATES_PHI_TOL; then timed in turns (plain, kernel,
+    kernel, plain; replayed CUDA graphs of ``reps`` calls) beside its bound
+    (``rates_bound``), with the plan and the launches a call."""
+    import torch
+
+    from mav_detection_tpu_torch.ops.geometry.derotation import derotate
+    from mav_detection_tpu_torch.ops.image import detect_rates as dr
+
+    out = []
+    for b, h, w in shapes:
+        for shared in (False, True):
+            args = _rates_inputs(dev, b, h, w, shared)
+            dr.reset_launch_counts()
+            got = dr.rates_cuda(*args)
+            launches = dict(dr.LAUNCHES)
+            want = dr.rates_ref(*args)
+            torch.cuda.synchronize()
+            tag = f"rates b={b} {h}x{w}{' shared depth' if shared else ''}"
+            for k in ("tpr", "fpr", "tpr_fixed", "fpr_fixed", "sky_tpr", "sky_fpr",
+                      "drone_size_pixels"):
+                a, c = getattr(got, k), getattr(want, k)
+                if not (torch.equal(a.isnan(), c.isnan())
+                        and torch.equal(a.nan_to_num(), c.nan_to_num())):
+                    raise AssertionError(f"{tag}: {k} {a.tolist()} != {c.tolist()}")
+            scale = float(derotate(args[5], args[6], args[7]).abs().max())
+            flow_err = float((got.drone_flow_pixels - want.drone_flow_pixels)
+                             .abs().nan_to_num().max()) / scale
+            phi_err = float((got.center_phi - want.center_phi).abs().nan_to_num().max())
+            if not (flow_err <= RATES_FLOW_TOL and phi_err <= RATES_PHI_TOL and torch.equal(
+                    got.center_phi.isnan(), want.center_phi.isnan())):
+                raise AssertionError(f"{tag}: mean flow {flow_err} of its scale, "
+                                     f"center_phi {phi_err} degrees")
+            turns = [("plain", graph_ms(lambda: dr.rates_ref(*args), reps)),
+                     ("kernel", graph_ms(lambda: dr.rates_cuda(*args), reps)),
+                     ("kernel", graph_ms(lambda: dr.rates_cuda(*args), reps)),
+                     ("plain", graph_ms(lambda: dr.rates_ref(*args), reps))]
+            ms = sum(t for d, t in turns if d == "kernel") / 2
+            bound, by = dr.rates_bound(b, h, w, 1 if shared else None)
+            out.append({
+                "shape": f"b={b} {h}x{w}", "depth": "expanded" if shared else "per frame",
+                "ms": ms, "plain_ms": sum(t for d, t in turns if d == "plain") / 2,
+                "bound_ms": bound, "bound_by": by, "share": bound / ms,
+                "bytes": dr.rates_bytes(b, h, w, 1 if shared else None),
+                "plan": dr.plan(b, h, w, dr._sms(dev))._asdict(), "launches": launches,
+                "flow_rel_err": flow_err, "center_phi_err": phi_err,
+                "turns": [[d, t] for d, t in turns]})
+    return {"shapes": out}
+
+
+def _say_rates(rt: dict, smi: str, seconds: float) -> None:
+    for r in rt["shapes"]:
+        say(f"[rates]   {r['shape']}, depth {r['depth']}, on {smi}: {r['ms']:.5f} ms "
+            f"against the bound {r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bytes']} "
+            f"bytes, share {r['share']:.3f}); plain {r['plain_ms']:.5f} ms; in turns "
+            f"{json.dumps([[d, round(t, 5)] for d, t in r['turns']])}; plan "
+            f"{json.dumps(r['plan'])}; launches a call {json.dumps(r['launches'])}; mean "
+            f"flow {r['flow_rel_err']:.3g} of its scale, center_phi {r['center_phi_err']:.3g}")
+    say(f"[rates] counts and rates equal to the plain version everywhere "
+        f"({seconds:.1f} s)")
+
+
+def _rates_row(rt: dict, launches: dict) -> dict:
+    """The kernels-line row of the rates kernel: b=8 480x752 with depth
+    expanded (the step cells' inputs), the other shapes beside."""
+    first = next(r for r in rt["shapes"] if r["depth"] == "expanded")
+    return {"name": "detect_rates", **KERNEL_ROWS["detect_rates"], **launches,
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape",
+                                     "plan")},
+            "library_ms": None, "library_note": "no one PyTorch call computes the counts",
+            "tolerance": RATES_FLOW_TOL, "check": "pass", "other_shapes": rt["shapes"]}
+
+
 def _library_lerp(x, sy, fy, S: int, axis: int):
     """The two-tap lerp of shift_gather as one grid_sample call (bilinear,
     border, corners aligned): the grid and the call."""
@@ -821,6 +948,7 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
     from mav_detection_tpu_torch.data.synthetic import SyntheticDataset, SyntheticParams
     from mav_detection_tpu_torch.ops.flow import farneback as fb
     from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+    from mav_detection_tpu_torch.ops.image import detect_rates as dr
     from mav_detection_tpu_torch.pipeline.detector import detect_frame_batch_scalars
     from mav_detection_tpu_torch.pipeline.processor import Processor
     from mav_detection_tpu_torch.utils.tracing import Tracer
@@ -842,12 +970,17 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
         proc.tracer = Tracer()
         proc.detection_results = {}
         _reset_launches()
+        dr.reset_launch_counts()
         t0 = time.perf_counter()
         results = proc.run_detection_foe()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _launches()
+        rates_launches = dict(dr.LAUNCHES)
         n_pairs = n_frames - 1
+        if rates_launches != {k: -(-n_pairs // batch) for k in dr.KERNELS}:
+            raise AssertionError(f"{w}x{h}: rates kernel launches {rates_launches}, "
+                                 f"expected one each a batch")
         if sorted(results) != list(range(n_pairs)):
             raise AssertionError(f"{w}x{h}: results for {sorted(results)}")
         params = proc._farneback
@@ -898,6 +1031,7 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
         "size": f"{w}x{h}", "frames": n_frames, "batch": batch,
         "pairs": n_pairs, "dataset_gen_s": gen_s, "wall_s": wall,
         "frames_per_s": n_pairs / wall, "launches": launches,
+        "detect_rates_launches": rates_launches,
         "median_foe_err_px": float(np.median(foe_err)),
         "stages_ms": {k: v["total_s"] * 1e3 for k, v in proc.tracer.as_dict().items()},
         "device_ms_per_batch": {"flow": flow_ms, "detect": detect_ms},
@@ -4786,13 +4920,16 @@ def main(argv=None) -> int:
     times["build"] = build_s
     expand_regs = [int(n) for n in re.findall(r"Used (\d+) registers",
                                               _build.BUILD_LOGS["farneback_expand"])]
-    say(f"[build] csrc/farneback_iter.cu, csrc/farneback_expand.cu and "
+    rates_regs = [int(n) for n in re.findall(r"Used (\d+) registers",
+                                             _build.BUILD_LOGS["detect_rates"])]
+    say(f"[build] csrc/farneback_iter.cu, csrc/farneback_expand.cu, "
+        f"csrc/detect_rates.cu and "
         f"csrc/shift_probes.cu (nvcc), runtime/native/loader.cpp and "
         f"runtime/native/png.cpp (g++), started together, built and loaded in "
         f"{build_s:.2f} s; ptxas farneback_iter: {json.dumps(ptxas)}; ptxas "
         f"shift_probes, registers of its {len(probe_regs)} instances: {probe_regs}; "
         f"ptxas farneback_expand, registers of its {len(expand_regs)} kernels: "
-        f"{expand_regs}")
+        f"{expand_regs}; ptxas detect_rates: {rates_regs}")
 
     if ranks:
         return main_multi(dev, ranks, smi)
@@ -4812,6 +4949,11 @@ def main(argv=None) -> int:
     expand = phase_expand(dev)
     times["expand"] = time.perf_counter() - t0
     _say_expand(expand, smi, times["expand"])
+
+    t0 = time.perf_counter()
+    rates = phase_rates(dev)
+    times["rates"] = time.perf_counter() - t0
+    _say_rates(rates, smi, times["rates"])
 
     t0 = time.perf_counter()
     say("[probes] the TPU probe kernels of tools/, ported (csrc/shift_probes.cu), "
@@ -4835,6 +4977,7 @@ def main(argv=None) -> int:
         say(f"[main path] {r['size']} {r['pairs']} pairs batch {r['batch']}: "
             f"{r['frames_per_s']:.2f} frames/s on {smi}, median FoE err "
             f"{r['median_foe_err_px']:.3f} px, launches {r['launches']}, "
+            f"rates kernel {r['detect_rates_launches']}, "
             f"stages ms {json.dumps(r['stages_ms'])}, device ms per batch "
             f"{json.dumps(r['device_ms_per_batch'])} of {r['wall_ms_per_batch']:.3f} "
             f"ms wall (device idle share {r['device_idle_share']:.3f})")
@@ -5146,6 +5289,10 @@ def main(argv=None) -> int:
         "launches_multi_chunked": band(chk["launches"]),
         "launches_multi_spatial": band(sp["launches"]),
         "launches_bench": bn["expand_launches"]}))
+    rows.append(_rates_row(rates, {
+        "launches": sum(runs[0]["detect_rates_launches"].values()),
+        "launches_per_kernel": runs[0]["detect_rates_launches"],
+        "launches_1920x1024": sum(runs[1]["detect_rates_launches"].values())}))
     say(json.dumps({"nets": {k: nets[k] for k in ("load", "sky", "raft", "stages")},
                     "datasets": {key: dsets[key] for key in (
                         "midgard", "midgard_card_vs_cpu", "png", "sim")},

@@ -1,6 +1,6 @@
 """Build and load the port's native libraries.
 
-Five sources, each compiled at first use into a shared library with a
+Six sources, each compiled at first use into a shared library with a
 plain C interface and loaded with ``ctypes``:
 
 * ``"farneback_iter"``: ``csrc/farneback_iter.cu``, the solver iteration's
@@ -12,6 +12,10 @@ plain C interface and loaded with ``ctypes``:
   expansion's band kernels (``ops/flow/farneback_expand.py``), the same way
   but with multiply-add contraction on (``NVCC_FMA_FLAGS``): the kernel is
   held to a tolerance, not bit for bit.
+* ``"detect_rates"``: ``csrc/detect_rates.cu``, the detection step's
+  per-frame rates (``ops/image/detect_rates.py``), the same way and with
+  ``farneback_iter``'s flags (the rotational field rounds as the plain
+  version's float32 operations do).
 * ``"shift_probes"``: ``csrc/shift_probes.cu``, the probe kernels of the
   warp's shifted reads (``ops/flow/shift_probes.py``), the same way and with
   ``farneback_iter``'s flags.
@@ -24,8 +28,9 @@ Both directories lie under ``build/`` at the repo root (git-ignored). A
 library is named by a hash of its source and flags, so an edited source
 rebuilds. ``build`` starts one compiler process per source that is not built
 yet, all together, and then waits for them; ``load`` builds what it needs
-(either kernel of the main path builds both, ``MAIN_PATH``, in parallel)
-and sets the library's argtypes once.
+(either flow kernel builds the whole Farneback main path, ``MAIN_PATH``, in
+parallel; the rates alone build only themselves, ``BUILT_WITH``) and sets
+the library's argtypes once.
 
 Only the repo's own sources are compiled; there is no prebuilt artifact. A
 missing compiler raises ``CompilerMissing``, a failed build ``RuntimeError``
@@ -114,6 +119,16 @@ def _bind_expand(lib: ctypes.CDLL) -> None:
     lib.farneback_expand_info.restype = i
 
 
+def _bind_detect_rates(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.detect_rates_max.argtypes = [p, ll, p, ll, i, i, i, i, p, p]
+    lib.detect_rates_count.argtypes = [p, ll, p, ll, p, ll, p, ll, p, ll, p, ll, p, p, i, i,
+                                       i, i, i, p, p, p, p]
+    lib.detect_rates_finish.argtypes = [p, p, i, i, i, i, p, p, p, p]
+    for fn in (lib.detect_rates_max, lib.detect_rates_count, lib.detect_rates_finish):
+        fn.restype = i
+
+
 def _bind_shift_probes(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.shift_chain, lib.shift_gather):
@@ -173,6 +188,8 @@ SOURCES: Dict[str, _Source] = {
                               _bind_kernels),
     "farneback_expand": _Source(PKG_DIR / "csrc" / "farneback_expand.cu", _nvcc,
                                 NVCC_FMA_FLAGS, BUILD_DIR, _bind_expand),
+    "detect_rates": _Source(PKG_DIR / "csrc" / "detect_rates.cu", _nvcc, NVCC_FLAGS,
+                            BUILD_DIR, _bind_detect_rates),
     "shift_probes": _Source(PKG_DIR / "csrc" / "shift_probes.cu", _nvcc,
                             NVCC_FLAGS, BUILD_DIR, _bind_shift_probes),
     "loader": _Source(PKG_DIR / "runtime" / "native" / "loader.cpp", _gxx,
@@ -181,8 +198,12 @@ SOURCES: Dict[str, _Source] = {
                    BUILD_ROOT / "native", _bind_png),
 }
 
-# the main path's kernels: loading either builds both, in parallel
-MAIN_PATH = ("farneback_iter", "farneback_expand")
+# the Farneback main path's kernels: loading either flow kernel builds all
+# three, in parallel; loading the rates alone (a RAFT flow path, which needs
+# neither flow kernel) builds only the rates
+MAIN_PATH = ("farneback_iter", "farneback_expand", "detect_rates")
+BUILT_WITH: Dict[str, Tuple[str, ...]] = {"farneback_iter": MAIN_PATH,
+                                          "farneback_expand": MAIN_PATH}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -227,6 +248,13 @@ def _build_locked(names: Sequence[str]) -> Dict[str, Path]:
     return targets
 
 
+def raise_on(err: int, kernel: str) -> None:
+    """Raise on a launch's nonzero ``cudaError`` return (the C interface of
+    every CUDA library here returns one)."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+
+
 def build(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
     """Compile every named source (all of them by default) that is not
     built yet, one compiler process each, started together; returns the
@@ -239,7 +267,7 @@ def load(name: str = "farneback_iter") -> ctypes.CDLL:
     """The loaded library ``name``, built at first use."""
     with _LOCK:
         if name not in _LIBS:
-            built = _build_locked(MAIN_PATH if name in MAIN_PATH else [name])
+            built = _build_locked(BUILT_WITH.get(name, (name,)))
             lib = ctypes.CDLL(str(built[name]))
             SOURCES[name].bind(lib)
             _LIBS[name] = lib

@@ -31,7 +31,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mav_detection_tpu_torch.ops.flow.farneback_iter import _raise_on
+from mav_detection_tpu_torch._build import raise_on
 
 KERNELS = ("farneback_expand_fused", "farneback_expand_vertical",
            "farneback_expand_horizontal")
@@ -300,7 +300,7 @@ def expand_cuda(prev: torch.Tensor, curr: torch.Tensor, R0: torch.Tensor,
             p(prev), p(curr), p(R0), p(R1), b, h, w, lh, lw, p(bands.vbase),
             p(bands.vidx), p(bands.vtaps), ngv, UV, p(bands.hbase), p(bands.hidx),
             p(bands.htaps), ngh, UH, *f, k.tw, k.wr, k.wc, stream)
-        _raise_on(err, k.kernel)
+        raise_on(err, k.kernel)
         LAUNCHES[k.kernel] += 1
         return
     v, hz = launches
@@ -308,12 +308,12 @@ def expand_cuda(prev: torch.Tensor, curr: torch.Tensor, R0: torch.Tensor,
     err = lib.farneback_expand_vertical(
         p(prev), p(curr), p(t), b, h, w, lh, p(bands.vbase), p(bands.vidx),
         p(bands.vtaps), ngv, UV, v.th, v.tw, v.wr, stream)
-    _raise_on(err, v.kernel)
+    raise_on(err, v.kernel)
     LAUNCHES[v.kernel] += 1
     err = lib.farneback_expand_horizontal(
         p(t), p(R0), p(R1), b, w, lh, lw, p(bands.hbase), p(bands.hidx),
         p(bands.htaps), ngh, UH, *f, hz.tw, hz.wc, stream)
-    _raise_on(err, hz.kernel)
+    raise_on(err, hz.kernel)
     LAUNCHES[hz.kernel] += 1
 
 
@@ -324,7 +324,7 @@ def kernel_info(launch: Launch) -> Dict[str, int]:
     from mav_detection_tpu_torch import _build
 
     out = (ctypes.c_int * 4)()
-    _raise_on(_build.load("farneback_expand").farneback_expand_info(
+    raise_on(_build.load("farneback_expand").farneback_expand_info(
         KERNELS.index(launch.kernel), launch.smem, out), "farneback_expand_info")
     return {"smem_bytes": out[0], "registers": out[1], "blocks_per_sm": out[2],
             "local_bytes": out[3]}

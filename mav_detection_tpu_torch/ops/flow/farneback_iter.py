@@ -37,6 +37,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from mav_detection_tpu_torch._build import raise_on
+
 KERNELS = ("farneback_iterate_fused",)
 
 # launches per kernel since the last reset (plain ints; counted where the
@@ -376,11 +378,6 @@ def _check_all(R0, R1, flow, border, flow_out) -> None:
                          "previous iterate everywhere)")
 
 
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-
-
 def iterate_fused_cuda(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
                        border: torch.Tensor, flow_out: torch.Tensor,
                        winsize: int, max_shift: int, geometry=None) -> None:
@@ -407,7 +404,7 @@ def iterate_fused_cuda(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
         R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), border.data_ptr(),
         flow_out.data_ptr(), b, H, W, int(max_shift), winsize // 2,
         1.0 / (winsize * winsize), *args, stream)
-    _raise_on(err, "farneback_iterate_fused")
+    raise_on(err, "farneback_iterate_fused")
     LAUNCHES["farneback_iterate_fused"] += 1
 
 
@@ -415,7 +412,7 @@ def _info(fn, kernel: str, *args) -> Dict[str, int]:
     import ctypes
 
     out = (ctypes.c_int * 4)()
-    _raise_on(fn(*args, out), kernel)
+    raise_on(fn(*args, out), kernel)
     return {"smem_bytes": out[0], "registers": out[1], "blocks_per_sm": out[2],
             "local_bytes": out[3]}
 

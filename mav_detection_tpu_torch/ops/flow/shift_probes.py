@@ -39,6 +39,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from mav_detection_tpu_torch._build import raise_on
+
 VARIANTS = ("A", "B", "C", "D", "T")
 KERNELS = ("shift_chain", "shift_gather") + tuple(f"y_stage_{v}" for v in VARIANTS)
 
@@ -269,11 +271,6 @@ def _check(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
 
 
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-
-
 def _on_device(kernel: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch), False for a CPU one (plain)."""
     if t.device.type == "cpu":
@@ -299,7 +296,7 @@ def _shift(kernel: str, x, sy, fy, S: int, axis: int, out):
 
     lib = _build.load("shift_probes")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _raise_on(getattr(lib, kernel)(x.data_ptr(), sy.data_ptr(), fy.data_ptr(),
+    raise_on(getattr(lib, kernel)(x.data_ptr(), sy.data_ptr(), fy.data_ptr(),
                                    out.data_ptr(), rows, cols, axis, int(S),
                                    stream), kernel)
     LAUNCHES[kernel] += 1
@@ -350,7 +347,7 @@ def y_stage(slab: torch.Tensor, sy: torch.Tensor, fy: torch.Tensor, S: int,
 
     lib = _build.load("shift_probes")
     stream = torch.cuda.current_stream(slab.device).cuda_stream
-    _raise_on(lib.y_stage(slab.data_ptr(), sy.data_ptr(), fy.data_ptr(),
+    raise_on(lib.y_stage(slab.data_ptr(), sy.data_ptr(), fy.data_ptr(),
                           out.data_ptr(), bands, g.th, g.tw, m, int(S),
                           VARIANTS.index(variant), stream), kernel)
     LAUNCHES[kernel] += 1
@@ -376,7 +373,7 @@ def kernel_info(kernel: str, S: int, sub: int = 0,
     else:
         which = ("shift_chain", "shift_gather").index(kernel)
     out = (ctypes.c_int * 5)()
-    _raise_on(_build.load("shift_probes").shift_probe_info(which, sub, int(S), rows, out),
+    raise_on(_build.load("shift_probes").shift_probe_info(which, sub, int(S), rows, out),
               "shift_probe_info")
     return {"threads": out[3], "registers": out[0], "smem_bytes": out[1],
             "dyn_smem_bytes": out[4], "blocks_per_sm": out[2]}

@@ -12,7 +12,6 @@ draw from the caller's ``torch.Generator``.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -24,8 +23,7 @@ from mav_detection_tpu_torch.ops.geometry import (
     get_phi,
     sample_points,
 )
-from mav_detection_tpu_torch.ops.image.boxes import get_simple_bounding_box_device
-from mav_detection_tpu_torch.ops.image.metrics import _tpr_fpr, masked_mean_flow
+from mav_detection_tpu_torch.ops.image.detect_rates import detection_rates
 from mav_detection_tpu_torch.utils.tracing import stage
 
 
@@ -98,18 +96,10 @@ def detect_frame_batch(flow_uv: torch.Tensor,       # (n, h, w, 2) measured flow
         # 1. IMU derotation
         with stage("detect.derotate"):
             flow_derot = derotate(flow_uv, omega, dt)
-            gt_flow_derot = derotate(gt_flow_uv.to(torch.float32), omega, dt)
             flow_mag = torch.sqrt(flow_derot[..., 0] * flow_derot[..., 0]
                                   + flow_derot[..., 1] * flow_derot[..., 1])
 
-        # 2. sky validation vs depth: GT sky = depth > 0.8 * max
-        with stage("detect.rates"):
-            dmax = depth.reshape(n, -1).max(dim=1).values[:, None, None]
-            sky_gt = depth > 0.8 * dmax
-            sky_tpr, sky_fpr = _tpr_fpr(sky_gt.to(torch.uint8) * 255,
-                                        sky_mask.to(torch.uint8) * 255)
-
-        # 3. dense FoE vote
+        # 2. dense FoE vote
         with stage("detect.foe_vote"):
             if sample_yx is None:
                 sample_yx = sample_points(n, config.foe_samples, h, w, generator,
@@ -117,34 +107,20 @@ def detect_frame_batch(flow_uv: torch.Tensor,       # (n, h, w, 2) measured flow
             foe = get_foe_dense(flow_derot, sample_yx.to(flow_uv.device),
                                 num_samples=config.foe_samples)
 
-        # 4. phi map + masks + metrics
+        # 3. phi map + masks
         with stage("detect.masks"):
             phi = get_phi(flow_derot, foe)
             total_mask, estimate_fixed = detection_masks(phi, flow_mag, sky_mask)
 
+        # 4. pixel and sky rates (GT sky = depth > 0.8 * max), the drone's
+        # size, mean derotated GT flow and centre angle: one CUDA reduction
+        # on the card, the plain version elsewhere
         with stage("detect.rates"):
-            seg_pos = segmentation > 127
-            tpr, fpr = _tpr_fpr(segmentation, 255 * total_mask.to(torch.int32))
-            tpr_fixed, fpr_fixed = _tpr_fpr(segmentation,
-                                            255 * estimate_fixed.to(torch.int32))
+            rates = detection_rates(segmentation, total_mask, estimate_fixed, sky_mask,
+                                    depth, gt_flow_uv, omega, dt, gt_foe)
 
-            drone_flow_avg_gt = masked_mean_flow(gt_flow_derot, seg_pos)
-            drone_size = seg_pos.reshape(n, -1).sum(dim=1)
-
-            # center_phi: angle of the target's bbox center seen from the GT FoE
-            box = get_simple_bounding_box_device(segmentation).to(torch.float32)
-            cx = (box[:, 0] + box[:, 2]) / 2.0
-            cy = (box[:, 1] + box[:, 3]) / 2.0
-            gt_foe = gt_foe.to(torch.float32)
-            center_phi = (torch.atan2(cy - gt_foe[:, 1], cx - gt_foe[:, 0])
-                          * (180.0 / math.pi))
-
-    return FrameOutputs(
-        foe=foe, tpr=tpr, fpr=fpr, tpr_fixed=tpr_fixed, fpr_fixed=fpr_fixed,
-        sky_tpr=sky_tpr, sky_fpr=sky_fpr, drone_size_pixels=drone_size,
-        drone_flow_pixels=drone_flow_avg_gt, center_phi=center_phi, phi=phi,
-        total_mask=total_mask, estimate_fixed=estimate_fixed,
-        flow_derotated=flow_derot)
+    return FrameOutputs(foe=foe, **rates._asdict(), phi=phi, total_mask=total_mask,
+                        estimate_fixed=estimate_fixed, flow_derotated=flow_derot)
 
 
 def _to_scalars(out: FrameOutputs) -> FrameScalars:

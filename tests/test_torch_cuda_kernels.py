@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch version, on the card:
 ``farneback_iterate_fused`` as scheduled, on its row-streaming strips and on
 the tile design's blocks; the polynomial expansion's band kernel
-(``farneback_expand``) on its fused and two-pass routes.
+(``farneback_expand``) on its fused and two-pass routes; the detection
+step's rates (``detect_rates``), alone, inside ``detect_frame_batch`` and
+in a replayed CUDA graph.
 
 These need an NVIDIA card with nvcc (they build csrc/ at first use) and skip
 elsewhere. On a machine with one (``--noconftest`` where jax is not
@@ -16,6 +18,9 @@ import torch
 from mav_detection_tpu_torch.ops.flow import farneback as tf
 from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 from mav_detection_tpu_torch.ops.flow import farneback_iter as ti
+from mav_detection_tpu_torch.ops.geometry.derotation import derotate, derotation_field
+from mav_detection_tpu_torch.ops.image import detect_rates as dr
+from mav_detection_tpu_torch.pipeline import detector as det
 
 pytestmark = pytest.mark.cuda
 
@@ -449,3 +454,157 @@ def test_probe_wrappers_count_and_refuse(dev):
     assert sp.kernel_info("shift_chain", 8)["dyn_smem_bytes"] == 4 * 81 * 32
     with pytest.raises(ValueError, match="mrows"):
         sp.kernel_info("y_stage_T", 8)
+
+
+def _detect_inputs(n, h, w, seed=0):
+    """Seeded CPU inputs of ``detect_frame_batch``: flow radial from the FoE
+    after derotation, towards it on a moving disc (every flow line through
+    the FoE, so that the vote finds it on both devices, and phi near 0 or
+    180 degrees, so that no mask hangs on the last bit of arccos), GT flow,
+    IMU rates,
+    segmentation 255 on the disc with values across 1-254 on a fifth of it
+    and scattered beside it, sky rows, depth (expanded over the batch, as
+    the step cells pass it), a GT FoE (NaN on the last frame) and FoE
+    samples."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    omega = (rng.standard_normal((n, 3)) * 0.1).astype(np.float32)
+    dt = np.full((n,), 0.05, np.float32)
+    field = derotation_field(torch.from_numpy(omega), torch.from_numpy(dt), w, h).numpy()
+    radial = np.stack([0.1 * (xs - w / 2), 0.1 * (ys - h / 3)], -1)
+    flow = np.repeat(radial[None], n, 0)
+    seg = np.zeros((n, h, w), np.uint8)
+    for i in range(n):
+        disc = (xs - w / 4 - 2 * i) ** 2 + (ys - h / 2) ** 2 <= (min(h, w) / 8) ** 2
+        flow[i][disc] *= -3.0
+        seg[i][disc] = 255
+        grey = rng.random((h, w)) < np.where(disc, 0.2, 0.02)
+        seg[i][grey] = rng.integers(1, 255, int(grey.sum()))
+    sky = np.zeros((n, h, w), bool)
+    sky[:, :h // 5] = True
+    depth = np.where(ys < h // 5, 90.0, 10.0 + ys / h).astype(np.float32)
+    foe = np.tile(np.float32([w / 2, h / 3]), (n, 1))
+    foe[-1] = np.nan
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return (t((flow + field).astype(np.float32)),
+            t((rng.standard_normal((n, h, w, 2)) * 0.5).astype(np.float32)),
+            t(omega), t(dt), t(seg), t(sky), t(depth).expand(n, h, w), t(foe),
+            t(np.stack([rng.integers(0, h, (n, 200)), rng.integers(0, w, (n, 200))], -1)))
+
+
+def _assert_rates_equal(got, want, gt_flow, omega, dt):
+    """Counts and the rates made of them bit for bit (NaN where empty); the
+    drone's mean flow within 1e-6 of the derotated GT flow's scale;
+    center_phi within 1e-5 degrees."""
+    for k in ("tpr", "fpr", "tpr_fixed", "fpr_fixed", "sky_tpr", "sky_fpr"):
+        a, b = getattr(got, k).cpu(), getattr(want, k).cpu()
+        assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num()), k
+    assert torch.equal(got.drone_size_pixels.cpu(), want.drone_size_pixels.cpu())
+    scale = float(derotate(gt_flow.cpu(), omega.cpu(), dt.cpu()).abs().max())
+    a, b = got.drone_flow_pixels.cpu(), want.drone_flow_pixels.cpu()
+    assert torch.equal(a.isnan(), b.isnan())
+    assert float((a - b).abs().nan_to_num().max()) <= 1e-6 * scale
+    torch.testing.assert_close(got.center_phi.cpu(), want.center_phi.cpu(), rtol=0,
+                               atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 37, 53), (3, 64, 96), (8, 120, 188), (2, 480, 752)])
+@pytest.mark.parametrize("save_images", [False, True])
+def test_detect_frame_batch_on_card_matches_cpu(dev, n, h, w, save_images):
+    """``detect_frame_batch`` on the card (the rates kernel, three launches)
+    against the plain path on the CPU: the FoE and phi within the detector
+    tests' tolerances, the masks equal, counts exact; with the full outputs
+    (``save_images``) and reduced to the scalars."""
+    x = _detect_inputs(n, h, w, seed=n * h)
+    *args, syx = x
+    cfg = det.DetectionStep(foe_samples=syx.shape[1] // 2)
+    cpu = det.detect_frame_batch(*args, sample_yx=syx, config=cfg)
+    dr.reset_launch_counts()
+    fn = det.detect_frame_batch if save_images else det.detect_frame_batch_scalars
+    card = fn(*(a.to(dev) for a in args), sample_yx=syx.to(dev), config=cfg)
+    torch.cuda.synchronize()
+    assert dr.LAUNCHES == {k: 1 for k in dr.KERNELS}
+    torch.testing.assert_close(card.foe.cpu(), cpu.foe, rtol=1e-5, atol=1e-4)
+    if save_images:
+        assert torch.equal(card.total_mask.cpu(), cpu.total_mask)
+        assert torch.equal(card.estimate_fixed.cpu(), cpu.estimate_fixed)
+        torch.testing.assert_close(card.phi.cpu(), cpu.phi, rtol=0, atol=0.05)
+        torch.testing.assert_close(card.flow_derotated.cpu(), cpu.flow_derotated,
+                                   rtol=1e-6, atol=1e-5)
+        # the rates of the card's own masks, by the plain version on the CPU
+        flow, gt_flow, omega, dt, seg, sky, depth, foe = args
+        want = dr.rates_ref(seg, card.total_mask.cpu(), card.estimate_fixed.cpu(), sky,
+                            depth, gt_flow, omega, dt, foe)
+        _assert_rates_equal(dr.Rates(*(getattr(card, k) for k in dr.Rates._fields)),
+                            want, args[1], args[2], args[3])
+    _assert_rates_equal(card, cpu, args[1], args[2], args[3])
+
+
+def test_detect_rates_in_a_replayed_graph(dev):
+    """Captured in a CUDA graph (launches counted once, at capture) and
+    replayed twice: the same bits both times, equal to an eager call."""
+    *args, _ = _detect_inputs(8, 120, 188, seed=5)
+    flow, gt_flow, omega, dt, seg, sky, depth, foe = (a.to(dev) for a in args)
+    g = torch.Generator(device=dev).manual_seed(1)
+    total = torch.rand(seg.shape, device=dev, generator=g) < 0.2
+    fixed = torch.rand(seg.shape, device=dev, generator=g) < 0.3
+    call = (seg, total, fixed, sky, depth, gt_flow, omega, dt, foe)
+    eager = dr.rates_cuda(*call)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        dr.rates_cuda(*call)
+    torch.cuda.current_stream().wait_stream(s)
+    dr.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dr.rates_cuda(*call)
+    assert dr.LAUNCHES == {k: 1 for k in dr.KERNELS}
+    runs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in out])
+    for a, b, c in zip(*runs, eager):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))
+    assert dr.LAUNCHES == {k: 1 for k in dr.KERNELS}
+    _assert_rates_equal(dr.Rates(*runs[0]), dr.rates_ref(*(t.cpu() for t in call)),
+                        gt_flow, omega, dt)
+
+
+def test_detect_rates_validation(dev):
+    """Shapes and dtypes the kernel does not take: a ValueError, no launch."""
+    *args, _ = _detect_inputs(2, 30, 40)
+    flow, gt_flow, omega, dt, seg, sky, depth, foe = (a.to(dev) for a in args)
+    call = [seg, sky, sky, sky, depth, gt_flow, omega, dt, foe]
+    dr.reset_launch_counts()
+    with pytest.raises(ValueError, match="depth"):
+        dr.rates_cuda(*call[:4], depth[:, :-1], *call[5:])
+    with pytest.raises(ValueError, match="dt"):
+        dr.rates_cuda(*call[:7], dt[:1], foe)
+    with pytest.raises(ValueError, match="segmentation must be a torch.uint8 CUDA"):
+        dr.rates_cuda(seg.to(torch.int32), *call[1:])
+    with pytest.raises(ValueError, match="depth must be a torch.float32 CUDA"):
+        dr.rates_cuda(*call[:4], depth.cpu(), *call[5:])
+    assert sum(dr.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("field,dtype", [("segmentation", torch.int32),
+                                         ("segmentation", torch.float32),
+                                         ("depth", torch.float64),
+                                         ("gt_flow_uv", torch.float16)])
+def test_detect_frame_batch_on_card_refuses_other_dtypes(dev, field, dtype):
+    """On the card a frame input of another dtype than the kernel reads is
+    a ValueError from ``detect_frame_batch``: no plain version runs in the
+    kernel's place, and no rates kernel is launched."""
+    flow, gt_flow, omega, dt, seg, sky, depth, foe, syx = (
+        a.to(dev) for a in _detect_inputs(2, 30, 40))
+    kw = dict(segmentation=seg, depth=depth, gt_flow_uv=gt_flow)
+    kw[field] = kw[field].to(dtype)
+    dr.reset_launch_counts()
+    with pytest.raises(ValueError, match=f"{field} must be a"):
+        det.detect_frame_batch(flow, kw["gt_flow_uv"], omega, dt, kw["segmentation"], sky,
+                               kw["depth"], foe, sample_yx=syx,
+                               config=det.DetectionStep(foe_samples=100))
+    assert sum(dr.LAUNCHES.values()) == 0

@@ -148,7 +148,7 @@ def test_recorded_step_names_parents_and_one_step_id():
     """Inside a caller's outermost span, the step records exactly the
     program's spans, each under its parent, all with the caller's step
     identifier; ``flow.expand`` and ``flow.iterate`` once a pyramid layer,
-    ``detect.rates`` twice."""
+    each ``detect.*`` stage once."""
     x = _inputs("cpu")
     tracer = Tracer()
     with recording(tracer):
@@ -167,7 +167,7 @@ def test_recorded_step_names_parents_and_one_step_id():
     levels = _levels(x)
     assert n == Counter({"flow": 1, "flow.expand": levels, "flow.iterate": levels,
                          "detect": 1, "detect.derotate": 1, "detect.foe_vote": 1,
-                         "detect.masks": 1, "detect.rates": 2})
+                         "detect.masks": 1, "detect.rates": 1})
     assert tracer.counts == {"step": 1, **n}
     assert tracer.device_ms() == {}
 
