@@ -262,6 +262,7 @@ import time
 
 import numpy as np
 
+from mav_detection_tpu_torch import _build
 # the card's timing (CUDA events; a replayed CUDA graph), the H100 SXM peaks
 # and the bounds from them (the fused kernel's: bytes and operations)
 from mav_detection_tpu_torch.models.layers import conv_flops as _conv_flops
@@ -702,9 +703,9 @@ def phase_rates(dev, shapes=((8, 480, 752), (8, 1024, 1920), (1, 480, 752)),
     for b, h, w in shapes:
         for shared in (False, True):
             args = _rates_inputs(dev, b, h, w, shared)
-            dr.reset_launch_counts()
+            _build.reset_launches()
             got = dr.rates_cuda(*args)
-            launches = dict(dr.LAUNCHES)
+            launches = {k: _build.LAUNCHES[k] for k in dr.KERNELS}
             want = dr.rates_ref(*args)
             torch.cuda.synchronize()
             tag = f"rates b={b} {h}x{w}{' shared depth' if shared else ''}"
@@ -733,7 +734,8 @@ def phase_rates(dev, shapes=((8, 480, 752), (8, 1024, 1920), (1, 480, 752)),
                 "ms": ms, "plain_ms": sum(t for d, t in turns if d == "plain") / 2,
                 "bound_ms": bound, "bound_by": by, "share": bound / ms,
                 "bytes": dr.rates_bytes(b, h, w, 1 if shared else None),
-                "plan": dr.plan(b, h, w, dr._sms(dev))._asdict(), "launches": launches,
+                "plan": dr.plan(b, h, w, _build.sm_count(dev.index))._asdict(),
+                "launches": launches,
                 "flow_rel_err": flow_err, "center_phi_err": phi_err,
                 "turns": [[d, t] for d, t in turns]})
     return {"shapes": out}
@@ -798,7 +800,6 @@ def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440),
     geometry the probe was built to split."""
     import torch
 
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.ops.flow import shift_probes as sp
     from mav_detection_tpu_torch.tools import (
         batch_overhead_probe,
@@ -846,8 +847,7 @@ def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440),
 
     rows, cols, bands = fine
     th, tw, tiles = tile
-    sp.reset_launch_counts()
-    fi.reset_launch_counts()
+    _build.reset_launches()
     runs = {"gather_default": gather_probe.main([], device=dev),
             "chain_default": chain_probe.main([], device=dev),
             "gather_fine": gather_probe.main(["--rows", str(rows), "--cols", str(cols),
@@ -861,8 +861,8 @@ def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440),
                                            device=dev),
             "batch_overhead": batch_overhead_probe.main([], device=dev)}
     torch.cuda.synchronize()
-    launches = dict(sp.LAUNCHES)
-    fused_launches = fi.LAUNCHES["farneback_iterate_fused"]
+    launches = {k: _build.LAUNCHES[k] for k in sp.KERNELS}
+    fused_launches = _build.LAUNCHES["farneback_iterate_fused"]
     missing = [k for k, n in launches.items() if n == 0]
     if missing or fused_launches == 0:
         raise AssertionError(f"probes: no launch of {missing or 'the fused kernel'}")
@@ -888,7 +888,7 @@ def phase_probes(dev, fine=(3840, 752, 160), tile=(32, 64, 1440),
         lib = _library_lerp(x, sy, fy, 8, axis)
         library.append(time_ms(lib, 10, 2))
         lib_err[axis] = float((lib()[0, 0] - sp.shift_gather(x, sy, fy, 8, axis)).abs().max())
-    sp.reset_launch_counts()   # the comparisons' launches do not count
+    _build.reset_launches()   # the comparisons' launches do not count
     # at the finest layer's shapes (the y stage's block follows its rows)
     fine_mrows = sp.YGeometry(8, 24, 752, 6).mrows
     resources = {k: sp.kernel_info(k, 8, mrows=fine_mrows) for k in sp.KERNELS}
@@ -969,14 +969,13 @@ def phase_main_path(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
         torch.cuda.synchronize()
         proc.tracer = Tracer()
         proc.detection_results = {}
-        _reset_launches()
-        dr.reset_launch_counts()
+        _build.reset_launches()
         t0 = time.perf_counter()
         results = proc.run_detection_foe()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _launches()
-        rates_launches = dict(dr.LAUNCHES)
+        launches = dict(_build.LAUNCHES)
+        rates_launches = {k: launches[k] for k in dr.KERNELS}
         n_pairs = n_frames - 1
         if rates_launches != {k: -(-n_pairs // batch) for k in dr.KERNELS}:
             raise AssertionError(f"{w}x{h}: rates kernel launches {rates_launches}, "
@@ -1396,12 +1395,12 @@ def phase_artifacts(dev) -> dict:
                                     flow_source="FARNEBACK")
         if not proc.save_images:
             raise AssertionError("save_images must default to True")
-        _reset_launches()
+        _build.reset_launches()
         t0 = time.perf_counter()
         results = proc.run_detection_foe()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _launches()
+        launches = dict(_build.LAUNCHES)
         if launches["farneback_iterate_fused"] <= 0:
             raise AssertionError("artifacts: the run launched no kernel")
         _hold_expand("artifacts", launches, proc._farneback, h, w)
@@ -1464,7 +1463,7 @@ def phase_homography(dev) -> dict:
                     return out
                 pmod.optimize_window = keeping
                 try:
-                    _reset_launches()
+                    _build.reset_launches()
                     t0 = time.perf_counter()
                     results = proc.run_detection()
                     if d == dev:
@@ -1473,7 +1472,7 @@ def phase_homography(dev) -> dict:
                 finally:
                     pmod.optimize_window = real
                 boxes = {i: tuple(_np(b).tolist()) for i, b in enumerate(found)}
-                launches = _launches()
+                launches = dict(_build.LAUNCHES)
                 _hold_expand("homography", launches, proc._farneback, h, w)
                 mosaics = (len(os.listdir(os.path.join(tmp, "processed")))
                            if d == dev else 0)
@@ -1525,6 +1524,8 @@ def phase_lucas_kanade(dev) -> dict:
     import torch
 
     from mav_detection_tpu_torch.data.scene import make_scene
+    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
     from mav_detection_tpu_torch.ops.flow import lucas_kanade as lk
 
     h, w, max_corners = 480, 752, 2000
@@ -1552,7 +1553,7 @@ def phase_lucas_kanade(dev) -> dict:
     n_frames, batch = 5, 4
     proc = _synthetic_processor(dev, h, w, n_frames, batch, "",
                                 flow_source="LUCAS_KANADE")
-    _reset_launches()
+    _build.reset_launches()
     t0 = time.perf_counter()
     results = proc.run_detection_foe()
     torch.cuda.synchronize()
@@ -1566,7 +1567,7 @@ def phase_lucas_kanade(dev) -> dict:
         if not np.isfinite(vals).all():
             raise AssertionError(f"lucas_kanade frame {i}: non-finite {fr}")
         foe_err.append(float(np.hypot(*np.subtract(fr.foe_dense, fr.foe_gt))))
-    if sum(_launches().values()) != 0:
+    if any(_build.LAUNCHES[k] for k in fi.KERNELS + fe.KERNELS):
         raise AssertionError("lucas_kanade: the LK source launched a Farneback kernel")
     return {"survivors": survivors, "max_corners": max_corners,
             "track_epe_px": track_epe, "dense_interior_epe_px": dense_epe,
@@ -1677,12 +1678,12 @@ def _scan_run(dev, h, w, n_frames, sample_yx, tmp, **cfg_kw):
     torch.cuda.synchronize()
     proc.tracer = Tracer()
     proc.detection_results = {}
-    _reset_launches()
+    _build.reset_launches()
     t0 = time.perf_counter()
     results = proc.run_detection_foe(sample_yx=sample_yx)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _launches()
+    launches = dict(_build.LAUNCHES)
     if sorted(results) != list(range(n_frames - 1)):
         raise AssertionError(f"scan {w}x{h}: results for {sorted(results)}")
     _hold_expand(f"scan {w}x{h}", launches, proc._farneback, h, w)
@@ -1949,7 +1950,7 @@ def phase_native(dev, size=(480, 752)) -> dict:
             if reader == "numpy":
                 native.available = lambda: False
             try:
-                _reset_launches()
+                _build.reset_launches()
                 t0 = time.perf_counter()
                 results = proc.run_detection_foe()
                 torch.cuda.synchronize()
@@ -1960,7 +1961,7 @@ def phase_native(dev, size=(480, 752)) -> dict:
                 proc.release()
             _finite_results(f"native {reader}", results, ds.results_path)
             runs[reader] = {"json": {i: fr.to_json() for i, fr in results.items()},
-                            "wall_s": wall, "launches": _launches(),
+                            "wall_s": wall, "launches": dict(_build.LAUNCHES),
                             "served": len(served)}
         if runs["prefetcher"]["served"] != n_frames - 1 or \
                 runs["numpy"]["served"] != n_frames - 1:
@@ -1987,10 +1988,10 @@ def phase_entry(dev) -> dict:
     if not all(a.is_cuda for a in args):
         raise AssertionError("entry: example arguments are not on the card")
     fn(*args)                                            # warm-up
-    _reset_launches()
+    _build.reset_launches()
     foe, tpr_fixed, fpr_fixed, total_mask = fn(*args)
     torch.cuda.synchronize()
-    launches = _launches()
+    launches = dict(_build.LAUNCHES)
     if launches["farneback_iterate_fused"] != 13:
         raise AssertionError(f"entry: {launches}")
     h, w = args[0].shape
@@ -2119,7 +2120,7 @@ def _raft_loop(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
             return checks[-1]
 
         tr.check_flow_saturation = counted
-        _reset_launches()
+        _build.reset_launches()
         try:
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
@@ -2133,7 +2134,7 @@ def _raft_loop(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
                     torch.cuda.set_sync_debug_mode("default")
         finally:
             tr.check_flow_saturation = real_check
-        launches = _launches()
+        launches = dict(_build.LAUNCHES)
         syncs = collections.Counter(
             f"{os.path.relpath(c.filename, os.path.dirname(os.path.abspath(__file__)))}:"
             f"{c.lineno}" for c in caught if "synchroniz" in str(c.message))
@@ -2169,7 +2170,7 @@ def _raft_loop(dev, h: int, w: int, n_frames: int, batch: int) -> dict:
     return {
         "size": f"{w}x{h}", "frames": n_frames, "batch": batch, "pairs": n_pairs,
         "wall_s": wall, "frames_per_s": n_pairs / wall,
-        "farneback_launches": launches,
+        "launches": launches,
         "saturation_checks": len(checks), "escalation_rungs": int(sum(checks)),
         "host_looks_per_batch": sum(syncs.values()) / n_batches,
         "synchronising_calls": dict(syncs),
@@ -2193,6 +2194,8 @@ def phase_nets(dev, sky_hw=(480, 752), card_cpu=("320x240", "752x480"),
     from mav_detection_tpu_torch.models import checkpoint, pretrained
     from mav_detection_tpu_torch.models import raft as tr
     from mav_detection_tpu_torch.models import sky_segmentation as ts
+    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
+    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
 
     out = {}
     # ---- load: the shipped files, the port's reader, the migration
@@ -2301,7 +2304,7 @@ def phase_nets(dev, sky_hw=(480, 752), card_cpu=("320x240", "752x480"),
     frames = loops[0]["_frames"]
     for lp in loops:
         lp.pop("_frames")
-        if any(lp["farneback_launches"].values()):
+        if any(lp["launches"][k] for k in fi.KERNELS + fe.KERNELS):
             raise AssertionError(f"nets loop: Farneback launched on RAFT flow {lp}")
     out["loops"] = loops
     out["stages"] = _raft_stage_times(dev, frames)
@@ -2388,24 +2391,6 @@ def _per_batch_launches(params, h, w) -> int:
                for k in range(len(fb._pyramid_scales(h, w, params))))
 
 
-def _reset_launches() -> None:
-    """Zero the launch counters of the main path's two kernels: the
-    iterate's and the polynomial expansion's band kernel's."""
-    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
-
-    fi.reset_launch_counts()
-    fe.reset_launch_counts()
-
-
-def _launches() -> dict:
-    """Both kernels' launches, per kernel, since ``_reset_launches``."""
-    from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
-
-    return {**fi.LAUNCHES, **fe.LAUNCHES}
-
-
 def _expand_per_call(params, h, w) -> int:
     """Band-kernel launches of one flow call at (h, w): its plan's, summed
     over the pyramid's layers."""
@@ -2422,8 +2407,8 @@ def _expand_per_call(params, h, w) -> int:
 
 
 def _hold_expand(tag: str, launches: dict, params, h: int, w: int) -> int:
-    """The band kernel's launches in ``launches`` (``_launches`` of a run at
-    (h, w)) against the flow calls that the iterate's launches count: the
+    """The band kernel's launches in ``launches`` (a copy of the counter
+    after a run at (h, w)) against the flow calls that the iterate's launches count: the
     plan's launches per call. Returns the band kernel's total."""
     from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 
@@ -2473,7 +2458,7 @@ def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
         validation's after it. Returns (frames/s, launches, wall s) of the
         detection."""
         sky_calls.clear()
-        _reset_launches()
+        _build.reset_launches()
         t0 = time.perf_counter()
         with _ValidationSplit() as split:
             cli_main(argv)
@@ -2678,12 +2663,12 @@ def phase_datasets(dev, midgard=(480, 752, 12, 8), card_cpu_frames=4,
                 proc.save_images = False
                 proc.run_detection_foe()                 # warm-up
                 torch.cuda.synchronize()
-                _reset_launches()
+                _build.reset_launches()
                 t0 = time.perf_counter()
                 r = proc.run_detection_foe()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                counts = _launches()
+                counts = dict(_build.LAUNCHES)
                 n = counts[k]
                 out["launches"][f"simulation {src_name}"] = n
                 out.setdefault("expand_launches", {})[f"simulation {src_name}"] = \
@@ -2743,11 +2728,11 @@ class _ValidationSplit:
             import torch
 
             torch.cuda.synchronize()
-            start = _launches()
+            start = dict(_build.LAUNCHES)
             t0 = time.perf_counter()
             stats = real(v)
             torch.cuda.synchronize()
-            end = _launches()
+            end = dict(_build.LAUNCHES)
             runs.append({"launches_before": start[k], "stats": stats, "started": t0,
                          "s": time.perf_counter() - t0,
                          "launches": end[k] - start[k],
@@ -3065,7 +3050,7 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
             cli_out = {}
             params = fb.tuned_flow_params(ch, cw)
             with _ValidationSplit() as split:
-                _reset_launches()
+                _build.reset_launches()
                 t0 = time.perf_counter()
                 cli_main(["--headless"])
                 torch.cuda.synchronize()
@@ -3105,7 +3090,7 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
                 try:
                     os.environ["YOLO_INFERENCE_HOST"] = \
                         f"http://{srv.server_address[0]}:{srv.server_address[1]}"
-                    _reset_launches()
+                    _build.reset_launches()
                     cli_main(["--headless", "--validate"])
                     torch.cuda.synchronize()
                 finally:
@@ -3126,12 +3111,12 @@ def phase_yolo(dev, sizes=((240, 320), (480, 752)), time_size=(480, 752, 8),
 
             # --prepare-dataset in FLOW_FOE_YOLO mode
             os.environ["YOLOv4_PATH"] = os.path.join(tmp, "yolo")
-            _reset_launches()
+            _build.reset_launches()
             t0 = time.perf_counter()
             cli_main(["--headless", "--prepare-dataset", "--mode", "FLOW_FOE_YOLO"])
             torch.cuda.synchronize()
             cli_out["convert_s"] = time.perf_counter() - t0
-            counts = _launches()
+            counts = dict(_build.LAUNCHES)
             cli_out["convert_launches"] = counts[k]
             cli_out["expand_launches"]["convert"] = _hold_expand(
                 "yolo convert", counts, params, ch, cw)
@@ -3442,7 +3427,7 @@ def phase_train(dev, sizes=None, batch: int = 8, steps: int = 20, chunk: int = 1
     tmp = tempfile.mkdtemp(prefix="mav_train_")
     os.environ["MAV_CHECKPOINT_PATH"] = tmp
     pretrained.clear_cache()
-    fi.reset_launch_counts()
+    _build.reset_launches()
     try:
         for tag, fn, kw, net, name in (
                 ("raft", tt.train_raft, {}, "raft", "raft"),
@@ -3535,7 +3520,7 @@ def phase_train(dev, sizes=None, batch: int = 8, steps: int = 20, chunk: int = 1
                        float(max(r["host_looks_in_chunks"][1:] or [0])), 0.0, "looks")
             checks.add(f"{tag} host looks per chunk outside the selector",
                        r["host_looks_per_chunk"], 1.0, "looks")
-        out["launches_train"] = dict(fi.LAUNCHES)
+        out["launches_train"] = {k: _build.LAUNCHES[k] for k in fi.KERNELS}
     finally:
         os.environ.pop("MAV_CHECKPOINT_PATH", None)
         pretrained.clear_cache()
@@ -3640,10 +3625,10 @@ def phase_tools(dev, size=(480, 752), batch: int = 8) -> dict:
         proc.run_detection_foe()                       # warm-up
         torch.cuda.synchronize()
         proc.detection_results = {}
-        _reset_launches()
+        _build.reset_launches()
         with trace_to(os.path.join(tmp, "trace")) as prof:
             proc.run_detection_foe()
-        launches = _launches()
+        launches = dict(_build.LAUNCHES)
         _hold_expand("tools trace", launches, proc._farneback, h, w)
         traces = glob.glob(os.path.join(tmp, "trace", "trace_*.json"))
         trace_bytes = os.path.getsize(traces[0]) if len(traces) == 1 else 0
@@ -3746,17 +3731,15 @@ def _tool(mod, argv, dev, **kw):
     import contextlib
     import io
 
-    from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
-
     buf = io.StringIO()
     _sync(dev)
-    fi.reset_launch_counts()
+    _build.reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         res = mod.main(argv, dev, **kw)
     _sync(dev)
     res["stdout"] = buf.getvalue()
-    return res, fi.LAUNCHES["farneback_iterate_fused"], time.perf_counter() - t0
+    return res, _build.LAUNCHES["farneback_iterate_fused"], time.perf_counter() - t0
 
 
 def phase_tools_flow(dev, sizes=TOOLS_FLOW_SIZES, sim_frames=TOOLS_FLOW_SIM_FRAMES,
@@ -4282,15 +4265,14 @@ def _multi_processor(dev, ds, mesh=None, **cfg_kw):
 
 
 def _run(fn, dev):
-    """(what ``fn`` returns, host-clock s, launches of the iterate and of
-    the band kernel) of one synchronised call, the launch counters zeroed
-    just before it."""
+    """(what ``fn`` returns, host-clock s, a copy of the launch counter) of
+    one synchronised call, the counter zeroed just before it."""
     _sync(dev)
-    _reset_launches()
+    _build.reset_launches()
     t0 = time.perf_counter()
     out = fn()
     _sync(dev)
-    return out, time.perf_counter() - t0, _launches()
+    return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
 
 
 def _turns(mesh, one, sharded) -> dict:
@@ -4616,12 +4598,12 @@ def phase_bench(dev) -> dict:
         return cv2.calcOpticalFlowFarneback(prev8, curr8, None, *CV2_ORACLE_ARGS)
 
     buf = io.StringIO()
-    _reset_launches()
+    _build.reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         res = bench.main([], device=dev, cv2_flow=cv2_flow)
     seconds = time.perf_counter() - t0
-    counts = _launches()
+    counts = dict(_build.LAUNCHES)
     launches = counts["farneback_iterate_fused"]
     expand_launches = sum(counts[k] for k in fe.KERNELS)
     lines = buf.getvalue().strip().splitlines()
@@ -5088,7 +5070,7 @@ def main(argv=None) -> int:
             f"{lp['host_looks_per_batch']:.2f} {json.dumps(lp['synchronising_calls'])}, "
             f"median FoE err "
             f"{lp['median_foe_err_px']:.3f} px, stages ms {json.dumps(lp['stages_ms'])}, "
-            f"farneback launches {lp['farneback_launches']}")
+            f"launches {json.dumps({k: n for k, n in lp['launches'].items() if n})}")
     for st in nets["stages"]:
         say(f"[nets] RAFT stage 752x480 b=8 {st['stage']}: {st['ms']:.4f} ms "
             f"({st['timer']}), bound {st['bound_ms']:.4f} ms ({st['bound_by']}: "

@@ -36,12 +36,22 @@ Only the repo's own sources are compiled; there is no prebuilt artifact. A
 missing compiler raises ``CompilerMissing``, a failed build ``RuntimeError``
 (of which ``CompilerMissing`` is a subclass).
 
+Every hand kernel is launched, checked and counted here too (the launch
+seam): ``launch`` calls a kernel's C entry point on the current stream,
+raises on its ``cudaError`` and counts it in ``LAUNCHES`` under the names
+its module declares with ``counted``; ``check_tensor`` is the wrappers'
+one tensor check, ``sm_count`` and ``MAX_SMEM_BYTES`` the card's limits,
+and ``kernel_resources`` reads what a kernel's info entry point reports.
+They import ``torch`` when called, so this module and the g++ libraries
+stay free of it.
+
 By hand: ``python -m mav_detection_tpu_torch._build [name ...]`` builds the
 named libraries (all of them without names) and prints their paths.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -272,6 +282,78 @@ def load(name: str = "farneback_iter") -> ctypes.CDLL:
             SOURCES[name].bind(lib)
             _LIBS[name] = lib
         return _LIBS[name]
+
+
+# ------------------------------------------------------------ launch seam
+# launches per kernel since the last ``reset_launches`` (plain ints; counted
+# by ``launch``, nowhere else), one key per name a module declared
+LAUNCHES: Dict[str, int] = {}
+
+# dynamic shared memory one block may opt in to on the H100 (227 KB)
+MAX_SMEM_BYTES = 232448
+
+# what the kernels' info entry points write, in their order (the probes'
+# ``shift_probe_info`` writes its own)
+RESOURCES = ("smem_bytes", "registers", "blocks_per_sm", "local_bytes")
+
+
+def counted(*kernels: str) -> Tuple[str, ...]:
+    """Declare ``kernels`` (a module's ``KERNELS``) to the launch counter,
+    at zero; returns them."""
+    for k in kernels:
+        LAUNCHES.setdefault(k, 0)
+    return kernels
+
+
+def reset_launches() -> None:
+    """Zero every kernel's launch count."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch(library: str, kernel: str, device, *args, entry: Optional[str] = None) -> None:
+    """Launch ``kernel`` of ``library``: its C entry point (``entry``, the
+    kernel's name by default) with ``args`` and the current stream of
+    ``device`` last. Raises on a nonzero ``cudaError``; counts the launch
+    under ``kernel``, which ``counted`` must have declared."""
+    import torch
+
+    fn = getattr(load(library), entry or kernel)
+    raise_on(fn(*args, torch.cuda.current_stream(device).cuda_stream), kernel)
+    LAUNCHES[kernel] += 1
+
+
+def check_tensor(name: str, t, shape=None, dtype=None) -> None:
+    """ValueError unless ``t`` is a CUDA tensor of ``dtype`` (float32 by
+    default) and, with ``shape``, a contiguous one of that shape (without
+    it the caller takes the layout as it comes)."""
+    import torch
+
+    dtype = torch.float32 if dtype is None else dtype
+    layout = "" if shape is None else "contiguous "
+    if t.dtype != dtype or not t.is_cuda or (shape is not None and not t.is_contiguous()):
+        raise ValueError(f"{name} must be a {layout}{dtype} CUDA tensor, got {t.dtype} "
+                         f"on {t.device} (contiguous={t.is_contiguous()})")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: Optional[int]) -> int:
+    """Multiprocessors of card ``device_index`` (the current card for
+    None), read once."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def kernel_resources(library: str, entry: str, *args,
+                     keys: Sequence[str] = RESOURCES) -> Dict[str, int]:
+    """The ints a kernel's info entry point (``entry`` of ``library``)
+    writes for ``args`` into an out-array of ``len(keys)``, by name."""
+    out = (ctypes.c_int * len(keys))()
+    raise_on(getattr(load(library), entry)(*args, out), entry)
+    return dict(zip(keys, out))
 
 
 def build_seconds(names: Optional[Sequence[str]] = None) -> float:

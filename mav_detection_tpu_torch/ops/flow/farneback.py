@@ -33,13 +33,13 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from mav_detection_tpu_torch import _build
 from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 from mav_detection_tpu_torch.ops.flow.farneback_iter import (
     CHUNK_ROWS,
     H100_SMS,
     STRIP_ROWS,
     StripGeometry,
-    _sm_count,
     _warp_coords,
     farneback_iterate,
     fused_schedule,
@@ -115,7 +115,7 @@ def effective_fused_config(params: FarnebackParams, h: int, w: int,
     ``n_col_tiles``) have no counterpart here."""
     if params.warp != "fused":
         return {"warp": params.warp}
-    sm_count = (_sm_count(torch.cuda.current_device())
+    sm_count = (_build.sm_count(torch.cuda.current_device())
                 if torch.cuda.is_available() else H100_SMS)
     m = params.winsize // 2
     layers = []

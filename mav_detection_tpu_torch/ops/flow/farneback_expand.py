@@ -1,5 +1,5 @@
 """The Farneback polynomial expansion of a pyramid layer as a band kernel:
-its bands, the launch plan, the CUDA wrapper and the launch counters.
+its bands, the launch plan and the CUDA wrapper.
 
 Replaces no TPU kernel: the reference computes the layer's smooth, resize
 and moment correlations as two dense matmuls left to XLA's dot
@@ -31,14 +31,10 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mav_detection_tpu_torch._build import raise_on
+from mav_detection_tpu_torch import _build
 
-KERNELS = ("farneback_expand_fused", "farneback_expand_vertical",
-           "farneback_expand_horizontal")
-
-# launches per kernel since the last reset (plain ints; counted where the
-# kernel is launched, nowhere else)
-LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+KERNELS = _build.counted("farneback_expand_fused", "farneback_expand_vertical",
+                         "farneback_expand_horizontal")
 
 THREADS = 256          # kThreads in the CUDA source
 GROUP = 4              # outputs per band group (kGroup)
@@ -47,15 +43,9 @@ VERTICAL_ROWS = 32     # output rows of a vertical tile
 # the column tiles, narrowest first: the plan takes the widest that fits
 # two blocks an SM (wider tiles ran slower on the finest layers, PERF.md)
 COLS = (32, 64, 96, 128, 160, 192)
-MAX_SMEM_BYTES = 232448
 # two blocks an SM: 228 KB of shared memory an SM, 1 KB of it per block
 # reserved by the runtime
 TWO_BLOCKS_SMEM = 228 * 1024 // 2 - 1024
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
 
 
 # ------------------------------------------------------------------ bands
@@ -161,8 +151,6 @@ SmemFn = Callable[[int, int, int, int], int]
 
 
 def _card_smem(kind: int, tw: int, wr: int, wc: int) -> int:
-    from mav_detection_tpu_torch import _build
-
     return int(_build.load("farneback_expand").farneback_expand_smem(kind, tw, wr, wc))
 
 
@@ -206,8 +194,8 @@ def plan(b: Bands, frames: int, h: int, w: int, lh: int, lw: int,
         return (fused,)
     vertical = [_vertical(b, frames, lh, w, VERTICAL_ROWS, tw, smem) for tw in COLS]
     horizontal = [_horizontal(b, frames, lh, lw, tw, smem) for tw in COLS]
-    v = _widest(vertical, TWO_BLOCKS_SMEM) or _widest(vertical, MAX_SMEM_BYTES)
-    hz = _widest(horizontal, TWO_BLOCKS_SMEM) or _widest(horizontal, MAX_SMEM_BYTES)
+    v = _widest(vertical, TWO_BLOCKS_SMEM) or _widest(vertical, _build.MAX_SMEM_BYTES)
+    hz = _widest(horizontal, TWO_BLOCKS_SMEM) or _widest(horizontal, _build.MAX_SMEM_BYTES)
     if v is None or hz is None:
         raise ValueError(f"layer {lh}x{lw} of {h}x{w}: bands of {b.vtaps.shape[1]} "
                          f"x {b.htaps.shape[1]} taps fit no block's shared memory")
@@ -261,70 +249,48 @@ def to_device(b: Bands, device: torch.device) -> DeviceBands:
                          for a in b[:6]))
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
-    if t.dtype != dtype or not t.is_cuda or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous {dtype} CUDA tensor, got "
-                         f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-
-
 def expand_cuda(prev: torch.Tensor, curr: torch.Tensor, R0: torch.Tensor,
                 R1: torch.Tensor, bands: DeviceBands, launches: Tuple[Launch, ...],
                 ig: Tuple[float, float, float, float]) -> None:
     """Expand ``prev`` and ``curr`` (b, h, w) into ``R0`` and ``R1`` (b, 5,
     lh, lw) in the same launches, with the ``plan`` for these shapes
     (``launches``) and the inverse moments ig = (ig11, ig03, ig33, ig55)."""
-    from mav_detection_tpu_torch import _build
-
     b, h, w = prev.shape
     lh, lw = R0.shape[2], R0.shape[3]
-    _check("prev", prev, (b, h, w))
-    _check("curr", curr, (b, h, w))
-    _check("R0", R0, (b, 5, lh, lw))
-    _check("R1", R1, (b, 5, lh, lw))
+    _build.check_tensor("prev", prev, (b, h, w))
+    _build.check_tensor("curr", curr, (b, h, w))
+    _build.check_tensor("R0", R0, (b, 5, lh, lw))
+    _build.check_tensor("R1", R1, (b, 5, lh, lw))
     ngv, ngh = _cdiv(lh, GROUP), _cdiv(lw, GROUP)
     for name, n in (("v", ngv), ("h", ngh)):
-        _check(name + "base", getattr(bands, name + "base"), (n,), torch.int32)
-        _check(name + "idx", getattr(bands, name + "idx"), (n,), torch.int32)
+        _build.check_tensor(name + "base", getattr(bands, name + "base"), (n,), torch.int32)
+        _build.check_tensor(name + "idx", getattr(bands, name + "idx"), (n,), torch.int32)
         taps = getattr(bands, name + "taps")
-        _check(name + "taps", taps, (taps.shape[0], taps.shape[1], 3 * GROUP))
+        _build.check_tensor(name + "taps", taps, (taps.shape[0], taps.shape[1], 3 * GROUP))
     UV, UH = bands.vtaps.shape[1], bands.htaps.shape[1]
-    lib = _build.load("farneback_expand")
-    stream = torch.cuda.current_stream(prev.device).cuda_stream
+    dev = prev.device
     p = lambda t: t.data_ptr()  # noqa: E731
     f = [ctypes.c_float(v) for v in ig]
     if len(launches) == 1:
         (k,) = launches
-        err = lib.farneback_expand_fused(
-            p(prev), p(curr), p(R0), p(R1), b, h, w, lh, lw, p(bands.vbase),
-            p(bands.vidx), p(bands.vtaps), ngv, UV, p(bands.hbase), p(bands.hidx),
-            p(bands.htaps), ngh, UH, *f, k.tw, k.wr, k.wc, stream)
-        raise_on(err, k.kernel)
-        LAUNCHES[k.kernel] += 1
+        _build.launch("farneback_expand", KERNELS[0], dev,
+                      p(prev), p(curr), p(R0), p(R1), b, h, w, lh, lw, p(bands.vbase),
+                      p(bands.vidx), p(bands.vtaps), ngv, UV, p(bands.hbase), p(bands.hidx),
+                      p(bands.htaps), ngh, UH, *f, k.tw, k.wr, k.wc)
         return
     v, hz = launches
-    t = torch.empty((2 * b, 3, lh, w), dtype=torch.float32, device=prev.device)
-    err = lib.farneback_expand_vertical(
-        p(prev), p(curr), p(t), b, h, w, lh, p(bands.vbase), p(bands.vidx),
-        p(bands.vtaps), ngv, UV, v.th, v.tw, v.wr, stream)
-    raise_on(err, v.kernel)
-    LAUNCHES[v.kernel] += 1
-    err = lib.farneback_expand_horizontal(
-        p(t), p(R0), p(R1), b, w, lh, lw, p(bands.hbase), p(bands.hidx),
-        p(bands.htaps), ngh, UH, *f, hz.tw, hz.wc, stream)
-    raise_on(err, hz.kernel)
-    LAUNCHES[hz.kernel] += 1
+    t = torch.empty((2 * b, 3, lh, w), dtype=torch.float32, device=dev)
+    _build.launch("farneback_expand", KERNELS[1], dev,
+                  p(prev), p(curr), p(t), b, h, w, lh, p(bands.vbase), p(bands.vidx),
+                  p(bands.vtaps), ngv, UV, v.th, v.tw, v.wr)
+    _build.launch("farneback_expand", KERNELS[2], dev,
+                  p(t), p(R0), p(R1), b, w, lh, lw, p(bands.hbase), p(bands.hidx),
+                  p(bands.htaps), ngh, UH, *f, hz.tw, hz.wc)
 
 
 def kernel_info(launch: Launch) -> Dict[str, int]:
     """Launch resources of ``launch``'s kernel on the current card:
     shared-memory bytes a block, registers per thread, blocks per SM,
     local-memory bytes per thread."""
-    from mav_detection_tpu_torch import _build
-
-    out = (ctypes.c_int * 4)()
-    raise_on(_build.load("farneback_expand").farneback_expand_info(
-        KERNELS.index(launch.kernel), launch.smem, out), "farneback_expand_info")
-    return {"smem_bytes": out[0], "registers": out[1], "blocks_per_sm": out[2],
-            "local_bytes": out[3]}
+    return _build.kernel_resources("farneback_expand", "farneback_expand_info",
+                                   KERNELS.index(launch.kernel), launch.smem)

@@ -1,5 +1,5 @@
 """The Farneback solver iteration: its CUDA kernels, the plain PyTorch
-version, and the launch counters.
+version, and its launch plan.
 
 Replaces ``mav_detection_tpu/ops/flow/farneback_pallas.py::
 farneback_iterate_pallas`` (the reference's only TPU kernel). One iteration
@@ -37,18 +37,10 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from mav_detection_tpu_torch._build import raise_on
+from mav_detection_tpu_torch import _build
 
-KERNELS = ("farneback_iterate_fused",)
-
-# launches per kernel since the last reset (plain ints; counted where the
-# kernel is launched, nowhere else), on either design of blocks
-LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
+# one kernel, counted on either design of blocks
+KERNELS = _build.counted("farneback_iterate_fused")
 
 
 # ------------------------------------------------------------ plain version
@@ -192,8 +184,6 @@ MAX_GENERIC_M = 32
 MAX_STRIP_SHIFT = 63
 # steps between a ring row's copy and its first read (kPrefetch)
 STRIP_PREFETCH = 1
-# dynamic shared memory one block may opt in to on the H100 (227 KB)
-MAX_SMEM_BYTES = 232448
 # SMs of an H100 SXM, for bounds reckoned without a card
 H100_SMS = 132
 
@@ -231,11 +221,11 @@ def strip_launch_smem(strip: int, winsize: int, max_shift: int) -> int:
         raise ValueError(f"strip {strip}: a block covers 1 to "
                          f"{STRIP_COLS - 2 * m} columns at winsize={winsize}")
     nbytes = strip_smem_bytes(strip, m, max_shift)
-    if nbytes > MAX_SMEM_BYTES:
+    if nbytes > _build.MAX_SMEM_BYTES:
         raise ValueError(
             f"winsize={winsize}, max_shift={max_shift}: a strip of {strip} "
             f"columns needs {nbytes} B of shared memory, over the "
-            f"{MAX_SMEM_BYTES} B a block may have")
+            f"{_build.MAX_SMEM_BYTES} B a block may have")
     if max_shift > MAX_STRIP_SHIFT:   # past the shared memory already
         raise ValueError(f"max_shift={max_shift}: the kernel takes up to "
                          f"{MAX_STRIP_SHIFT}")
@@ -308,7 +298,7 @@ def strip_geometry(b: int, H: int, W: int, winsize: int, max_shift: int,
         # shared memory (a max_shift past the product's)
         widest = STRIP_COLS - 2 * m
         ns = -(-W // widest) if widest >= 1 else W
-        while ns < W and strip_smem_bytes(-(-W // ns), m, max_shift) > MAX_SMEM_BYTES:
+        while ns < W and strip_smem_bytes(-(-W // ns), m, max_shift) > _build.MAX_SMEM_BYTES:
             ns += 1
         strip = -(-W // ns) if widest >= 1 else 0
     strips = -(-W // strip) if strip >= 1 else 0
@@ -352,27 +342,13 @@ def fused_schedule(b: int, H: int, W: int, winsize: int, max_shift: int,
     return g
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous float32 CUDA tensor, "
-                         f"got {t.dtype} on {t.device} "
-                         f"(contiguous={t.is_contiguous()})")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-
-
 def _check_all(R0, R1, flow, border, flow_out) -> None:
     b, _, H, W = R0.shape
     for name, t, shape in (("R0", R0, (b, 5, H, W)), ("R1", R1, (b, 5, H, W)),
                            ("flow", flow, (b, 2, H, W)),
                            ("border", border, (H, W)),
                            ("flow_out", flow_out, (b, 2, H, W))):
-        _check(name, t, shape)
+        _build.check_tensor(name, t, shape)
     if flow_out.data_ptr() == flow.data_ptr():
         raise ValueError("flow_out must not be flow (Jacobi reads the "
                          "previous iterate everywhere)")
@@ -385,36 +361,21 @@ def iterate_fused_cuda(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
     ``flow_out`` (b, 2, H, W), a different buffer. ``geometry`` (a
     ``StripGeometry``, or a tile of ``TILES`` for the tile design's blocks)
     defaults to ``fused_schedule`` of the launch on this card."""
-    from mav_detection_tpu_torch import _build
-
     _check_all(R0, R1, flow, border, flow_out)
     b, _, H, W = R0.shape
     if geometry is None:
         geometry = fused_schedule(b, H, W, winsize, max_shift,
-                                  _sm_count(R0.device.index))
+                                  _build.sm_count(R0.device.index))
     if isinstance(geometry, StripGeometry):
         strip_launch_smem(geometry.strip, winsize, max_shift)
         args = (geometry.strip, geometry.rows, geometry.runs_per_col, -1)
     else:
         tiled_launch_smem(geometry, winsize, max_shift)
         args = (0, 0, 0, TILES[tuple(geometry)])
-    lib = _build.load()
-    stream = torch.cuda.current_stream(R0.device).cuda_stream
-    err = lib.farneback_iterate_fused(
-        R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), border.data_ptr(),
-        flow_out.data_ptr(), b, H, W, int(max_shift), winsize // 2,
-        1.0 / (winsize * winsize), *args, stream)
-    raise_on(err, "farneback_iterate_fused")
-    LAUNCHES["farneback_iterate_fused"] += 1
-
-
-def _info(fn, kernel: str, *args) -> Dict[str, int]:
-    import ctypes
-
-    out = (ctypes.c_int * 4)()
-    raise_on(fn(*args, out), kernel)
-    return {"smem_bytes": out[0], "registers": out[1], "blocks_per_sm": out[2],
-            "local_bytes": out[3]}
+    _build.launch("farneback_iter", KERNELS[0], R0.device,
+                  R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), border.data_ptr(),
+                  flow_out.data_ptr(), b, H, W, int(max_shift), winsize // 2,
+                  1.0 / (winsize * winsize), *args)
 
 
 def fused_kernel_info(winsize: int, max_shift: int, geometry) -> Dict[str, int]:
@@ -422,17 +383,14 @@ def fused_kernel_info(winsize: int, max_shift: int, geometry) -> Dict[str, int]:
     on this ``StripGeometry``'s strip width or on this tile: shared-memory
     bytes per block, registers per thread, blocks per SM, local-memory
     bytes per thread."""
-    from mav_detection_tpu_torch import _build
-
     if isinstance(geometry, StripGeometry):
         strip_launch_smem(geometry.strip, winsize, max_shift)
         args = (geometry.strip, -1)
     else:
         tiled_launch_smem(geometry, winsize, max_shift)
         args = (0, TILES[tuple(geometry)])
-    return _info(_build.load().farneback_iterate_fused_info,
-                 "farneback_iterate_fused_info", args[0], winsize // 2,
-                 int(max_shift), args[1])
+    return _build.kernel_resources("farneback_iter", "farneback_iterate_fused_info",
+                                   args[0], winsize // 2, int(max_shift), args[1])
 
 
 # The tile design: farneback_iterate_fused's blocks on the layers too short
@@ -472,11 +430,11 @@ def tiled_launch_smem(tile, winsize: int, max_shift: int) -> int:
     if winsize < 1 or max_shift < 0:
         raise ValueError(f"winsize={winsize}, max_shift={max_shift}")
     nbytes = tiled_smem_bytes(tile, winsize // 2, max_shift)
-    if nbytes > MAX_SMEM_BYTES:
+    if nbytes > _build.MAX_SMEM_BYTES:
         raise ValueError(
             f"winsize={winsize}, max_shift={max_shift}: a {tile[0]}x{tile[1]} "
             f"block needs {nbytes} B of shared memory, over the "
-            f"{MAX_SMEM_BYTES} B a block may have")
+            f"{_build.MAX_SMEM_BYTES} B a block may have")
     return nbytes
 
 

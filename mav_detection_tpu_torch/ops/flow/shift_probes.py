@@ -1,5 +1,5 @@
 """Probe kernels of the Farneback warp's shifted reads: their CUDA
-wrappers, plain PyTorch versions, launch counters and bounds.
+wrappers, plain PyTorch versions and bounds.
 
 Replace the reference's Pallas probe kernels, which take the fused
 iteration's y stage apart (``tools/gather_probe.py::chain_kernel`` and
@@ -39,14 +39,12 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from mav_detection_tpu_torch._build import raise_on
+from mav_detection_tpu_torch import _build
 
 VARIANTS = ("A", "B", "C", "D", "T")
-KERNELS = ("shift_chain", "shift_gather") + tuple(f"y_stage_{v}" for v in VARIANTS)
-
-# launches per kernel (each y_stage variant apart) since the last reset
-# (plain ints; counted where the kernel is launched, nowhere else)
-LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+# each y_stage variant counted apart
+KERNELS = _build.counted("shift_chain", "shift_gather",
+                         *(f"y_stage_{v}" for v in VARIANTS))
 
 # fp32 add, subtract and multiply per output cell of each kernel, counted
 # from csrc/shift_probes.cu (compares, selects, conversions and index work
@@ -56,11 +54,6 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 # (multiply, add); C and D 5 lerps of 3; T 1 - fy and 5 x 3; all four sums
 # of the planes
 _OPS_PLANE_SUM = 4
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
 
 
 class YGeometry(NamedTuple):
@@ -262,15 +255,6 @@ def y_stage_ops(g: YGeometry, bands: int, variant: str) -> int:
 
 
 # ------------------------------------------------------------ CUDA wrappers
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.float32 or not t.is_cuda or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous float32 CUDA tensor, "
-                         f"got {t.dtype} on {t.device} "
-                         f"(contiguous={t.is_contiguous()})")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-
-
 def _on_device(kernel: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch), False for a CPU one (plain)."""
     if t.device.type == "cpu":
@@ -288,18 +272,12 @@ def _shift(kernel: str, x, sy, fy, S: int, axis: int, out):
         raise ValueError(f"{kernel}: x {tuple(x.shape)} has no output at "
                          f"S={S}, axis={axis}")
     for name, t in (("x", x), ("sy", sy), ("fy", fy)):
-        _check(name, t, x.shape)
+        _build.check_tensor(name, t, x.shape)
     if out is None:
         out = torch.empty((rows, cols), dtype=x.dtype, device=x.device)
-    _check("out", out, (rows, cols))
-    from mav_detection_tpu_torch import _build
-
-    lib = _build.load("shift_probes")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    raise_on(getattr(lib, kernel)(x.data_ptr(), sy.data_ptr(), fy.data_ptr(),
-                                   out.data_ptr(), rows, cols, axis, int(S),
-                                   stream), kernel)
-    LAUNCHES[kernel] += 1
+    _build.check_tensor("out", out, (rows, cols))
+    _build.launch("shift_probes", kernel, x.device, x.data_ptr(), sy.data_ptr(),
+                  fy.data_ptr(), out.data_ptr(), rows, cols, axis, int(S))
     return out
 
 
@@ -336,21 +314,16 @@ def y_stage(slab: torch.Tensor, sy: torch.Tensor, fy: torch.Tensor, S: int,
                          f"{tuple(sy.shape)}, S={S}, m={m}")
     g = _y_geometry(slab.shape, sy.shape, S, m)
     bands = slab.shape[0]
-    _check("slab", slab, slab.shape)
-    _check("sy", sy, (bands, g.mrows, g.acols))
-    _check("fy", fy, (bands, g.mrows, g.acols))
+    _build.check_tensor("slab", slab, slab.shape)
+    _build.check_tensor("sy", sy, (bands, g.mrows, g.acols))
+    _build.check_tensor("fy", fy, (bands, g.mrows, g.acols))
     if out is None:
         out = torch.empty((bands, 1, g.mrows, g.acols), dtype=slab.dtype,
                           device=slab.device)
-    _check("out", out, (bands, 1, g.mrows, g.acols))
-    from mav_detection_tpu_torch import _build
-
-    lib = _build.load("shift_probes")
-    stream = torch.cuda.current_stream(slab.device).cuda_stream
-    raise_on(lib.y_stage(slab.data_ptr(), sy.data_ptr(), fy.data_ptr(),
-                          out.data_ptr(), bands, g.th, g.tw, m, int(S),
-                          VARIANTS.index(variant), stream), kernel)
-    LAUNCHES[kernel] += 1
+    _build.check_tensor("out", out, (bands, 1, g.mrows, g.acols))
+    _build.launch("shift_probes", kernel, slab.device, slab.data_ptr(), sy.data_ptr(),
+                  fy.data_ptr(), out.data_ptr(), bands, g.th, g.tw, m, int(S),
+                  VARIANTS.index(variant), entry="y_stage")
     return out
 
 
@@ -361,10 +334,6 @@ def kernel_info(kernel: str, S: int, sub: int = 0,
     ``mrows`` the y stage's output rows a band, which set its block):
     threads a block, registers per thread, static and dynamic shared memory
     a block, resident blocks per SM."""
-    import ctypes
-
-    from mav_detection_tpu_torch import _build
-
     rows = 0
     if kernel.startswith("y_stage_"):
         if mrows is None or mrows < 1:
@@ -372,8 +341,6 @@ def kernel_info(kernel: str, S: int, sub: int = 0,
         which, sub, rows = 2, VARIANTS.index(kernel[len("y_stage_"):]), int(mrows)
     else:
         which = ("shift_chain", "shift_gather").index(kernel)
-    out = (ctypes.c_int * 5)()
-    raise_on(_build.load("shift_probes").shift_probe_info(which, sub, int(S), rows, out),
-              "shift_probe_info")
-    return {"threads": out[3], "registers": out[0], "smem_bytes": out[1],
-            "dyn_smem_bytes": out[4], "blocks_per_sm": out[2]}
+    return _build.kernel_resources(
+        "shift_probes", "shift_probe_info", which, sub, int(S), rows,
+        keys=("registers", "smem_bytes", "blocks_per_sm", "threads", "dyn_smem_bytes"))

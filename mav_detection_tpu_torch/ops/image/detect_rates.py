@@ -1,5 +1,5 @@
 """The detection step's per-frame rates: the plain version, the CUDA
-reduction that replaces it on the card, its plan, bound and launch counters.
+reduction that replaces it on the card, its plan and bound.
 
 From the frames' segmentation (uint8), the dynamic and fixed detection
 masks, the sky estimate (bool), depth (float32) and the raw GT flow
@@ -27,20 +27,16 @@ every pixel).
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from mav_detection_tpu_torch._build import load, raise_on
+from mav_detection_tpu_torch import _build
 from mav_detection_tpu_torch.ops.geometry.derotation import derotate
 from mav_detection_tpu_torch.ops.image.boxes import get_simple_bounding_box_device
 from mav_detection_tpu_torch.ops.image.metrics import _tpr_fpr, masked_mean_flow
 
-KERNELS = ("detect_rates_max", "detect_rates_count", "detect_rates_finish")
-
-# launches per kernel since the last reset (plain ints; counted where the
-# kernel is launched, nowhere else)
-LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+KERNELS = _build.counted("detect_rates_max", "detect_rates_count", "detect_rates_finish")
 
 THREADS = 256          # kThreads in the CUDA source
 INTS = 12              # integer partials of a count block (kInts)
@@ -49,11 +45,6 @@ BLOCKS_PER_SM = 2048 // THREADS
 # float32 operations a pixel: the rotational field's u and v (9 each), then
 # subtract, mask and sum each component
 OPS_PER_PIXEL = 24
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
 
 
 class Rates(NamedTuple):
@@ -170,10 +161,6 @@ def _frames(t: torch.Tensor, name: str, shape, align: int = 1
     return t, t.stride(0)
 
 
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def rates_cuda(segmentation, total_mask, estimate_fixed, sky_mask, depth, gt_flow_uv,
                omega, dt, gt_foe) -> Rates:
     """``rates_ref`` as three launches of ``csrc/detect_rates.cu`` on the
@@ -185,9 +172,7 @@ def rates_cuda(segmentation, total_mask, estimate_fixed, sky_mask, depth, gt_flo
                            ("estimate_fixed", estimate_fixed, torch.bool),
                            ("sky_mask", sky_mask, torch.bool), ("depth", depth, torch.float32),
                            ("gt_flow_uv", gt_flow_uv, torch.float32)):
-        if not t.is_cuda or t.dtype != dtype:
-            raise ValueError(f"rates_cuda: {name} must be a {dtype} CUDA tensor, got "
-                             f"{t.dtype} on {t.device}")
+        _build.check_tensor(name, t, dtype=dtype)    # the layout is _frames'
     n, h, w = segmentation.shape
     if h * w > 2 ** 31 - 1 - 2 * THREADS * MAX_ITEMS:
         raise ValueError(f"rates_cuda: a frame of {h}x{w} pixels is too large")
@@ -205,28 +190,22 @@ def rates_cuda(segmentation, total_mask, estimate_fixed, sky_mask, depth, gt_flo
             raise ValueError(f"{name}: shape {tuple(t.shape)} on {t.device}, need "
                              f"{shape} on {dev}")
         small[name] = t.to(torch.float32).contiguous()
-    pl = plan(n, h, w, _sms(dev))
+    pl = plan(n, h, w, _build.sm_count(dev.index))
     maxes = torch.empty((n, pl.prepass, 2), dtype=torch.float32, device=dev)
     ints = torch.empty((n, pl.blocks, INTS), dtype=torch.int32, device=dev)
     sums = torch.empty((n, pl.blocks, 2), dtype=torch.float64, device=dev)
     out = torch.empty((9 * n,), dtype=torch.float32, device=dev)
     size = torch.empty((n,), dtype=torch.int64, device=dev)
-    lib = load("detect_rates")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: t.data_ptr()  # noqa: E731
 
-    raise_on(lib.detect_rates_max(p(seg), seg_bs, p(dp), dp_bs, n, h, w, pl.prepass,
-                                   p(maxes), stream), KERNELS[0])
-    LAUNCHES[KERNELS[0]] += 1
-    raise_on(lib.detect_rates_count(
-        p(seg), seg_bs, p(tm), tm_bs, p(fx), fx_bs, p(sk), sk_bs, p(dp), dp_bs, p(fl),
-        fl_bs, p(small["omega"]), p(small["dt"]), n, h, w, pl.items, pl.prepass,
-        p(maxes), p(ints), p(sums), stream), KERNELS[1])
-    LAUNCHES[KERNELS[1]] += 1
-    raise_on(lib.detect_rates_finish(p(ints), p(sums), n, h, w, pl.items,
-                                      p(small["gt_foe"]), p(out), p(size), stream),
-              KERNELS[2])
-    LAUNCHES[KERNELS[2]] += 1
+    _build.launch("detect_rates", KERNELS[0], dev, p(seg), seg_bs, p(dp), dp_bs, n, h, w,
+                  pl.prepass, p(maxes))
+    _build.launch("detect_rates", KERNELS[1], dev,
+                  p(seg), seg_bs, p(tm), tm_bs, p(fx), fx_bs, p(sk), sk_bs, p(dp), dp_bs,
+                  p(fl), fl_bs, p(small["omega"]), p(small["dt"]), n, h, w, pl.items,
+                  pl.prepass, p(maxes), p(ints), p(sums))
+    _build.launch("detect_rates", KERNELS[2], dev, p(ints), p(sums), n, h, w, pl.items,
+                  p(small["gt_foe"]), p(out), p(size))
     return Rates(tpr=out[0:n], fpr=out[n:2 * n], tpr_fixed=out[2 * n:3 * n],
                  fpr_fixed=out[3 * n:4 * n], sky_tpr=out[4 * n:5 * n],
                  sky_fpr=out[5 * n:6 * n], drone_size_pixels=size,

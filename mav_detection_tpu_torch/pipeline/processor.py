@@ -351,12 +351,15 @@ class Processor:
             np.asarray(ds.get_depth(i), np.float32)
             if ds.get_depth(i) is not None else np.ones((h, w), np.float32)
             for i in idx])
-        staged["gt_foes"] = np.stack([
-            np.asarray(ds.get_gt_foe(i), np.float32)
-            if ds.get_gt_foe(i) is not None else np.full(2, np.nan, np.float32)
-            for i in idx])
+        staged["gt_foes"] = self._gt_foes(idx)
         self._stage_host_seconds += time.time() - t0
         return staged
+
+    def _gt_foes(self, idx: Sequence[int]) -> np.ndarray:
+        """(n, 2) float32 GT FoEs of pairs ``idx``, NaN where a pair has none."""
+        foes = [self.dataset.get_gt_foe(i) for i in idx]
+        return np.stack([np.full(2, np.nan, np.float32) if g is None
+                         else np.asarray(g, np.float32) for g in foes])
 
     def _flo_paths(self, idx: Sequence[int], src: FlowSource) -> List[str]:
         """The ``.flo`` files of a file-backed source for pairs ``idx``, or
@@ -788,79 +791,146 @@ class Processor:
         the scan and chunked engines: one (T-1, 2N, 2) array for the whole
         sequence. With ``devices > 1`` and no process group, the batch,
         spatial and chunked engines run on spawned ranks (rank 0's
-        FrameResults come back)."""
+        FrameResults come back).
+
+        The batch and spatial engines run one loop over this rank's lanes
+        of each batch, all of them on one card. On a mesh a batch of
+        ``batch_size`` lanes is padded to ``per * size`` lanes by repeating
+        its last one, and rank ``r`` takes lanes ``[r*per, (r+1)*per)``. On
+        the batch engine each rank stages and uploads only its lanes, on
+        its own thread, and computes their flow; on the spatial engine
+        every rank stages the whole batch and the ranks solve each pair's
+        flow together. Each rank draws the whole batch's FoE samples from
+        the run's generator and takes its lanes' (lane ``i`` votes on the
+        one-card run's samples of lane ``i``), runs the detection step, and
+        joins one all-reduce of the fixed-threshold counts (padded lanes
+        masked out) and one all-gather of the packed (per, 12) scalars;
+        rank 0 pulls both at once and writes the FrameResults and JSON.
+        Debug images are written by the rank that computed them."""
         if self._ranks and self.config.engine != "scan":
             return self._run_on_ranks("run_detection_foe", sample_yx=sample_yx)
         if self.config.engine in ("scan", "chunked"):
             return self.run_detection_foe_scan(sample_yx=sample_yx)
-        if self.mesh is not None:
-            return self._run_detection_foe_sharded(sample_yx)
+        mesh = self.mesh
         ds = self.dataset
         n_pairs = ds.N - 1
         h, w = ds.capture_shape[:2]
+        lead = mesh is None or mesh.rank == 0
+        spatial = self.config.engine == "spatial"
         out_dirs = self._foe_out_dirs()
         save_images = bool(out_dirs) and self.save_images
         gen = torch.Generator(device=self.device)
         gen.manual_seed(SAMPLE_SEED)
         step = self._detection_step()
         src = self._effective_flow_source()
+        B = self.batch_size
+        lo, hi, per = (0, B, B) if mesh is None else pmesh.lanes(B, mesh)
+        padded_b = B if mesh is None else per * mesh.size
+
+        def mine(idx: List[int]) -> List[int]:
+            # this rank's real pairs; a rank with none stages the batch's
+            # last pair, whose lanes are then all padding
+            return idx[lo:min(hi, len(idx))] or [idx[-1]]
 
         t_start = time.time()
         self._stage_host_seconds = 0.0
-        self._open_flo_prefetcher(n_pairs, src)
-        batches = [list(range(b0, min(b0 + self.batch_size, n_pairs)))
-                   for b0 in range(0, n_pairs, self.batch_size)]
-        with self._staged_batches(batches, src) as staged_batches:
+        batches = [list(range(b0, min(b0 + B, n_pairs)))
+                   for b0 in range(0, n_pairs, B)]
+        staged_idx = [idx if spatial else mine(idx) for idx in batches]
+        self._open_flo_prefetcher(n_pairs, src,
+                                  [i for idx in staged_idx for i in idx])
+        with self._staged_batches(staged_idx, src,
+                                  B if spatial else per) as staged_batches:
             for k, (idx, staged) in enumerate(zip(batches, staged_batches)):
                 if self.is_exiting:
                     break
                 nb = len(idx)
-                # static-shape tail: pad the remainder batch to batch_size
-                if 0 < nb < self.batch_size:
-                    pad_b = self.batch_size - nb
-                    staged = {key: _edge_pad_batch(v, pad_b)
+                n_valid = max(0, min(hi, nb) - lo)
+                n_mine = len(staged_idx[k])
+                # static-shape tail: pad the remainder to the rank's lanes
+                if not spatial and n_mine < per:
+                    staged = {key: _edge_pad_batch(v, per - n_mine)
                               for key, v in staged.items()}
-                    nb = self.batch_size
 
                 with self.tracer.stage("flow"):
-                    flow = self._flow_from_staged(staged, src, len(idx))
+                    if spatial:
+                        prevs, currs = self._pairs_of(staged)
+                        flow = pmesh.pad_to(self._flow_spatial_pairs(prevs, currs),
+                                            padded_b)[lo:hi]
+                        staged = {key: pmesh.pad_to(v, padded_b)[lo:hi]
+                                  for key, v in staged.items()
+                                  if key not in ("frames_dev", "frames", "prevs",
+                                                 "currs")}
+                    else:
+                        # RAFT decides its coverage ladder on the real lanes
+                        # of the whole batch; the others compute their lanes
+                        flow = self._flow_from_staged(
+                            staged, src, n_valid if src == FlowSource.RAFT else n_mine)
                 with self.tracer.stage("stage+detect"):
                     if "gt_flow" in staged:
                         gt_flow = self._to_dev(staged["gt_flow"])
                     else:
-                        gt_flow = torch.zeros((nb, h, w, 2), device=self.device)
-                    syx = (None if sample_yx is None
+                        gt_flow = torch.zeros((per, h, w, 2), device=self.device)
+                    syx = (sample_points(B, step.foe_samples, h, w, gen, self.device)
+                           if sample_yx is None
                            else self._to_dev(np.asarray(sample_yx[k])))
-                    # the debug images need the full outputs (masks, phi map,
-                    # derotated flow); throughput runs keep the scalars only
-                    detect_fn = (detect_frame_batch if save_images
-                                 else detect_frame_batch_scalars)
-                    out = detect_fn(
+                    segs = self._to_dev(staged["segs"])
+                    # the debug images and the mesh's counts need the full
+                    # outputs (masks, phi map, derotated flow); a one-card
+                    # throughput run keeps the scalars only
+                    full = save_images or mesh is not None
+                    out = (detect_frame_batch if full else detect_frame_batch_scalars)(
                         flow, gt_flow, self._to_dev(staged["omegas"]),
-                        self._to_dev(staged["dts"]),
-                        self._to_dev(staged["segs"]),
+                        self._to_dev(staged["dts"]), segs,
                         self._to_dev(staged["skys"]),
                         self._to_dev(staged["depths"]),
                         self._to_dev(staged["gt_foes"]),
-                        sample_yx=syx, generator=gen, config=step)
+                        sample_yx=pmesh.pad_to(syx, padded_b)[lo:hi], config=step)
+                    scalars = _to_scalars(out) if full else out
+                    if mesh is not None:
+                        valid = torch.arange(lo, hi, device=self.device) < nb
+                        g_tpr, g_fpr = pmesh.aggregate_metrics_psum(
+                            mesh, segs, (255 * out.estimate_fixed.to(torch.int32)
+                                         ).to(torch.uint8), valid)
+                        gathered = pmesh.all_gather_cat(pack_frame_scalars(scalars), mesh)
 
                 # one device->host transfer of the scalars for the whole
                 # batch and, with debug images on, one per image kind; padded
                 # lanes' images stay on the card
                 with self.tracer.stage("materialize"):
-                    if save_images:
-                        images = _pull_debug_images(out, len(idx))
-                        out = _to_scalars(out)
-                    packed = pack_frame_scalars(out).cpu().numpy()
+                    if save_images and n_valid:
+                        images = _pull_debug_images(out, n_valid)
+                    if mesh is None:
+                        packed = pack_frame_scalars(scalars).cpu().numpy()
+                    elif lead:
+                        host = torch.cat([gathered.reshape(-1), g_tpr.reshape(1),
+                                          g_fpr.reshape(1)]).cpu().numpy()
+                        packed = host[:-2].reshape(padded_b, 12)
+                        self._psum_metrics.append((float(host[-2]), float(host[-1]),
+                                                   nb))
 
                 with self.tracer.stage("artifacts"):
-                    self._record_results(idx, packed, staged["gt_foes"],
-                                         out_dirs.get("results", ""))
-                    if save_images:
-                        self._write_batch_images(out_dirs, idx, images)
-                self._log_progress(idx[-1] + 1, n_pairs, t_start)
-        self._finish_foe_loop(out_dirs, time.time() - t_start,
-                              "— overlapped with device compute on a background thread")
+                    if lead:
+                        # a rank of a mesh staged its own lanes only
+                        gt_foes = (staged["gt_foes"] if mesh is None
+                                   else self._gt_foes(idx))
+                        self._record_results(idx, packed, gt_foes,
+                                             out_dirs.get("results", ""))
+                    if save_images and n_valid:
+                        self._write_batch_images(out_dirs, idx[lo:lo + n_valid], images)
+                if lead:
+                    self._log_progress(idx[-1] + 1, n_pairs, t_start)
+        wall = time.time() - t_start
+        if mesh is None:
+            self._finish_foe_loop(out_dirs, wall, "— overlapped with device compute "
+                                                  "on a background thread")
+            return self.detection_results
+        # the video is encoded once every rank has written its images
+        torch.distributed.barrier(group=mesh.group)
+        if lead:
+            if self._psum_metrics and not self._spawned:
+                self._log_psum(mesh.size)
+            self._finish_foe_loop(out_dirs, wall, "on rank 0")
         return self.detection_results
 
     def _foe_out_dirs(self) -> Dict[str, str]:
@@ -1008,130 +1078,6 @@ class Processor:
         self._psum_metrics.extend(psum)
         if psum:
             self._log_psum(self._ranks)
-        return self.detection_results
-
-    def _run_detection_foe_sharded(self, sample_yx: Optional[Sequence] = None
-                                   ) -> Dict[int, FrameResult]:
-        """The FoE loop as this rank of the mesh (batch and spatial engines).
-
-        A batch of ``batch_size`` lanes is padded to ``per * size`` lanes by
-        repeating its last one, and rank ``r`` takes lanes ``[r*per,
-        (r+1)*per)``. On the batch engine each rank stages and uploads only
-        its lanes, on its own thread, and computes their flow; on the
-        spatial engine every rank stages the whole batch and the ranks solve
-        each pair's flow together. Each rank draws the whole batch's FoE
-        samples from the run's generator and takes its lanes' (lane ``i``
-        votes on the unsharded run's samples of lane ``i``), runs the
-        detection step, and joins one all-reduce of the fixed-threshold
-        counts (padded lanes masked out) and one all-gather of the packed
-        (per, 12) scalars; rank 0 pulls both at once and writes the
-        FrameResults and JSON. Debug images are written by the rank that
-        computed them."""
-        mesh = self.mesh
-        ds = self.dataset
-        n_pairs = ds.N - 1
-        h, w = ds.capture_shape[:2]
-        lead = mesh.rank == 0
-        spatial = self.config.engine == "spatial"
-        out_dirs = self._foe_out_dirs()
-        save_images = bool(out_dirs) and self.save_images
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(SAMPLE_SEED)
-        step = self._detection_step()
-        src = self._effective_flow_source()
-        B = self.batch_size
-        lo, hi, per = pmesh.lanes(B, mesh)
-        padded_b = per * mesh.size
-
-        def mine(idx: List[int]) -> List[int]:
-            # this rank's real pairs; a rank with none stages the batch's
-            # last pair, whose lanes are then all padding
-            return idx[lo:min(hi, len(idx))] or [idx[-1]]
-
-        t_start = time.time()
-        self._stage_host_seconds = 0.0
-        batches = [list(range(b0, min(b0 + B, n_pairs)))
-                   for b0 in range(0, n_pairs, B)]
-        staged_idx = [idx if spatial else mine(idx) for idx in batches]
-        self._open_flo_prefetcher(n_pairs, src,
-                                  [i for idx in staged_idx for i in idx])
-        with self._staged_batches(staged_idx, src,
-                                  B if spatial else per) as staged_batches:
-            for k, (idx, staged) in enumerate(zip(batches, staged_batches)):
-                if self.is_exiting:
-                    break
-                nb = len(idx)
-                n_valid = max(0, min(hi, nb) - lo)
-
-                with self.tracer.stage("flow"):
-                    if spatial:
-                        prevs, currs = self._pairs_of(staged)
-                        flow = pmesh.pad_to(self._flow_spatial_pairs(prevs, currs),
-                                            padded_b)[lo:hi]
-                        staged = {key: pmesh.pad_to(v, padded_b)[lo:hi]
-                                  for key, v in staged.items()
-                                  if key not in ("frames_dev", "frames", "prevs",
-                                                 "currs")}
-                    else:
-                        n_mine = len(staged_idx[k])
-                        if n_mine < per:
-                            staged = {key: _edge_pad_batch(v, per - n_mine)
-                                      for key, v in staged.items()}
-                        # RAFT decides its coverage ladder on the real lanes
-                        # of the whole batch; the others compute their lanes
-                        flow = self._flow_from_staged(
-                            staged, src, n_valid if src == FlowSource.RAFT else n_mine)
-                with self.tracer.stage("stage+detect"):
-                    if "gt_flow" in staged:
-                        gt_flow = self._to_dev(staged["gt_flow"])
-                    else:
-                        gt_flow = torch.zeros((per, h, w, 2), device=self.device)
-                    syx = (sample_points(B, step.foe_samples, h, w, gen, self.device)
-                           if sample_yx is None
-                           else self._to_dev(np.asarray(sample_yx[k])))
-                    segs = self._to_dev(staged["segs"])
-                    out = detect_frame_batch(
-                        flow, gt_flow, self._to_dev(staged["omegas"]),
-                        self._to_dev(staged["dts"]), segs,
-                        self._to_dev(staged["skys"]),
-                        self._to_dev(staged["depths"]),
-                        self._to_dev(staged["gt_foes"]),
-                        sample_yx=pmesh.pad_to(syx, padded_b)[lo:hi], config=step)
-                    valid = torch.arange(lo, hi, device=self.device) < nb
-                    g_tpr, g_fpr = pmesh.aggregate_metrics_psum(
-                        mesh, segs, (255 * out.estimate_fixed.to(torch.int32)
-                                     ).to(torch.uint8), valid)
-                    gathered = pmesh.all_gather_cat(
-                        pack_frame_scalars(_to_scalars(out)), mesh)
-
-                with self.tracer.stage("materialize"):
-                    if lead:
-                        host = torch.cat([gathered.reshape(-1), g_tpr.reshape(1),
-                                          g_fpr.reshape(1)]).cpu().numpy()
-                        packed = host[:-2].reshape(padded_b, 12)
-                        self._psum_metrics.append((float(host[-2]), float(host[-1]),
-                                                   nb))
-                    if save_images and n_valid:
-                        images = _pull_debug_images(out, n_valid)
-
-                with self.tracer.stage("artifacts"):
-                    if save_images and n_valid:
-                        self._write_batch_images(out_dirs, idx[lo:lo + n_valid], images)
-                    if lead:
-                        gt_foes = [ds.get_gt_foe(i) for i in idx]
-                        self._record_results(
-                            idx, packed, [np.full(2, np.nan, np.float32) if g is None
-                                          else np.asarray(g, np.float32) for g in gt_foes],
-                            out_dirs.get("results", ""))
-                if lead:
-                    self._log_progress(idx[-1] + 1, n_pairs, t_start)
-        wall = time.time() - t_start
-        # the video is encoded once every rank has written its images
-        torch.distributed.barrier(group=mesh.group)
-        if lead:
-            if self._psum_metrics and not self._spawned:
-                self._log_psum(mesh.size)
-            self._finish_foe_loop(out_dirs, wall, "on rank 0")
         return self.detection_results
 
     @staticmethod

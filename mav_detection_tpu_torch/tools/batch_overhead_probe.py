@@ -31,6 +31,7 @@ import argparse
 import numpy as np
 import torch
 
+from mav_detection_tpu_torch import _build
 from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
 from mav_detection_tpu_torch.utils.device import resolve_device
 from mav_detection_tpu_torch.utils.timing import (
@@ -70,7 +71,7 @@ def main(argv=None, device=None) -> dict:
             o = torch.empty_like(flow)
             launch = kernel_ms(lambda: fi.iterate_fused_cuda(R0, R1, flow, border, o, WIN, S),
                                dev, KERNEL_REPS)
-            sms = fi._sm_count(R0.device.index)
+            sms = _build.sm_count(R0.device.index)
         else:
             launch = kernel_ms(lambda: fi.box_solve_ref(fi.update_matrices_ref(
                 R0, R1, flow, border, S), WIN), dev, FULL_REPS)

@@ -30,8 +30,8 @@ import itertools
 
 import numpy as np
 
+from mav_detection_tpu_torch import _build
 from mav_detection_tpu_torch.bench import gpu_ms_per_frame
-from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
 from mav_detection_tpu_torch.ops.flow.farneback import FarnebackParams, farneback_flow
 from mav_detection_tpu_torch.tools.common import (
     HIRES_HW,
@@ -82,11 +82,11 @@ def main(argv=None, device=None, oracle=None) -> dict:
     points = []
     for levels, shift in itertools.product(ints(args.levels), ints(args.max_shift)):
         p = point_params(levels, shift)
-        fi.reset_launch_counts()
+        _build.reset_launches()
         ours = farneback_flow(prev8, curr8, p, dev).cpu()
         pt = {"levels": levels, "max_shift": shift, "epe_gt": epe(ours, gt),
               "epe_cv2": epe(ours, ref),
-              "launches_per_pair": fi.LAUNCHES["farneback_iterate_fused"]}
+              "launches_per_pair": _build.LAUNCHES["farneback_iterate_fused"]}
         pt["gate_pass"] = pt["epe_gt"] < EPE_GT_GATE_PX
         print(f"levels={levels} shift={shift}: EPE vs GT {pt['epe_gt']:.4f} px "
               f"(vs single-level cv2 {fmt(pt['epe_cv2'])} px)"

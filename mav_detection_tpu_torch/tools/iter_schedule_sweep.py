@@ -24,7 +24,7 @@ from dataclasses import replace
 
 import torch
 
-from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
+from mav_detection_tpu_torch import _build
 from mav_detection_tpu_torch.ops.flow.farneback import farneback_flow, tuned_flow_params
 from mav_detection_tpu_torch.tools.common import (
     BENCH_HW,
@@ -89,9 +89,9 @@ def main(argv=None, device=None, oracle=None) -> dict:
     rows, flows = [], {}
     for sched in schedules:
         p = replace(base, level_iters=sched)
-        fi.reset_launch_counts()
+        _build.reset_launches()
         ours = farneback_flow(prev8, curr8, p, dev).cpu()
-        launches = fi.LAUNCHES["farneback_iterate_fused"]
+        launches = _build.LAUNCHES["farneback_iterate_fused"]
         flows[sched] = (ours, launches)
         t = ({"ms": None, "flow_ms": None, "flow_device_ms": None} if args.no_timing
              else flow_detect_ms(prev8, curr8, args.batch, p, dev))

@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mav_detection_tpu_torch import _build
 from mav_detection_tpu_torch.ops.flow import farneback as fb
 from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 from mav_detection_tpu_torch.ops.flow import farneback_iter as fi
@@ -177,7 +178,7 @@ def main(argv=None, device=None) -> dict:
                                             params.max_shift)
 
             geo = fi.fused_schedule(b, lh, lw, params.winsize, params.max_shift,
-                                    fi._sm_count(dev.index) if dev.type == "cuda"
+                                    _build.sm_count(dev.index) if dev.type == "cuda"
                                     else fi.H100_SMS)
             per_launch, by = fi.fused_bound(b, lh, lw, params.winsize)
             eager = eager_ms(iterate, dev, REPS)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from mav_detection_tpu_torch import _build
 from mav_detection_tpu_torch.ops.flow import farneback as tf
 from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 from mav_detection_tpu_torch.ops.flow import farneback_iter as ti
@@ -23,6 +24,11 @@ from mav_detection_tpu_torch.ops.image import detect_rates as dr
 from mav_detection_tpu_torch.pipeline import detector as det
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(module) -> dict:
+    """The launch counter's reading of ``module``'s kernels."""
+    return {k: _build.LAUNCHES[k] for k in module.KERNELS}
 
 
 @pytest.fixture
@@ -84,7 +90,7 @@ def test_both_designs_bit_exact(dev, design, b, h, w, S, win):
     run-time-m kernel (winsize 9 and 15)."""
     R0, R1, flow, border = _inputs(dev, b, h, w)
     out = torch.empty_like(flow)
-    sms = ti._sm_count(dev.index)
+    sms = _build.sm_count(dev.index)
     geo = {"fused": None, "strips": ti.strip_geometry(b, h, w, win, S, sms),
            "tiled": ti.tile_for(b, h, w, sms)}[design]
     ti.iterate_fused_cuda(R0, R1, flow, border, out, win, S, geometry=geo)
@@ -113,7 +119,7 @@ def test_fused_geometries_bit_exact(dev, strip, rows):
 def test_fused_kernel_info(dev, h, w, win, S):
     """The card's resources agree with the Python reckoning the geometry is
     chosen from: shared memory, and one block an SM."""
-    sms = ti._sm_count(dev.index)
+    sms = _build.sm_count(dev.index)
     geo = ti.strip_geometry(8, h, w, win, S, sms)
     info = ti.fused_kernel_info(win, S, geo)
     assert info["smem_bytes"] == geo.smem_bytes == ti.strip_smem_bytes(
@@ -128,9 +134,9 @@ def test_fused_kernel_info(dev, h, w, win, S):
 
 def test_launch_counters_and_validation(dev):
     R0, R1, flow, border = _inputs(dev, 1, 24, 32)
-    ti.reset_launch_counts()
+    _build.reset_launches()
     ti.farneback_iterate(R0, R1, flow, border, 3, 12, 8)
-    assert ti.LAUNCHES == {"farneback_iterate_fused": 3}
+    assert _launches(ti) == {"farneback_iterate_fused": 3}
     out = torch.empty_like(flow)
     with pytest.raises(ValueError, match="contiguous"):
         ti.iterate_fused_cuda(R0, R1, flow.transpose(2, 3), border, out, 12, 8)
@@ -140,7 +146,7 @@ def test_launch_counters_and_validation(dev):
         ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 300)
     with pytest.raises(ValueError, match="must not be flow"):
         ti.iterate_fused_cuda(R0, R1, flow, border, flow, 12, 8)
-    assert ti.LAUNCHES["farneback_iterate_fused"] == 3
+    assert _build.LAUNCHES["farneback_iterate_fused"] == 3
     strips = ti.strip_geometry(1, 24, 32, 12, 8, 132)
     ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 8, geometry=strips)
     ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 8, geometry=(32, 64))
@@ -148,7 +154,7 @@ def test_launch_counters_and_validation(dev):
         ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 300, geometry=(32, 64))
     with pytest.raises(ValueError, match="tiles"):
         ti.iterate_fused_cuda(R0, R1, flow, border, out, 12, 8, geometry=(8, 8))
-    assert ti.LAUNCHES == {"farneback_iterate_fused": 5}
+    assert _launches(ti) == {"farneback_iterate_fused": 5}
 
 
 def test_flow_on_card_matches_cpu(dev):
@@ -201,14 +207,14 @@ def test_expand_kernel_matches_plain_version(dev, b, h, w):
 def test_expand_launch_counters_and_validation(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     prev, curr = (torch.rand(2, 480, 752, device=dev, generator=g) * 255 for _ in range(2))
-    fe.reset_launch_counts()
+    _build.reset_launches()
     tf.farneback_flow_batch(prev, curr, device=dev)
-    assert fe.LAUNCHES == {"farneback_expand_fused": 2, "farneback_expand_vertical": 1,
-                           "farneback_expand_horizontal": 1}
+    assert _launches(fe) == {"farneback_expand_fused": 2, "farneback_expand_vertical": 1,
+                             "farneback_expand_horizontal": 1}
     args = _expand_layers(480, 752)[0]
     _, _, lh, lw, smooth, n, sigma = args
     tf.poly_exp_pyr_cf(prev, smooth, lh, lw, n, sigma)
-    assert fe.LAUNCHES["farneback_expand_fused"] == 3
+    assert _build.LAUNCHES["farneback_expand_fused"] == 3
     bands = tf._device_const("expand", args, dev)
     (k,) = tf._expand_plan(args, 4)
     ig = (1.0, 1.0, 1.0, 1.0)
@@ -224,9 +230,9 @@ def test_expand_launch_counters_and_validation(dev):
         fe.expand_cuda(prev, curr, R0, R1, bands, (k._replace(tw=30),), ig)
     with pytest.raises(RuntimeError, match="launch failed"):   # a window past the frame
         fe.expand_cuda(prev, curr, R0, R1, bands, (k._replace(wr=481),), ig)
-    assert sum(fe.LAUNCHES.values()) == 5
+    assert sum(_launches(fe).values()) == 5
     fe.expand_cuda(prev, curr, R0, R1, bands, (k,), ig)
-    assert fe.LAUNCHES["farneback_expand_fused"] == 4
+    assert _build.LAUNCHES["farneback_expand_fused"] == 4
 
 
 @pytest.mark.parametrize("h,w", [(480, 752), (1024, 1920)])
@@ -273,14 +279,14 @@ def test_dense_scan_never_synchronises(dev):
     syx_d = torch.as_tensor(syx).to(dev)
     detect_sequence_scan(*args, sample_yx=syx_d, **kw)      # fills the caches
     torch.cuda.synchronize()
-    ti.reset_launch_counts()
+    _build.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, hist = detect_sequence_scan(*args, sample_yx=syx_d, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert ti.LAUNCHES["farneback_iterate_fused"] == 13 * (T - 1)
+    assert _build.LAUNCHES["farneback_iterate_fused"] == 13 * (T - 1)
     cpu, cpu_hist = detect_sequence_scan(*(torch.as_tensor(a) for a in host),
                                          sample_yx=torch.as_tensor(syx), **kw)
     np.testing.assert_allclose(hist.buffer.cpu().numpy(), cpu_hist.buffer.numpy(),
@@ -433,10 +439,10 @@ def test_probe_wrappers_count_and_refuse(dev):
     x, sy, fy = sp.shift_inputs(rng, 16, 40, 8, 0, dev)
     g = sp.YGeometry(8, 4, 16, 2)
     slab, ysy, yfy = sp.y_stage_inputs(rng, g, 2, dev)
-    sp.reset_launch_counts()
+    _build.reset_launches()
     sp.shift_chain(x, sy, fy, 8, 0)
     sp.y_stage(slab, ysy, yfy, 8, 2, "T")
-    assert sp.LAUNCHES["shift_chain"] == 1 and sp.LAUNCHES["y_stage_T"] == 1
+    assert _build.LAUNCHES["shift_chain"] == 1 and _build.LAUNCHES["y_stage_T"] == 1
     with pytest.raises(ValueError, match="float32"):
         sp.shift_gather(x.double(), sy, fy, 8, 0)
     with pytest.raises(ValueError, match="shape"):
@@ -447,7 +453,7 @@ def test_probe_wrappers_count_and_refuse(dev):
         sp.y_stage(slab, ysy[:, :-1], yfy, 8, 2, "A")
     with pytest.raises(ValueError, match="float32"):
         sp.y_stage(slab, ysy, yfy.half(), 8, 2, "C")
-    assert sum(sp.LAUNCHES.values()) == 2
+    assert sum(_launches(sp).values()) == 2
     info = sp.kernel_info("y_stage_A", 8, mrows=36)
     assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
     assert info["threads"] == 288 and info["dyn_smem_bytes"] == 4 * 5 * 53 * 36
@@ -519,11 +525,11 @@ def test_detect_frame_batch_on_card_matches_cpu(dev, n, h, w, save_images):
     *args, syx = x
     cfg = det.DetectionStep(foe_samples=syx.shape[1] // 2)
     cpu = det.detect_frame_batch(*args, sample_yx=syx, config=cfg)
-    dr.reset_launch_counts()
+    _build.reset_launches()
     fn = det.detect_frame_batch if save_images else det.detect_frame_batch_scalars
     card = fn(*(a.to(dev) for a in args), sample_yx=syx.to(dev), config=cfg)
     torch.cuda.synchronize()
-    assert dr.LAUNCHES == {k: 1 for k in dr.KERNELS}
+    assert _launches(dr) == {k: 1 for k in dr.KERNELS}
     torch.testing.assert_close(card.foe.cpu(), cpu.foe, rtol=1e-5, atol=1e-4)
     if save_images:
         assert torch.equal(card.total_mask.cpu(), cpu.total_mask)
@@ -555,11 +561,11 @@ def test_detect_rates_in_a_replayed_graph(dev):
     with torch.cuda.stream(s):
         dr.rates_cuda(*call)
     torch.cuda.current_stream().wait_stream(s)
-    dr.reset_launch_counts()
+    _build.reset_launches()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = dr.rates_cuda(*call)
-    assert dr.LAUNCHES == {k: 1 for k in dr.KERNELS}
+    assert _launches(dr) == {k: 1 for k in dr.KERNELS}
     runs = []
     for _ in range(2):
         graph.replay()
@@ -568,7 +574,7 @@ def test_detect_rates_in_a_replayed_graph(dev):
     for a, b, c in zip(*runs, eager):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
         assert torch.equal(a.view(torch.uint8), c.view(torch.uint8))
-    assert dr.LAUNCHES == {k: 1 for k in dr.KERNELS}
+    assert _launches(dr) == {k: 1 for k in dr.KERNELS}
     _assert_rates_equal(dr.Rates(*runs[0]), dr.rates_ref(*(t.cpu() for t in call)),
                         gt_flow, omega, dt)
 
@@ -578,7 +584,7 @@ def test_detect_rates_validation(dev):
     *args, _ = _detect_inputs(2, 30, 40)
     flow, gt_flow, omega, dt, seg, sky, depth, foe = (a.to(dev) for a in args)
     call = [seg, sky, sky, sky, depth, gt_flow, omega, dt, foe]
-    dr.reset_launch_counts()
+    _build.reset_launches()
     with pytest.raises(ValueError, match="depth"):
         dr.rates_cuda(*call[:4], depth[:, :-1], *call[5:])
     with pytest.raises(ValueError, match="dt"):
@@ -587,7 +593,7 @@ def test_detect_rates_validation(dev):
         dr.rates_cuda(seg.to(torch.int32), *call[1:])
     with pytest.raises(ValueError, match="depth must be a torch.float32 CUDA"):
         dr.rates_cuda(*call[:4], depth.cpu(), *call[5:])
-    assert sum(dr.LAUNCHES.values()) == 0
+    assert sum(_launches(dr).values()) == 0
 
 
 @pytest.mark.parametrize("field,dtype", [("segmentation", torch.int32),
@@ -602,9 +608,9 @@ def test_detect_frame_batch_on_card_refuses_other_dtypes(dev, field, dtype):
         a.to(dev) for a in _detect_inputs(2, 30, 40))
     kw = dict(segmentation=seg, depth=depth, gt_flow_uv=gt_flow)
     kw[field] = kw[field].to(dtype)
-    dr.reset_launch_counts()
+    _build.reset_launches()
     with pytest.raises(ValueError, match=f"{field} must be a"):
         det.detect_frame_batch(flow, kw["gt_flow_uv"], omega, dt, kw["segmentation"], sky,
                                kw["depth"], foe, sample_yx=syx,
                                config=det.DetectionStep(foe_samples=100))
-    assert sum(dr.LAUNCHES.values()) == 0
+    assert sum(_launches(dr).values()) == 0

@@ -28,7 +28,7 @@ from scipy.ndimage import gaussian_filter, shift as nd_shift
 from mav_detection_tpu.ops.flow import farneback as jf
 from mav_detection_tpu.ops.flow.farneback_pallas import farneback_iterate_pallas
 
-from mav_detection_tpu_torch import convert
+from mav_detection_tpu_torch import _build, convert
 from mav_detection_tpu_torch.ops.flow import farneback as tf
 from mav_detection_tpu_torch.ops.flow import farneback_iter as ti
 
@@ -219,7 +219,7 @@ class TestTiledKernelBudget:
 
     @pytest.mark.parametrize("win,S", [(12, 300), (12, 500), (60, 64)])
     def test_overrun_refused(self, win, S):
-        assert ti.tiled_smem_bytes(ti.TILE, win // 2, S) > ti.MAX_SMEM_BYTES
+        assert ti.tiled_smem_bytes(ti.TILE, win // 2, S) > _build.MAX_SMEM_BYTES
         with pytest.raises(ValueError, match="shared memory"):
             ti.tiled_launch_smem(ti.TILE, win, S)
 
@@ -227,10 +227,10 @@ class TestTiledKernelBudget:
     def test_free_max_shift_up_to_the_limit(self, tile):
         """max_shift is a free parameter: S=32 fits every tile, and the
         largest S that fits is taken, the next one refused."""
-        assert ti.tiled_launch_smem(tile, 12, 32) <= ti.MAX_SMEM_BYTES
+        assert ti.tiled_launch_smem(tile, 12, 32) <= _build.MAX_SMEM_BYTES
         S = max(s for s in range(512)
-                if ti.tiled_smem_bytes(tile, 6, s) <= ti.MAX_SMEM_BYTES)
-        assert ti.tiled_launch_smem(tile, 12, S) <= ti.MAX_SMEM_BYTES
+                if ti.tiled_smem_bytes(tile, 6, s) <= _build.MAX_SMEM_BYTES)
+        assert ti.tiled_launch_smem(tile, 12, S) <= _build.MAX_SMEM_BYTES
         with pytest.raises(ValueError, match="shared memory"):
             ti.tiled_launch_smem(tile, 12, S + 1)
 
@@ -289,7 +289,7 @@ class TestStripGeometry:
         vs = _first_at_least(g.strip + 2 * m + 1, 8)
         want = 4 * (5 * awp * (2 * S + 1 + 8) + 5 * awp * 8 + 5 * vs * 8)
         assert g.smem_bytes == want == ti.strip_smem_bytes(g.strip, m, S)
-        assert g.smem_bytes <= ti.MAX_SMEM_BYTES
+        assert g.smem_bytes <= _build.MAX_SMEM_BYTES
 
     def test_ring_bytes_of_the_main_shapes(self):
         # 752x480 b=8 S=8: 7 strips of 108: A window 137 + 6 -> 168 floats,
@@ -329,9 +329,9 @@ class TestStripGeometry:
         227 KB is refused before any launch, the one before it taken."""
         m = win // 2
         widest = ti.STRIP_COLS - 2 * m
-        assert ti.strip_launch_smem(widest, win, S) <= ti.MAX_SMEM_BYTES
+        assert ti.strip_launch_smem(widest, win, S) <= _build.MAX_SMEM_BYTES
         over = min(s for s in range(S, 512)
-                   if ti.strip_smem_bytes(widest, m, s) > ti.MAX_SMEM_BYTES)
+                   if ti.strip_smem_bytes(widest, m, s) > _build.MAX_SMEM_BYTES)
         ti.strip_launch_smem(widest, win, over - 1)
         with pytest.raises(ValueError, match="shared memory"):
             ti.strip_launch_smem(widest, win, over)
