@@ -38,6 +38,16 @@ Phases, each printing one line (plus its seconds):
                drone's mean flow within RATES_FLOW_TOL; timed in turns
                (plain, kernel, kernel, plain; replayed CUDA graphs) beside
                rates_bound (its inputs read once).
+ 3d. lookup  — the RAFT lookup's gather (csrc/raft_lookup.cu) against its
+               plain version on the card (grid_sample through cuDNN, and
+               through ATen's native sampler) at b=8 and b=1 on the RAFT
+               cell's 60x94 grid, coordinates on whole pixels, half pixels
+               and spread: taps within LOOKUP_TOL of the volume's scale;
+               timed in turns beside lookup_bound (each window read once,
+               the taps written once), registers and shared memory; the
+               published RAFT at b=8 752x480 with the kernel (12 launches)
+               and with the plain lookup, mean distance of the flows within
+               LOOKUP_FLOW_TOL_PX.
  3b. probes  — the TPU probe kernels of tools/, ported as
                csrc/shift_probes.cu: shift_chain, shift_gather and the y
                stage in forms A, B, C, D and T, each equal (torch.equal) to
@@ -303,6 +313,10 @@ KERNEL_ROWS = {
     # (mav_detection_tpu/pipeline/detector.py)
     "detect_rates": dict(route="cuda", source="mav_detection_tpu_torch/csrc/detect_rates.cu",
                          replaces=None, sites=()),
+    # replaces no pallas_call: the reference's lookup is XLA gathers
+    # (mav_detection_tpu/models/raft.py)
+    "raft_lookup": dict(route="cuda", source="mav_detection_tpu_torch/csrc/raft_lookup.cu",
+                        replaces=None, sites=()),
 }
 # the band kernel against the matmuls it replaces: within this share of the
 # coefficients' largest magnitude (ROADMAP B9)
@@ -313,6 +327,14 @@ EXPAND_TOL = 1e-5
 # degrees; counts exact
 RATES_FLOW_TOL = 1e-6
 RATES_PHI_TOL = 1e-5
+# the RAFT lookup's kernel against its plain version on the card: taps within
+# this share of the volume's largest magnitude (bit-equal to ATen's native
+# sampler; cuDNN's, which grid_sample takes on the card, rounds elsewhere);
+# the published RAFT's flow with the kernel against the plain lookup, b=8
+# 752x480, 12 iterations: mean end-point distance within LOOKUP_FLOW_TOL_PX
+# (a lookup that reads the wrong taps moves it by pixels: PERF.md §2)
+LOOKUP_TOL = 1e-6
+LOOKUP_FLOW_TOL_PX = 1e-2
 # the y stage's share of one farneback_iterate_fused launch at b=8 480x752,
 # predicted in PERF.md before it was measured: the two-tap form T on
 # the kernel's 32x64 tile geometry (1440 tiles), sy in runs of 32 columns
@@ -762,6 +784,138 @@ def _rates_row(rt: dict, launches: dict) -> dict:
                                      "plan")},
             "library_ms": None, "library_note": "no one PyTorch call computes the counts",
             "tolerance": RATES_FLOW_TOL, "check": "pass", "other_shapes": rt["shapes"]}
+
+
+def _lookup_inputs(dev, b: int, h: int, w: int, shift: str):
+    """A seeded four-level pyramid of a (b, h, w, h, w) volume and
+    coordinates on whole pixels, half pixels or spread around the grid
+    (std 6 px, some outside the map)."""
+    import torch
+
+    from mav_detection_tpu_torch.models import raft as tr
+
+    g = torch.Generator(device=dev).manual_seed(b * h * w)
+    pyr = tr.build_corr_pyramid(torch.randn(b, h, w, h, w, device=dev, generator=g) * 3, 4)
+    grid = tr.coords_grid(b, h, w, dev)
+    if shift == "whole":
+        return pyr, grid
+    if shift == "half":
+        return pyr, grid + 0.5
+    return pyr, grid + torch.randn(b, 2, h, w, device=dev, generator=g) * 6
+
+
+def phase_lookup(dev, shapes=((8, 60, 94), (1, 60, 94)), reps: int = 20,
+                 raft_hw=(480, 752)) -> dict:
+    """The RAFT lookup's kernel (``raft_lookup.lookup_cuda``) against its
+    plain version (``lookup_ref``, eager on the card: ``grid_sample`` through
+    cuDNN, and with cuDNN off through ATen's native sampler) per (b, h, w) of
+    ``shapes`` (the 1/8 grid; b=8 60x94 is the RAFT cell's) and coordinates
+    on whole pixels, half pixels and spread: taps within LOOKUP_TOL of the
+    volume's scale of both; then timed in turns (plain, kernel, kernel,
+    plain; replayed CUDA graphs of ``reps`` calls) beside its bound
+    (``lookup_bound``), with the plan, the launches a call and the kernel's
+    resources. Last, the published RAFT at b=8 ``raft_hw`` (random weights,
+    bf16, 12 iterations) with the kernel and with the plain lookup: the
+    launches and the flows' mean distance (within LOOKUP_FLOW_TOL_PX)."""
+    import torch
+
+    from mav_detection_tpu_torch.models import raft as tr
+    from mav_detection_tpu_torch.models import raft_lookup as rl
+
+    out = []
+    for b, h, w in shapes:
+        checks = {}
+        for shift in ("whole", "half", "spread"):
+            pyr, coords = _lookup_inputs(dev, b, h, w, shift)
+            _build.reset_launches()
+            got = rl.lookup_cuda(pyr, coords, 4)
+            launches = {k: _build.LAUNCHES[k] for k in rl.KERNELS}
+            want = rl.lookup_ref(pyr, coords, 4)
+            with torch.backends.cudnn.flags(enabled=False):
+                native = rl.lookup_ref(pyr, coords, 4)
+            torch.cuda.synchronize()
+            scale = float(max(v.abs().max() for v in pyr))
+            err = {k: float((got - ref).abs().max()) / scale
+                   for k, ref in (("cudnn", want), ("native", native))}
+            checks[shift] = {"rel_err_cudnn": err["cudnn"], "rel_err_native": err["native"],
+                             "equal_native": bool(torch.equal(got, native)),
+                             "equal_cudnn": bool(torch.equal(got, want)),
+                             "cudnn_vs_native": float((want - native).abs().max()) / scale}
+            if not (err["cudnn"] <= LOOKUP_TOL and err["native"] <= LOOKUP_TOL):
+                raise AssertionError(f"lookup b={b} {h}x{w} {shift}: taps {err} of the "
+                                     f"volume's scale")
+        shapes_l = [tuple(v.shape[3:]) for v in pyr]
+        turns = [("plain", graph_ms(lambda: rl.lookup_ref(pyr, coords, 4), reps)),
+                 ("kernel", graph_ms(lambda: rl.lookup_cuda(pyr, coords, 4), reps)),
+                 ("kernel", graph_ms(lambda: rl.lookup_cuda(pyr, coords, 4), reps)),
+                 ("plain", graph_ms(lambda: rl.lookup_ref(pyr, coords, 4), reps))]
+        ms = sum(t for d, t in turns if d == "kernel") / 2
+        bound, by = rl.lookup_bound(b, h, w, shapes_l)
+        out.append({"shape": f"b={b} {h}x{w}", "levels": [list(s) for s in shapes_l],
+                    "ms": ms, "plain_ms": sum(t for d, t in turns if d == "plain") / 2,
+                    "bound_ms": bound, "bound_by": by, "share": bound / ms,
+                    "bytes": rl.lookup_bytes(b, h, w, shapes_l),
+                    "plan": rl.plan(b, h, w, len(pyr))._asdict(),
+                    "resources": rl.kernel_info(), "launches": launches, "checks": checks,
+                    "turns": [[d, t] for d, t in turns]})
+        del pyr, coords, got, want, native
+    # the published RAFT with the kernel, and with the plain lookup in its place
+    model = tr.BasicRAFT(tr.RAFT_BASIC)
+    tr.init_basic_params(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x1 = torch.rand(8, 3, *raft_hw, device=dev, generator=g) * 255
+    x2 = torch.roll(x1, (3, 5), dims=(2, 3))
+    cfg = tr.RAFT_BASIC
+    with torch.no_grad():
+        _build.reset_launches()
+        flow = model(x1, x2, cfg.iters, cfg)
+        raft_launches = {k: _build.LAUNCHES[k] for k in rl.KERNELS}
+        kernel_fn = tr.lookup_corr_all_pairs
+        tr.lookup_corr_all_pairs = rl.lookup_ref
+        try:
+            plain = model(x1, x2, cfg.iters, cfg)
+        finally:
+            tr.lookup_corr_all_pairs = kernel_fn
+    torch.cuda.synchronize()
+    epe = float((flow - plain).norm(dim=1).mean())
+    if raft_launches != {"raft_lookup": cfg.iters} or not epe <= LOOKUP_FLOW_TOL_PX:
+        raise AssertionError(f"lookup in BasicRAFT: launches {raft_launches}, flow "
+                             f"{epe} px (mean) from the plain lookup's")
+    return {"shapes": out, "raft": {"size": f"b=8 {raft_hw[1]}x{raft_hw[0]}",
+                                    "iters": cfg.iters, "launches": raft_launches,
+                                    "flow_epe_px": epe,
+                                    "flow_max_diff_px": float((flow - plain).abs().max()),
+                                    "equal": bool(torch.equal(flow, plain)),
+                                    "flow_mean_px": float(plain.norm(dim=1).mean())}}
+
+
+def _say_lookup(lk: dict, smi: str, seconds: float) -> None:
+    for r in lk["shapes"]:
+        say(f"[lookup]  {r['shape']} levels {json.dumps(r['levels'])} on {smi}: "
+            f"{r['ms']:.5f} ms against the bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+            f"{r['bytes']} bytes, share {r['share']:.3f}); plain {r['plain_ms']:.5f} ms; "
+            f"in turns {json.dumps([[d, round(t, 5)] for d, t in r['turns']])}; plan "
+            f"{json.dumps(r['plan'])}; resources {json.dumps(r['resources'])}; launches a "
+            f"call {json.dumps(r['launches'])}; taps {json.dumps(r['checks'])}")
+    rf = lk["raft"]
+    say(f"[lookup] BasicRAFT {rf['size']}, {rf['iters']} iterations: launches "
+        f"{json.dumps(rf['launches'])}, flow {rf['flow_epe_px']:.3g} px mean, "
+        f"{rf['flow_max_diff_px']:.3g} px at most from the plain lookup's (equal: "
+        f"{rf['equal']}; mean flow {rf['flow_mean_px']:.3f} px) ({seconds:.1f} s)")
+
+
+def _lookup_row(lk: dict) -> dict:
+    """The kernels-line row of the lookup kernel: b=8 60x94 (the RAFT
+    cell's grid), the other shapes beside."""
+    first = lk["shapes"][0]
+    return {"name": "raft_lookup", **KERNEL_ROWS["raft_lookup"],
+            "launches": lk["raft"]["launches"]["raft_lookup"],
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "shape",
+                                     "plan", "resources")},
+            "library_ms": None,
+            "library_note": "grid_sample is the plain version's call, timed as plain_ms",
+            "tolerance": LOOKUP_TOL, "check": "pass", "other_shapes": lk["shapes"][1:]}
 
 
 def _library_lerp(x, sy, fy, S: int, axis: int):
@@ -4904,14 +5058,17 @@ def main(argv=None) -> int:
                                               _build.BUILD_LOGS["farneback_expand"])]
     rates_regs = [int(n) for n in re.findall(r"Used (\d+) registers",
                                              _build.BUILD_LOGS["detect_rates"])]
+    lookup_regs = [int(n) for n in re.findall(r"Used (\d+) registers",
+                                              _build.BUILD_LOGS["raft_lookup"])]
     say(f"[build] csrc/farneback_iter.cu, csrc/farneback_expand.cu, "
-        f"csrc/detect_rates.cu and "
+        f"csrc/detect_rates.cu, csrc/raft_lookup.cu and "
         f"csrc/shift_probes.cu (nvcc), runtime/native/loader.cpp and "
         f"runtime/native/png.cpp (g++), started together, built and loaded in "
         f"{build_s:.2f} s; ptxas farneback_iter: {json.dumps(ptxas)}; ptxas "
         f"shift_probes, registers of its {len(probe_regs)} instances: {probe_regs}; "
         f"ptxas farneback_expand, registers of its {len(expand_regs)} kernels: "
-        f"{expand_regs}; ptxas detect_rates: {rates_regs}")
+        f"{expand_regs}; ptxas detect_rates: {rates_regs}; ptxas raft_lookup: "
+        f"{lookup_regs}")
 
     if ranks:
         return main_multi(dev, ranks, smi)
@@ -4936,6 +5093,11 @@ def main(argv=None) -> int:
     rates = phase_rates(dev)
     times["rates"] = time.perf_counter() - t0
     _say_rates(rates, smi, times["rates"])
+
+    t0 = time.perf_counter()
+    lookup = phase_lookup(dev)
+    times["lookup"] = time.perf_counter() - t0
+    _say_lookup(lookup, smi, times["lookup"])
 
     t0 = time.perf_counter()
     say("[probes] the TPU probe kernels of tools/, ported (csrc/shift_probes.cu), "
@@ -5275,6 +5437,7 @@ def main(argv=None) -> int:
         "launches": sum(runs[0]["detect_rates_launches"].values()),
         "launches_per_kernel": runs[0]["detect_rates_launches"],
         "launches_1920x1024": sum(runs[1]["detect_rates_launches"].values())}))
+    rows.append(_lookup_row(lookup))
     say(json.dumps({"nets": {k: nets[k] for k in ("load", "sky", "raft", "stages")},
                     "datasets": {key: dsets[key] for key in (
                         "midgard", "midgard_card_vs_cpu", "png", "sim")},

@@ -1,6 +1,6 @@
 """Build and load the port's native libraries.
 
-Six sources, each compiled at first use into a shared library with a
+Seven sources, each compiled at first use into a shared library with a
 plain C interface and loaded with ``ctypes``:
 
 * ``"farneback_iter"``: ``csrc/farneback_iter.cu``, the solver iteration's
@@ -16,6 +16,10 @@ plain C interface and loaded with ``ctypes``:
   per-frame rates (``ops/image/detect_rates.py``), the same way and with
   ``farneback_iter``'s flags (the rotational field rounds as the plain
   version's float32 operations do).
+* ``"raft_lookup"``: ``csrc/raft_lookup.cu``, the published RAFT's all-pairs
+  lookup (``models/raft_lookup.py``), the same way and with
+  ``farneback_iter``'s flags (the taps round as the sampler's float32
+  operations do).
 * ``"shift_probes"``: ``csrc/shift_probes.cu``, the probe kernels of the
   warp's shifted reads (``ops/flow/shift_probes.py``), the same way and with
   ``farneback_iter``'s flags.
@@ -29,7 +33,8 @@ library is named by a hash of its source and flags, so an edited source
 rebuilds. ``build`` starts one compiler process per source that is not built
 yet, all together, and then waits for them; ``load`` builds what it needs
 (either flow kernel builds the whole Farneback main path, ``MAIN_PATH``, in
-parallel; the rates alone build only themselves, ``BUILT_WITH``) and sets
+parallel, the RAFT lookup the rates beside it, ``RAFT_PATH``; the rates
+alone build only themselves: ``BUILT_WITH``) and sets
 the library's argtypes once.
 
 Only the repo's own sources are compiled; there is no prebuilt artifact. A
@@ -139,6 +144,14 @@ def _bind_detect_rates(lib: ctypes.CDLL) -> None:
         fn.restype = i
 
 
+def _bind_raft_lookup(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.raft_lookup.argtypes = [p, p, p, p] + [i] * 9 + [p, i, i, i, i, p, p]
+    lib.raft_lookup.restype = i
+    lib.raft_lookup_info.argtypes = [p]
+    lib.raft_lookup_info.restype = i
+
+
 def _bind_shift_probes(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.shift_chain, lib.shift_gather):
@@ -200,6 +213,8 @@ SOURCES: Dict[str, _Source] = {
                                 NVCC_FMA_FLAGS, BUILD_DIR, _bind_expand),
     "detect_rates": _Source(PKG_DIR / "csrc" / "detect_rates.cu", _nvcc, NVCC_FLAGS,
                             BUILD_DIR, _bind_detect_rates),
+    "raft_lookup": _Source(PKG_DIR / "csrc" / "raft_lookup.cu", _nvcc, NVCC_FLAGS,
+                           BUILD_DIR, _bind_raft_lookup),
     "shift_probes": _Source(PKG_DIR / "csrc" / "shift_probes.cu", _nvcc,
                             NVCC_FLAGS, BUILD_DIR, _bind_shift_probes),
     "loader": _Source(PKG_DIR / "runtime" / "native" / "loader.cpp", _gxx,
@@ -209,11 +224,14 @@ SOURCES: Dict[str, _Source] = {
 }
 
 # the Farneback main path's kernels: loading either flow kernel builds all
-# three, in parallel; loading the rates alone (a RAFT flow path, which needs
-# neither flow kernel) builds only the rates
+# three, in parallel; the published RAFT's path needs neither flow kernel:
+# loading its lookup builds the rates beside it; loading the rates alone
+# builds only the rates
 MAIN_PATH = ("farneback_iter", "farneback_expand", "detect_rates")
+RAFT_PATH = ("raft_lookup", "detect_rates")
 BUILT_WITH: Dict[str, Tuple[str, ...]] = {"farneback_iter": MAIN_PATH,
-                                          "farneback_expand": MAIN_PATH}
+                                          "farneback_expand": MAIN_PATH,
+                                          "raft_lookup": RAFT_PATH}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -48,11 +48,12 @@ Two networks, which the entry points take alike:
   / 128 with two residual blocks a layer, instance norm in fnet (256) and
   eval-mode batch norm in cnet (hidden 128 + context 128), convolutions
   padded k // 2 on both sides; the all-pairs volume, 4 levels, radius 4,
-  sampled with ``grid_sample(align_corners=True)`` and zeros outside, taps
-  ordered level, x offset, y offset; ``BasicMotionEncoder``, ``SepConvGRU``
-  (1x5 then 5x1), the 256-wide flow head; coordinates carried as
-  ``coords1``; the convex upsample with zeros beyond the border and the
-  mask scaled by 0.25; images normalised as ``2 * (x / 255) - 1``; 12
+  sampled as ``grid_sample(align_corners=True)`` samples, zeros outside
+  (``models/raft_lookup.py``: the plain version on the CPU, a CUDA gather
+  on the card), taps ordered level, x offset, y offset;
+  ``BasicMotionEncoder``, ``SepConvGRU`` (1x5 then 5x1), the 256-wide flow
+  head; coordinates carried as ``coords1``; the convex upsample with zeros
+  beyond the border and the mask scaled by 0.25; images normalised as ``2 * (x / 255) - 1``; 12
   iterations. Its departures from the published code: bfloat16 in place of
   the fp16 of ``--mixed_precision``, with the same split (every
   convolution in ``dtype``, the flow and mask heads too, as the published
@@ -95,6 +96,7 @@ from mav_detection_tpu_torch.models.layers import (
     current_rows,
     init_params,
 )
+from mav_detection_tpu_torch.models.raft_lookup import lookup_corr_all_pairs
 from mav_detection_tpu_torch.ops.geometry.warp import sample_bilinear_replicate
 from mav_detection_tpu_torch.ops.image.resize import resize_frames
 from mav_detection_tpu_torch.utils.device import resolve_device
@@ -585,41 +587,6 @@ def coords_grid(b: int, h: int, w: int, device) -> torch.Tensor:
     ys, xs = torch.meshgrid(torch.arange(h, device=device), torch.arange(w, device=device),
                             indexing="ij")
     return torch.stack([xs, ys]).to(torch.float32)[None].repeat(b, 1, 1, 1)
-
-
-def bilinear_sampler_zeros(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """``bilinear_sampler``: (n, c, H, W) sampled at (n, ..., 2) pixel
-    coordinates (x, y), bilinear, zero outside the map
-    (``grid_sample(align_corners=True)``). A map one pixel high or wide gets
-    a one-pixel border of zeros first: ``align_corners`` cannot place a
-    coordinate on a single pixel, and the border leaves every tap's value as
-    it is."""
-    H, W = img.shape[-2:]
-    if H == 1 or W == 1:
-        img, coords, H, W = F.pad(img, (1, 1, 1, 1)), coords + 1, H + 2, W + 2
-    x, y = coords.split([1, 1], dim=-1)
-    grid = torch.cat([2 * x / (W - 1) - 1, 2 * y / (H - 1) - 1], dim=-1)
-    return F.grid_sample(img, grid, align_corners=True)
-
-
-def lookup_corr_all_pairs(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
-                          radius: int) -> torch.Tensor:
-    """``CorrBlock.__call__``: each level of the all-pairs pyramid ((b, h, w,
-    th, tw) volumes) sampled in a (2r+1)^2 window around ``coords`` / 2^level
-    ((b, 2, h, w), x then y), zero outside -> (b, levels * (2r+1)^2, h, w)
-    fp32. Taps in the published order: level, then the x offset, then the y
-    offset (``meshgrid(dy, dx)`` added to (x, y))."""
-    b, _, h, w = coords.shape
-    n = 2 * radius + 1
-    d = torch.linspace(-radius, radius, n, device=coords.device)
-    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), dim=-1).view(1, n, n, 2)
-    centroid = coords.permute(0, 2, 3, 1).reshape(b * h * w, 1, 1, 2)
-    outs = []
-    for lvl, corr in enumerate(pyramid):
-        vol = corr.reshape(b * h * w, 1, corr.shape[3], corr.shape[4])
-        taps = bilinear_sampler_zeros(vol, centroid / 2 ** lvl + delta)
-        outs.append(taps.view(b, h, w, -1))
-    return torch.cat(outs, dim=-1).permute(0, 3, 1, 2).contiguous().float()
 
 
 def convex_upsample_zeros(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

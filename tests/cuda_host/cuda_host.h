@@ -1,9 +1,10 @@
 // A host stand-in for the CUDA runtime, enough to compile the solver
 // iteration's kernels (mav_detection_tpu_torch/csrc/farneback_iter.cu, its
-// device part), the probe kernels (csrc/shift_probes.cu) and the
-// polynomial expansion's (csrc/farneback_expand.cu) as C++ and run them on
-// the CPU: one std::thread per CUDA thread, std::barrier for
-// __syncthreads, a per-warp exchange for the shuffles, cp.async and
+// device part), the probe kernels (csrc/shift_probes.cu), the polynomial
+// expansion's (csrc/farneback_expand.cu), the rates (csrc/detect_rates.cu)
+// and the RAFT lookup (csrc/raft_lookup.cu) as C++ and run them on the
+// CPU: one std::thread per CUDA thread, std::barrier for __syncthreads and
+// __syncwarp, a per-warp exchange for the shuffles, cp.async and
 // cp.async.bulk as queued copies (below). Float arithmetic is the host's
 // IEEE single precision without contraction (-ffp-contract=off), as the
 // kernels' -fmad=false builds are on the card, so the results compare bit
@@ -45,6 +46,7 @@ thread_local float* g_warp_buf;
 thread_local float* g_smem;
 
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_bar->arrive_and_wait(); }
 
 inline float exchange(float v, int src) {
   const int lane = threadIdx.x & 31;

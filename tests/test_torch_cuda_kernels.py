@@ -3,7 +3,9 @@
 the tile design's blocks; the polynomial expansion's band kernel
 (``farneback_expand``) on its fused and two-pass routes; the detection
 step's rates (``detect_rates``), alone, inside ``detect_frame_batch`` and
-in a replayed CUDA graph.
+in a replayed CUDA graph; the published RAFT's lookup (``raft_lookup``),
+alone at the RAFT cell's shapes and inside ``BasicRAFT`` in a replayed CUDA
+graph.
 
 These need an NVIDIA card with nvcc (they build csrc/ at first use) and skip
 elsewhere. On a machine with one (``--noconftest`` where jax is not
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from mav_detection_tpu_torch import _build
+from mav_detection_tpu_torch.models import raft as tr
+from mav_detection_tpu_torch.models import raft_lookup as rl
 from mav_detection_tpu_torch.ops.flow import farneback as tf
 from mav_detection_tpu_torch.ops.flow import farneback_expand as fe
 from mav_detection_tpu_torch.ops.flow import farneback_iter as ti
@@ -614,3 +618,101 @@ def test_detect_frame_batch_on_card_refuses_other_dtypes(dev, field, dtype):
                                kw["depth"], foe, sample_yx=syx,
                                config=det.DetectionStep(foe_samples=100))
     assert sum(_launches(dr).values()) == 0
+
+
+# the lookup's taps against the plain version on the card, as a share of the
+# volume's largest magnitude (chip_smoke.LOOKUP_TOL)
+LOOKUP_TOL = 1e-6
+
+
+def _lookup_inputs(dev, b, h, w, shift, levels=4, seed=0):
+    """A seeded pyramid of a (b, h, w, h, w) volume and coordinates on
+    whole pixels, half pixels or spread around the grid (std 6 px)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pyr = tr.build_corr_pyramid(torch.randn(b, h, w, h, w, device=dev, generator=g) * 3,
+                                levels)
+    grid = tr.coords_grid(b, h, w, dev)
+    offset = {"whole": 0.0, "half": 0.5,
+              "spread": torch.randn(b, 2, h, w, device=dev, generator=g) * 6}[shift]
+    return pyr, grid + offset
+
+
+@pytest.mark.parametrize("shift", ["whole", "half", "spread"])
+def test_raft_lookup_matches_plain_version(dev, shift):
+    """At the RAFT cell's shapes (b=8, 60x94, four levels, radius 4): one
+    launch, taps within LOOKUP_TOL of the volume's scale of the plain
+    version, through cuDNN's sampler and through ATen's native one."""
+    pyr, coords = _lookup_inputs(dev, 8, 60, 94, shift)
+    _build.reset_launches()
+    got = rl.lookup_cuda(pyr, coords, 4)
+    assert _launches(rl) == {"raft_lookup": 1}
+    scale = float(max(v.abs().max() for v in pyr))
+    want = rl.lookup_ref(pyr, coords, 4)
+    with torch.backends.cudnn.flags(enabled=False):
+        native = rl.lookup_ref(pyr, coords, 4)
+    assert got.shape == want.shape == (8, 324, 60, 94)
+    for ref in (want, native):
+        assert float((got - ref).abs().max()) <= LOOKUP_TOL * scale
+    assert torch.equal(rl.lookup_corr_all_pairs(pyr, coords, 4), got)
+
+
+def test_raft_lookup_in_basic_raft_replayed_graph(dev, monkeypatch):
+    """The published RAFT (random weights, float32, 12 iterations, b=2
+    128x192) captured in a CUDA graph: 12 launches at capture, the same
+    bits on every replay, and the flow of the plain lookup in the kernel's
+    place within 1e-3 px."""
+    import dataclasses
+
+    model = tr.BasicRAFT(tr.RAFT_BASIC)
+    tr.init_basic_params(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    cfg = dataclasses.replace(tr.RAFT_BASIC, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x1 = torch.rand(2, 3, 128, 192, device=dev, generator=g) * 255
+    x2 = torch.roll(x1, (2, 3), dims=(2, 3))
+    with torch.no_grad():
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            eager = model(x1, x2, 12, cfg)
+        torch.cuda.current_stream().wait_stream(s)
+        _build.reset_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = model(x1, x2, 12, cfg)
+        assert _launches(rl) == {"raft_lookup": 12}
+        runs = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            runs.append(out.clone())
+        assert _launches(rl) == {"raft_lookup": 12}
+        assert torch.equal(runs[0], runs[1])
+        assert torch.allclose(runs[0], eager, rtol=0, atol=1e-4)
+        monkeypatch.setattr(tr, "lookup_corr_all_pairs", rl.lookup_ref)
+        plain = model(x1, x2, 12, cfg)
+    assert _launches(rl) == {"raft_lookup": 12}
+    assert float((runs[0] - plain).abs().max()) <= 1e-3
+
+
+def test_raft_lookup_validation(dev):
+    """What the kernel does not take is a ValueError, no launch, and on the
+    card no plain version runs in its place: bf16 coordinates or volumes,
+    non-contiguous coordinates, another radius, more than four levels, a
+    volume of another batch."""
+    pyr, coords = _lookup_inputs(dev, 2, 6, 9, "spread", levels=3)
+    strided = coords.transpose(2, 3).contiguous().transpose(2, 3)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="coords must be a contiguous torch.float32 CUDA"):
+        rl.lookup_corr_all_pairs(pyr, coords.to(torch.bfloat16), 4)
+    with pytest.raises(ValueError, match="coords must be a contiguous torch.float32 CUDA"):
+        rl.lookup_cuda(pyr, strided, 4)
+    with pytest.raises(ValueError, match=r"pyramid\[1\] must be a contiguous torch.float32"):
+        rl.lookup_cuda([pyr[0], pyr[1].to(torch.bfloat16), pyr[2]], coords, 4)
+    with pytest.raises(ValueError, match="radius 4"):
+        rl.lookup_corr_all_pairs(pyr, coords, 3)
+    with pytest.raises(ValueError, match="1 to 4 levels"):
+        rl.lookup_cuda(pyr + pyr[:2], coords, 4)
+    with pytest.raises(ValueError, match=r"pyramid\[0\]: shape"):
+        rl.lookup_cuda([pyr[0][:1]], coords, 4)
+    assert _launches(rl) == {"raft_lookup": 0}

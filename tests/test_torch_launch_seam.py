@@ -16,6 +16,7 @@ from mav_detection_tpu_torch import _build
 WRAPPERS = ("mav_detection_tpu_torch.ops.flow.farneback_iter",
             "mav_detection_tpu_torch.ops.flow.farneback_expand",
             "mav_detection_tpu_torch.ops.image.detect_rates",
+            "mav_detection_tpu_torch.models.raft_lookup",
             "mav_detection_tpu_torch.ops.flow.shift_probes")
 
 
